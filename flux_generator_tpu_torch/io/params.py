@@ -1,0 +1,105 @@
+"""Parameter bridge and tree helpers.
+
+Parameters keep the JAX package's tree layout: nested dicts (and lists for
+heterogeneous VAE levels) of tensors, dense kernels stored (in, out), convs
+HWIO, homogeneous transformer stacks stacked on a leading layer axis, and
+quantized dense leaves under `kernel_q` (int8), `kernel_q4` (uint8, two int4
+nibbles per byte, split layout) and `kernel_scale` (f32, (…, out) per channel
+or (…, groups, out) per input group). So one converter serves trees built by
+the JAX package (tests) and, later, checkpoints mapped by the jax-free
+`flux_generator_tpu.io.sanitize`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+
+def tree_map(fn: Callable, tree):
+    """Apply `fn` to every leaf of a dict/list/tuple tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def take_layer(tree, i: int):
+    """Layer `i` of a stacked (leading layer axis) subtree — the loop body's
+    view where the JAX package scans."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def num_layers(tree) -> int:
+    return tree_leaves(tree)[0].shape[0]
+
+
+def stack_layers(make_layer: Callable, n: int):
+    """Build `n` layers with `make_layer()` into one tree stacked on a leading
+    axis, writing each layer into preallocated tensors as it is drawn: the
+    transient is one layer, not a second copy of the stack (which matters at
+    full width, where a stack is up to 13 GB in bf16)."""
+    first = make_layer()
+    out = tree_map(lambda x: x.new_empty((n, *x.shape)), first)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make_layer(), i)
+    return out
+
+
+def _np_to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    name = a.dtype.name
+    if name == "bfloat16":  # ml_dtypes.bfloat16: reinterpret the raw bits
+        return torch.from_numpy(np.array(a, copy=True).view(np.int16)).view(torch.bfloat16)
+    if name == "int4":  # native int4 (unpacked) weights widen to int8
+        a = a.astype(np.int8)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def to_torch(tree, device=None, dtype=None):
+    """numpy (or array-like) leaf tree → torch tensors on `device`. `dtype`,
+    when given, casts floating leaves only; integer (quantized) leaves keep
+    their type."""
+
+    def conv(a):
+        if isinstance(a, (int, float, bool)) or a is None:
+            return a
+        t = _np_to_torch(a)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device) if device is not None else t
+
+    return tree_map(conv, tree)
+
+
+def _torch_to_np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def to_numpy(tree):
+    """torch tensor tree → numpy arrays (bf16 as ml_dtypes.bfloat16)."""
+    return tree_map(lambda t: _torch_to_np(t) if isinstance(t, torch.Tensor) else t, tree)

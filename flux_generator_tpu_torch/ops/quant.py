@@ -1,0 +1,107 @@
+"""Weight-only quantization (counterpart of flux_generator_tpu/ops/quant.py).
+
+Symmetric per-output-channel or per-input-group quantization of (in, out)
+dense kernels, with f32 scales: int8 under `kernel_q`, or int4 packed two per
+byte under `kernel_q4` in the SPLIT nibble layout — packed row r holds
+original row r in the low nibble and row r + in/2 in the high nibble, both
+biased by +8. The int4 matmul kernel (ops/kernels/int4_matmul.py) reads that
+layout directly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """(…, in, out) ints in [-8, 7] → (…, in/2, out) uint8, split layout."""
+    q = q.to(torch.int32) + 8
+    half = q.shape[-2] // 2
+    lo = q[..., :half, :]
+    hi = q[..., half:, :]
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
+    """Inverse of pack_int4: (…, in/2, out) uint8 → (…, in, out)."""
+    p = packed.to(torch.int32)
+    low = (p & 0xF) - 8
+    high = (p >> 4) - 8
+    return torch.cat([low, high], dim=-2).to(dtype)
+
+
+def _quantize_2d(kern: torch.Tensor, qmax: float, group_size):
+    """One (in, out) kernel → (q as f32 integers, scale (out,) or (g, out))."""
+    kern = kern.float()
+    if group_size:
+        d_in, d_out = kern.shape
+        kg = kern.reshape(d_in // group_size, group_size, d_out)
+        scale = (kg.abs().amax(dim=-2, keepdim=True) / qmax).clamp_min(1e-8)
+        q = torch.clamp(torch.round(kg / scale), -qmax, qmax).reshape(d_in, d_out)
+        return q, scale.squeeze(-2)
+    scale = (kern.abs().amax(dim=-2, keepdim=True) / qmax).clamp_min(1e-8)
+    q = torch.clamp(torch.round(kern / scale), -qmax, qmax)
+    return q, scale.squeeze(-2)
+
+
+def quantize_dense(p: dict, bits: int = 8, group_size: int = None,
+                   pack: bool = False) -> dict:
+    """Quantize one dense param dict (layer-stacked kernels included).
+
+    Stacked kernels are quantized one layer at a time into preallocated
+    outputs, so the f32 working copy is one layer, not the whole stack (the
+    12B flow's largest stack is 10 GB in f32)."""
+    kern = p["kernel"]
+    qmax = 127.0 if bits == 8 else 7.0
+    d_in, d_out = kern.shape[-2], kern.shape[-1]
+    if group_size and d_in % group_size:
+        raise ValueError(f"input dim {d_in} is not a multiple of group size {group_size}")
+    if pack:
+        if bits != 4:
+            raise ValueError("nibble packing is a 4-bit format")
+        if group_size and (d_in // 2) % group_size:
+            # split layout: each half must hold whole groups
+            raise ValueError(f"half input dim {d_in // 2} must hold whole groups of {group_size}")
+    lead = kern.shape[:-2]
+    flat = kern.reshape(-1, d_in, d_out)
+    n = flat.shape[0]
+    q_rows = d_in // 2 if pack else d_in
+    q_out = torch.empty((n, q_rows, d_out), dtype=torch.uint8 if pack else torch.int8,
+                        device=kern.device)
+    s_shape = (n, d_in // group_size, d_out) if group_size else (n, d_out)
+    s_out = torch.empty(s_shape, dtype=torch.float32, device=kern.device)
+    for i in range(n):
+        q, s = _quantize_2d(flat[i], qmax, group_size)
+        q_out[i] = pack_int4(q) if pack else q.to(torch.int8)
+        s_out[i] = s
+    out = {k: v for k, v in p.items() if k != "kernel"}
+    out["kernel_q4" if pack else "kernel_q"] = q_out.reshape(*lead, q_rows, d_out)
+    out["kernel_scale"] = s_out.reshape(*lead, *s_shape[1:])
+    return out
+
+
+def default_predicate(p) -> bool:
+    """Quantize linears whose input dim is a multiple of 512 — skips the
+    small projections (same rule as the JAX package)."""
+    return p["kernel"].shape[-2] % 512 == 0
+
+
+def quantize_tree(params, predicate=default_predicate, bits: int = 8,
+                  group_size: int = None, pack: bool = False):
+    """Quantize every dense dict in a param tree that `predicate` accepts.
+    A kernel whose input dim is not a multiple of `group_size` falls back
+    to per-channel scales, as in the JAX package."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "kernel" in node and node["kernel"].ndim >= 2 and predicate(node):
+                gs = group_size
+                if gs and node["kernel"].shape[-2] % gs != 0:
+                    gs = None
+                return quantize_dense(node, bits, group_size=gs, pack=pack)
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)

@@ -1,0 +1,207 @@
+"""Flux text-to-image pipeline (counterpart of flux_generator_tpu/pipelines/flux.py).
+
+tokenize → T5 / CLIP conditioning → 2x2 latent patchify with 3-axis
+position ids → flow-matching Euler denoise → unpatchify + VAE decode. The
+device is the one the params lie on; noise comes from a `torch.Generator`
+seeded per request. PyTorch runs eagerly, so the JAX package's jitted
+whole-schedule program becomes a plain loop over the schedule.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..io.params import tree_leaves
+from ..models.clip.text import CLIPTextConfig, clip_text_forward, init_clip_text, tiny_clip_config
+from ..models.flux import autoencoder as ae_mod
+from ..models.flux import sampler as sampler_mod
+from ..models.flux.autoencoder import AutoEncoderConfig, tiny_ae_config
+from ..models.flux.model import FluxConfig, flux_forward, init_flux, tiny_flux_config
+from ..models.t5.t5 import T5Config, init_t5_encoder, t5_encode, tiny_t5_config
+from ..runtime.device import as_device, make_generator, synchronize
+
+# ------------------------------------------------------------ latent packing
+
+
+def pack_latents(x: torch.Tensor) -> torch.Tensor:
+    """(B, h, w, c) → (B, h·w/4, 4c): 2x2 patch packing."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    return x.permute(0, 1, 3, 5, 2, 4).reshape(b, h * w // 4, c * 4)
+
+
+def unpack_latents(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, h·w/4, 4c) → (B, h, w, c)."""
+    b = x.shape[0]
+    x = x.reshape(b, h // 2, w // 2, -1, 2, 2)
+    return x.permute(0, 1, 4, 2, 5, 3).reshape(b, h, w, -1)
+
+
+def latent_ids(batch: int, h: int, w: int, device=None) -> torch.Tensor:
+    """3-axis position ids (const 0, row, col) for packed patches."""
+    j, k = torch.meshgrid(torch.arange(h // 2, device=device), torch.arange(w // 2, device=device),
+                          indexing="ij")
+    ids = torch.stack([torch.zeros_like(j), j, k], dim=-1).reshape(1, -1, 3)
+    return ids.expand(batch, h * w // 4, 3)
+
+
+# ------------------------------------------------------------ pipeline
+
+
+class FluxPipeline:
+    def __init__(self, name: str, params: dict, flow_cfg: FluxConfig, ae_cfg: AutoEncoderConfig,
+                 clip_cfg: CLIPTextConfig, t5_cfg: T5Config, clip_tokenizer=None,
+                 t5_tokenizer=None, dtype=torch.bfloat16):
+        self.name = name
+        self.params = params
+        self.flow_cfg = flow_cfg
+        self.ae_cfg = ae_cfg
+        self.clip_cfg = clip_cfg
+        self.t5_cfg = t5_cfg
+        self.clip_tokenizer = clip_tokenizer
+        self.t5_tokenizer = t5_tokenizer
+        self.dtype = dtype
+        self.schnell = "schnell" in name
+
+    @property
+    def device(self) -> torch.device:
+        return tree_leaves(self.params["flow"])[0].device
+
+    # -------------------------------------------------- constructors
+
+    @classmethod
+    def random_init(cls, name: str = "flux-schnell", tiny: bool = False, dtype=torch.bfloat16,
+                    device=None, generator: Optional[torch.Generator] = None, **cfg_overrides):
+        """Randomly initialized pipeline (tests, benchmarks, offline runs) on
+        `device`, drawn from `generator` (seed 0 on `device` when None)."""
+        from ..io.registry import flux_configs
+
+        device = as_device(device if device is not None
+                           else (generator.device if generator is not None else None))
+        generator = generator if generator is not None else make_generator(device, 0)
+        if tiny:
+            flow_cfg = tiny_flux_config(guidance_embed="dev" in name, **cfg_overrides)
+            ae_cfg = tiny_ae_config(z_channels=flow_cfg.in_channels // 4)
+            clip_cfg = tiny_clip_config(model_dims=flow_cfg.vec_in_dim)
+            t5_cfg = tiny_t5_config(d_model=flow_cfg.context_in_dim)
+        else:
+            flow_cfg, ae_cfg, clip_cfg, t5_cfg = flux_configs(name)
+        params = {
+            "flow": init_flux(generator, flow_cfg, dtype, device),
+            "ae": ae_mod.init_autoencoder(generator, ae_cfg, dtype, device),
+            "clip": init_clip_text(generator, clip_cfg, dtype, device),
+            "t5": init_t5_encoder(generator, t5_cfg, dtype, device),
+        }
+        return cls(name, params, flow_cfg, ae_cfg, clip_cfg, t5_cfg, dtype=dtype)
+
+    # -------------------------------------------------- text conditioning
+
+    def tokenize(self, text: str):
+        if self.t5_tokenizer is None or self.clip_tokenizer is None:
+            raise RuntimeError("pipeline built without tokenizers; pass token arrays directly")
+        device = self.device
+        t5_tokens = torch.tensor(self.t5_tokenizer.encode(text), dtype=torch.long, device=device)
+        clip_tokens = torch.tensor(self.clip_tokenizer.encode(text), dtype=torch.long, device=device)
+        return t5_tokens, clip_tokens
+
+    def prepare_conditioning(self, n_images: int, t5_tokens, clip_tokens):
+        txt = t5_encode(self.params["t5"], self.t5_cfg, t5_tokens).to(self.dtype)
+        if txt.shape[0] == 1 and n_images > 1:
+            txt = txt.expand(n_images, *txt.shape[1:])
+        txt_ids = torch.zeros((n_images, txt.shape[1], 3), dtype=torch.int32, device=txt.device)
+        vec = clip_text_forward(self.params["clip"], self.clip_cfg, clip_tokens)["pooled_output"]
+        vec = vec.to(self.dtype)
+        if vec.shape[0] == 1 and n_images > 1:
+            vec = vec.expand(n_images, *vec.shape[1:])
+        return txt, txt_ids, vec
+
+    # -------------------------------------------------- denoising
+
+    def timesteps(self, num_steps: int, image_seq_len: int) -> np.ndarray:
+        return sampler_mod.flux_timesteps(num_steps, image_seq_len, self.schnell)
+
+    def _step(self, x_t, x_ids, txt, txt_ids, vec, t, t_prev, guidance):
+        b = x_t.shape[0]
+        pred = flux_forward(
+            self.params["flow"], self.flow_cfg, img=x_t, img_ids=x_ids, txt=txt,
+            txt_ids=txt_ids, timesteps=t.expand(b), y=vec,
+            guidance=guidance.expand(b) if self.flow_cfg.guidance_embed else None,
+        )
+        # t_prev − t is taken in the schedule's dtype, then promoted to x_t's
+        return sampler_mod.flux_step(pred, x_t, t, t_prev)
+
+    def denoise_latents(self, x_t, x_ids, txt, txt_ids, vec, num_steps: int, guidance: float):
+        """Euler steps over the whole schedule. The schedule is cast to the
+        working dtype first, so t_prev − t is taken in that dtype, as in the
+        JAX package."""
+        device = x_t.device
+        ts = torch.tensor(self.timesteps(num_steps, x_t.shape[1]), dtype=self.dtype, device=device)
+        g = torch.tensor(guidance, dtype=self.dtype, device=device)
+        for i in range(num_steps):
+            x_t = self._step(x_t, x_ids, txt, txt_ids, vec, ts[i], ts[i + 1], g)
+        return x_t
+
+    # -------------------------------------------------- decoding
+
+    def _decode(self, x, h: int, w: int, as_uint8: bool):
+        if max(h, w) > 128:
+            raise NotImplementedError("latents above 128² (images above 1024²) need the tiled "
+                                      "decode, which is not ported yet")
+        z = unpack_latents(x, h, w)
+        if z.shape[0] > 1 and z.shape[0] * h * w > 128 * 128:
+            # one image at a time past one 1024² image's activations
+            img = torch.cat([ae_mod.decode(self.params["ae"], self.ae_cfg, zi[None]) for zi in z])
+        else:
+            img = ae_mod.decode(self.params["ae"], self.ae_cfg, z)
+        img = torch.clamp(img + 1, 0, 2) * 0.5
+        if as_uint8:
+            img = (torch.clamp(img, 0, 1).float() * 255).to(torch.uint8)
+        return img
+
+    def decode(self, x, latent_size: Tuple[int, int] = (64, 64)):
+        return self._decode(x, *latent_size, as_uint8=False)
+
+    def decode_u8(self, x, latent_size: Tuple[int, int] = (64, 64)):
+        """Decode straight to uint8 RGB on the device."""
+        return self._decode(x, *latent_size, as_uint8=True)
+
+    # -------------------------------------------------- generation
+
+    def generate_images(self, text: str, n_images: int = 1, num_steps: Optional[int] = None,
+                        guidance: float = 4.0, latent_size: Tuple[int, int] = (64, 64),
+                        seed: Optional[int] = None, as_uint8: bool = False,
+                        trace: Optional[dict] = None):
+        """Text → images (B, 8h, 8w, 3), float in [0, 1] or uint8.
+
+        `trace`, when a dict is given, receives the seconds of each phase
+        ("conditioning_s", "denoise_s", "decode_s", each ended by a device
+        synchronize) and the final latent ("latent")."""
+        num_steps = num_steps or (2 if self.schnell else 35)
+        device = self.device
+        h, w = latent_size
+
+        def mark(key, t0):
+            if trace is not None:
+                synchronize(device)
+                trace[key] = time.perf_counter() - t0
+            return time.perf_counter()
+
+        t0 = time.perf_counter()
+        generator = make_generator(device, seed)
+        x = sampler_mod.sample_prior(generator, (n_images, h, w, self.ae_cfg.z_channels), self.dtype)
+        x_t = pack_latents(x)
+        x_ids = latent_ids(n_images, h, w, device=device)
+        t5_tokens, clip_tokens = self.tokenize(text)
+        txt, txt_ids, vec = self.prepare_conditioning(n_images, t5_tokens, clip_tokens)
+        t0 = mark("conditioning_s", t0)
+        x_t = self.denoise_latents(x_t, x_ids, txt, txt_ids, vec, num_steps, guidance)
+        t0 = mark("denoise_s", t0)
+        img = self.decode_u8(x_t, latent_size) if as_uint8 else self.decode(x_t, latent_size)
+        mark("decode_s", t0)
+        if trace is not None:
+            trace["latent"] = x_t
+        return img

@@ -1,0 +1,131 @@
+"""Flash attention with fused RoPE: the port's plain version against the JAX
+Pallas kernel (interpret mode on CPU), and the CUDA kernel against the
+plain version on a card.
+
+jax is imported inside the tests that use it, so the `cuda` case runs on a
+machine without jax: `python -m pytest --noconftest -m cuda
+tests/test_torch_flash_attention.py`."""
+
+import numpy as np
+import pytest
+import torch
+
+from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+from flux_generator_tpu_torch.ops.rope import multi_axis_rope, rope_cos_sin
+
+
+def _inputs(seed, b, l, h, d, rope):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, l, h, d)).astype(np.float32) for _ in range(3))
+    cos = sin = None
+    if rope:
+        # per-batch tables: each batch row its own positions
+        pos = np.stack([np.arange(l) + 37 * i for i in range(b)]).astype(np.float32)
+        c, s = rope_cos_sin(torch.from_numpy(pos), d)
+        cos, sin = c.numpy(), s.numpy()
+    return q, k, v, cos, sin
+
+
+CASES = {
+    "d128_rope": (1, 256, 2, 128, True),
+    "d64_norope": (1, 256, 2, 64, False),
+    "l300_padding": (1, 300, 2, 64, True),
+    "b2_per_batch_tables": (2, 300, 2, 128, True),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_version_matches_jax_kernel(case):
+    """atol 3e-5, the tolerance of tests/test_pallas_flash.py: f32 on both
+    sides, differing only in summation order."""
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
+
+    q, k, v, cos, sin = _inputs(1, *CASES[case])
+    jargs = [jnp.asarray(a) if a is not None else None for a in (q, k, v, cos, sin)]
+    want = jax_flash(*jargs[:3], cos=jargs[3], sin=jargs[4], interpret=True)
+    targs = [torch.from_numpy(a) if a is not None else None for a in (q, k, v, cos, sin)]
+    got, lse = fa.flash_attention_reference(*targs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+    assert lse.shape == (q.shape[0] * q.shape[2], q.shape[1])
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_lse_is_logsumexp_of_logits(rope):
+    b, l, h, d = 2, 40, 3, 64
+    q, k, v, cos, sin = (torch.from_numpy(a) if a is not None else None
+                         for a in _inputs(2, b, l, h, d, rope))
+    _, lse = fa.flash_attention_reference(q, k, v, cos, sin)
+    if rope:
+        q, k = fa._rope_f32(q, cos, sin), fa._rope_f32(k, cos, sin)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(logits, -1).reshape(b * h, l).numpy(),
+                               atol=1e-5, rtol=1e-6)
+
+
+def test_plain_version_matches_rope_then_attention():
+    """The fused rotation equals ops.rope.apply_rope followed by plain
+    attention — the JAX package's non-kernel path in models/flux/model.py."""
+    from flux_generator_tpu_torch.ops.attention import dot_product_attention
+    from flux_generator_tpu_torch.ops.rope import apply_rope
+
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 30, (1, 50, 3)).astype(np.int32))
+    cos, sin = multi_axis_rope(ids, [16, 56, 56])
+    q, k, v, _, _ = (torch.from_numpy(a) if a is not None else None
+                     for a in _inputs(4, 1, 50, 2, 128, False))
+    got = fa.flash_attention(q, k, v, cos=cos, sin=sin)
+    want = dot_product_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    before = fa.launches
+    q, k, v, cos, sin = (torch.from_numpy(a) for a in _inputs(5, 1, 20, 2, 64, True))
+    out, lse = fa.flash_attention(q, k, v, cos, sin, return_lse=True)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, cos, sin)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    assert fa.launches == before
+
+
+@pytest.mark.parametrize("bad", ["f32", "head_dim_16", "non_contiguous", "table_shape", "one_table"])
+def test_kernel_argument_checks_raise(bad):
+    q = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
+    k, v = q.clone(), q.clone()
+    cos = sin = torch.zeros(1, 8, 64, dtype=torch.bfloat16)
+    if bad == "f32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif bad == "head_dim_16":
+        q = k = v = torch.zeros(1, 8, 16, 16, dtype=torch.bfloat16)
+        cos = sin = torch.zeros(1, 8, 8, dtype=torch.bfloat16)
+    elif bad == "non_contiguous":
+        q = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16).transpose(1, 2)
+    elif bad == "table_shape":
+        cos = sin = torch.zeros(1, 8, 32, dtype=torch.bfloat16)
+    elif bad == "one_table":
+        sin = None
+    with pytest.raises(ValueError):
+        fa._check_cuda_args(q, k, v, cos, sin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,d,rope", [(1, 1280, 24, 128, True), (1, 1000, 4, 128, True),
+                                          (2, 300, 3, 64, False), (1, 77, 2, 128, False),
+                                          (2, 65, 3, 64, True), (3, 1, 2, 128, True)])
+def test_cuda_kernel_matches_plain_version(b, l, h, d, rope):
+    """bf16 kernel against the plain version run in f32 on the same bf16
+    inputs; atol 2e-2 because P is rounded to bf16 before P·V and O is stored
+    in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    q, k, v, cos, sin = (torch.from_numpy(a).to(dev, torch.bfloat16) if a is not None else None
+                         for a in _inputs(6, b, l, h, d, rope))
+    before = fa.launches
+    out, lse = fa.flash_attention(q, k, v, cos, sin, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    f32 = (lambda t: None if t is None else t.float())
+    ref, ref_lse = fa.flash_attention_reference(f32(q), f32(k), f32(v), f32(cos), f32(sin))
+    assert (out.float() - ref).abs().max().item() < 2e-2
+    assert (lse - ref_lse).abs().max().item() < 2e-2

@@ -1,0 +1,145 @@
+"""The ported Flux text-to-image slice as a whole (CPU, f32, tiny config).
+
+(a) the port reproduces tests/golden/flux_tiny.npz from the params and inputs
+    tests/make_golden.py builds, at the atol of tests/test_golden.py;
+(b) tokens → prepare_conditioning (int4 T5, CLIP) → denoise_latents (int8
+    flow, injected noise) → decode / decode_u8 match the JAX pipeline's
+    methods of the same names."""
+
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flux_generator_tpu.ops.quant import quantize_tree as jax_quantize_tree
+from flux_generator_tpu.pipelines import flux as jflux
+from flux_generator_tpu_torch.io.params import to_numpy
+from flux_generator_tpu_torch.pipelines import flux as tflux
+from tests.test_torch_bridge import all_layers, jax_to_torch
+
+GOLDEN = pathlib.Path(__file__).parent / "golden" / "flux_tiny.npz"
+
+
+def _port_pipeline(jpipe, params=None):
+    return tflux.FluxPipeline(
+        "flux-schnell", jax_to_torch(params if params is not None else jpipe.params),
+        jpipe.flow_cfg, jpipe.ae_cfg, jpipe.clip_cfg, jpipe.t5_cfg, dtype=torch.float32,
+    )
+
+
+def test_reproduces_golden_fixture():
+    pipe_j = jflux.FluxPipeline.random_init("flux-schnell", tiny=True, dtype=jnp.float32)
+    b, h, w = 1, 8, 8
+    x = jax.random.normal(jax.random.PRNGKey(10), (b, h, w, pipe_j.ae_cfg.z_channels))
+    txt = jax.random.normal(jax.random.PRNGKey(11), (b, 4, pipe_j.flow_cfg.context_in_dim))
+    vec = jax.random.normal(jax.random.PRNGKey(12), (b, pipe_j.flow_cfg.vec_in_dim))
+    x, txt, vec = (torch.from_numpy(np.array(a)) for a in (x, txt, vec))
+
+    pipe = _port_pipeline(pipe_j)
+    x_t = tflux.pack_latents(x)
+    out = pipe.denoise_latents(x_t, tflux.latent_ids(b, h, w), txt,
+                               torch.zeros((b, 4, 3), dtype=torch.int32), vec, 2, 4.0)
+    img = pipe.decode(out, (h, w))
+    want = np.load(GOLDEN)
+    np.testing.assert_allclose(out.numpy(), want["latent"], atol=1e-4)
+    np.testing.assert_allclose(img.numpy(), want["image"], atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def quantized_pipelines():
+    pipe_j = jflux.FluxPipeline.random_init("flux-schnell", tiny=True, dtype=jnp.float32,
+                                            key=jax.random.PRNGKey(3))
+    pipe_j.params["t5"] = jax_quantize_tree(pipe_j.params["t5"], all_layers, bits=4,
+                                            group_size=8, pack=True)
+    pipe_j.params["flow"] = jax_quantize_tree(pipe_j.params["flow"], all_layers, bits=8)
+    return pipe_j, _port_pipeline(pipe_j)
+
+
+def test_methods_match_jax_pipeline(quantized_pipelines):
+    pipe_j, pipe_t = quantized_pipelines
+    rng = np.random.default_rng(4)
+    n, h, w = 2, 8, 8
+    t5_tok = rng.integers(1, pipe_j.t5_cfg.vocab_size, (1, 12)).astype(np.int32)
+    clip_tok = rng.integers(1, pipe_j.clip_cfg.vocab_size, (1, 7)).astype(np.int32)
+    noise = rng.standard_normal((n, h, w, pipe_j.ae_cfg.z_channels)).astype(np.float32)
+
+    txt_j, ids_j, vec_j = pipe_j.prepare_conditioning(n, jnp.asarray(t5_tok), jnp.asarray(clip_tok))
+    txt_t, ids_t, vec_t = pipe_t.prepare_conditioning(n, torch.from_numpy(t5_tok).long(),
+                                                      torch.from_numpy(clip_tok).long())
+    np.testing.assert_allclose(txt_t.numpy(), np.asarray(txt_j), atol=1e-4)
+    np.testing.assert_allclose(vec_t.numpy(), np.asarray(vec_j), atol=1e-5)
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+
+    x_j = jflux.pack_latents(jnp.asarray(noise))
+    x_t = tflux.pack_latents(torch.from_numpy(noise))
+    np.testing.assert_array_equal(x_t.numpy(), np.asarray(x_j))
+    np.testing.assert_array_equal(tflux.latent_ids(n, h, w).numpy(), np.asarray(jflux.latent_ids(n, h, w)))
+    lat_j = pipe_j.denoise_latents(x_j, jflux.latent_ids(n, h, w), txt_j, ids_j, vec_j, 4, 4.0)
+    lat_t = pipe_t.denoise_latents(x_t, tflux.latent_ids(n, h, w), txt_t, ids_t, vec_t, 4, 4.0)
+    np.testing.assert_allclose(lat_t.numpy(), np.asarray(lat_j), atol=1e-4)
+
+    img_j = pipe_j.decode(lat_j, (h, w))
+    img_t = pipe_t.decode(lat_t, (h, w))
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), atol=1e-4)
+    u8_j = np.asarray(pipe_j.decode_u8(lat_j, (h, w)))
+    u8_t = pipe_t.decode_u8(lat_t, (h, w)).numpy()
+    assert u8_t.dtype == np.uint8 and u8_t.shape == u8_j.shape
+    assert np.abs(u8_t.astype(int) - u8_j.astype(int)).max() <= 1
+
+
+def test_unpack_inverts_pack():
+    x = torch.randn(2, 6, 10, 4)
+    np.testing.assert_array_equal(tflux.unpack_latents(tflux.pack_latents(x), 6, 10).numpy(), x.numpy())
+
+
+class _Tokenizer:
+    def __init__(self, length, vocab):
+        self.length, self.vocab = length, vocab
+
+    def encode(self, text):
+        ids = [(sum(map(ord, word)) % (self.vocab - 2)) + 1 for word in text.split()]
+        return [(ids + [self.vocab - 1] * self.length)[: self.length]]
+
+
+def test_generate_images_runs_the_slice(quantized_pipelines):
+    _, pipe = quantized_pipelines
+    pipe.t5_tokenizer = _Tokenizer(16, pipe.t5_cfg.vocab_size)
+    pipe.clip_tokenizer = _Tokenizer(7, pipe.clip_cfg.vocab_size)
+    trace = {}
+    img = pipe.generate_images("a red fox", num_steps=2, latent_size=(8, 8), seed=1,
+                               as_uint8=True, trace=trace)
+    assert img.shape == (1, 16, 16, 3) and img.dtype == torch.uint8
+    assert set(trace) == {"conditioning_s", "denoise_s", "decode_s", "latent"}
+    assert torch.isfinite(trace["latent"]).all()
+    again = pipe.generate_images("a red fox", num_steps=2, latent_size=(8, 8), seed=1, as_uint8=True)
+    other = pipe.generate_images("a red fox", num_steps=2, latent_size=(8, 8), seed=2, as_uint8=True)
+    assert torch.equal(img, again) and not torch.equal(img, other)
+
+
+def test_tokenize_with_the_asset_tokenizers(quantized_pipelines):
+    """The port's loaders give the JAX package's tokenizers; T5 rows pad to
+    the flux-schnell length."""
+    from flux_generator_tpu_torch.io.tokenizers import load_clip_tokenizer, load_t5_tokenizer
+
+    assets = pathlib.Path(__file__).parent / "assets"
+    _, pipe = quantized_pipelines
+    pipe.t5_tokenizer = load_t5_tokenizer(assets / "spiece" / "t5_like.model", max_length=256)
+    pipe.clip_tokenizer = load_clip_tokenizer(assets / "clip_tokenizer" / "vocab.json",
+                                              assets / "clip_tokenizer" / "merges.txt")
+    t5_tokens, clip_tokens = pipe.tokenize("a photo of a cat")
+    assert t5_tokens.shape == (1, 256) and t5_tokens.dtype == torch.long
+    assert clip_tokens[0, 0].item() == pipe.clip_tokenizer.bos_token
+    assert clip_tokens[0, -1].item() == pipe.clip_tokenizer.eos_token
+
+
+def test_random_init_is_seeded():
+    a = tflux.FluxPipeline.random_init("flux-schnell", tiny=True, dtype=torch.float32,
+                                       generator=torch.Generator().manual_seed(5))
+    b = tflux.FluxPipeline.random_init("flux-schnell", tiny=True, dtype=torch.float32,
+                                       generator=torch.Generator().manual_seed(5))
+    for x, y in zip(jax.tree.leaves(to_numpy(a.params)), jax.tree.leaves(to_numpy(b.params))):
+        np.testing.assert_array_equal(x, y)
+    assert a.device == torch.device("cpu")
