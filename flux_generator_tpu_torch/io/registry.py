@@ -1,12 +1,16 @@
-"""Model configurations of the Flux family (the numbers of
-flux_generator_tpu/io/registry.py:31-93, over the port's own config classes;
-that module imports the JAX model modules, so it is not imported here)."""
+"""Model configurations (the numbers of flux_generator_tpu/io/registry.py:31-93
+for the Flux family and of the MusicGen-medium stack, over the port's own
+config classes; that module imports the JAX model modules, so it is not
+imported here). Nothing is downloaded: the names below are the public
+sources of the numbers."""
 
 from __future__ import annotations
 
 from ..models.clip.text import CLIPTextConfig
 from ..models.flux.autoencoder import AutoEncoderConfig
 from ..models.flux.model import FluxConfig
+from ..models.musicgen.encodec import EncodecConfig
+from ..models.musicgen.model import MusicGenConfig
 from ..models.t5.t5 import T5Config
 
 _FLUX_BASE = dict(
@@ -52,3 +56,24 @@ FLUX_T5_CONFIG = T5Config(
 def flux_configs(name: str):
     """(flow, autoencoder, CLIP, T5) configs of a Flux model name."""
     return FLUX_FLOW_CONFIGS[name], AutoEncoderConfig(), FLUX_CLIP_CONFIG, FLUX_T5_CONFIG
+
+
+# MusicGen-medium (facebook/musicgen-medium): 48 decoder layers, hidden 1536,
+# 24 heads of 64, ffn 6144, 4 codebooks of 2048 — the MusicGenConfig defaults
+# of flux_generator_tpu/models/musicgen/model.py:37-51.
+MUSICGEN_REPO = "facebook/musicgen-medium"
+MUSICGEN_MEDIUM_CONFIG = MusicGenConfig()
+
+# its text encoder, T5-base (bench.py:671-673): relu FFN, tied embeddings
+MUSICGEN_T5_CONFIG = T5Config(num_layers=12, num_heads=12, d_kv=64, d_model=768, d_ff=3072,
+                              feed_forward_proj="relu", tie_word_embeddings=True)
+
+# its audio codec, the EnCodec 32 kHz conversion (mlx-community/encodec-32khz-float32):
+# 64 filters, ratios (8, 5, 4, 4), 2 LSTM layers, hidden 128, 2048 codes
+ENCODEC_REPO = "mlx-community/encodec-32khz-float32"
+ENCODEC_32KHZ_CONFIG = EncodecConfig()
+
+
+def musicgen_configs():
+    """(decoder, T5, EnCodec) configs of MusicGen-medium."""
+    return MUSICGEN_MEDIUM_CONFIG, MUSICGEN_T5_CONFIG, ENCODEC_32KHZ_CONFIG

@@ -1,0 +1,360 @@
+"""EnCodec neural audio codec, decode side (counterpart of
+flux_generator_tpu/models/musicgen/encodec.py).
+
+SEANet decoder with asymmetric reflect-padded convs, the 2-layer LSTM
+bottleneck (kernel C on CUDA tensors, ops/kernels/lstm.py), transposed convs,
+residual vector quantization decode, and chunked decode with linear
+overlap-add. Layer sequences come from config as static specs, and init
+builds both halves, so the param tree matches the JAX one: convs (k, in,
+out) HIO with a bias, LSTM {wx, wh (d, 4d), bias (4d,)} with gate order
+(i, f, g, o), quantizer codebooks (codebook_size, codebook_dim).
+
+Activations are (B, T, C). The JAX decode runs as two jitted programs split
+after the LSTM only to fit the TPU's VMEM; here it is one eager pass.
+`encode`, `rvq_encode` and `preprocess_audio` are not ported: no MusicGen
+path calls them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...ops.kernels.lstm import lstm
+from ...ops.linear import _rand_uniform
+from ...ops.norms import group_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodecConfig:
+    audio_channels: int = 1
+    num_filters: int = 64
+    kernel_size: int = 7
+    last_kernel_size: int = 7
+    residual_kernel_size: int = 3
+    upsampling_ratios: Sequence[int] = (8, 5, 4, 4)
+    num_residual_layers: int = 1
+    dilation_growth_rate: int = 2
+    num_lstm_layers: int = 2
+    hidden_size: int = 128
+    codebook_size: int = 2048
+    codebook_dim: int = 128
+    compress: int = 2
+    use_causal_conv: bool = False
+    pad_mode: str = "reflect"
+    norm_type: str = "weight_norm"
+    trim_right_ratio: float = 1.0
+    sampling_rate: int = 32000
+    target_bandwidths: Sequence[float] = (2.2,)
+    chunk_length_s: Optional[float] = None
+    overlap: Optional[float] = None
+    normalize: bool = False
+    use_conv_shortcut: bool = False
+
+    @property
+    def hop_length(self) -> int:
+        return int(np.prod(self.upsampling_ratios))
+
+    @property
+    def frame_rate(self) -> int:
+        return math.ceil(self.sampling_rate / self.hop_length)
+
+    @property
+    def codebook_nbits(self) -> int:
+        return math.ceil(math.log2(self.codebook_size))
+
+    @property
+    def num_quantizers(self) -> int:
+        return int(1000 * self.target_bandwidths[-1] // (self.frame_rate * self.codebook_nbits))
+
+    @property
+    def chunk_length(self) -> Optional[int]:
+        if self.chunk_length_s is None:
+            return None
+        return int(self.chunk_length_s * self.sampling_rate)
+
+    @property
+    def chunk_stride(self) -> Optional[int]:
+        if self.chunk_length_s is None or self.overlap is None:
+            return None
+        return max(1, int((1.0 - self.overlap) * self.chunk_length))
+
+
+def tiny_encodec_config(**overrides) -> EncodecConfig:
+    base = dict(
+        num_filters=4,
+        upsampling_ratios=(4, 2),
+        num_lstm_layers=1,
+        hidden_size=8,
+        codebook_size=16,
+        codebook_dim=8,
+        target_bandwidths=(0.8,),
+        sampling_rate=800,
+    )
+    base.update(overrides)
+    return EncodecConfig(**base)
+
+
+# ------------------------------------------------------------ layer specs
+# ("conv", cin, cout, k, stride, dilation) | ("convtr", cin, cout, k, stride)
+# | ("resnet", dim, (d1, d2)) | ("lstm", dim) | ("elu",)
+
+
+def encoder_spec(cfg: EncodecConfig) -> List[tuple]:
+    spec = [("conv", cfg.audio_channels, cfg.num_filters, cfg.kernel_size, 1, 1)]
+    scaling = 1
+    for ratio in reversed(list(cfg.upsampling_ratios)):
+        cur = scaling * cfg.num_filters
+        for j in range(cfg.num_residual_layers):
+            spec.append(("resnet", cur, (cfg.dilation_growth_rate**j, 1)))
+        spec.append(("elu",))
+        spec.append(("conv", cur, cur * 2, ratio * 2, ratio, 1))
+        scaling *= 2
+    spec.append(("lstm", scaling * cfg.num_filters))
+    spec.append(("elu",))
+    spec.append(("conv", scaling * cfg.num_filters, cfg.hidden_size, cfg.last_kernel_size, 1, 1))
+    return spec
+
+
+def decoder_spec(cfg: EncodecConfig) -> List[tuple]:
+    scaling = int(2 ** len(cfg.upsampling_ratios))
+    spec = [("conv", cfg.hidden_size, scaling * cfg.num_filters, cfg.kernel_size, 1, 1)]
+    spec.append(("lstm", scaling * cfg.num_filters))
+    for ratio in cfg.upsampling_ratios:
+        cur = scaling * cfg.num_filters
+        spec.append(("elu",))
+        spec.append(("convtr", cur, cur // 2, ratio * 2, ratio))
+        for j in range(cfg.num_residual_layers):
+            spec.append(("resnet", cur // 2, (cfg.dilation_growth_rate**j, 1)))
+        scaling //= 2
+    spec.append(("elu",))
+    spec.append(("conv", cfg.num_filters, cfg.audio_channels, cfg.last_kernel_size, 1, 1))
+    return spec
+
+
+# ------------------------------------------------------------ init
+
+
+def _init_conv1d_p(g, cin, cout, k, dtype, device):
+    scale = 1.0 / math.sqrt(cin * k)
+    return {"kernel": _rand_uniform((k, cin, cout), scale, dtype, device, g),
+            "bias": _rand_uniform((cout,), scale, dtype, device, g)}
+
+
+def _init_lstm_p(g, dim, dtype, device):
+    scale = 1.0 / math.sqrt(dim)
+    return {"wx": _rand_uniform((dim, 4 * dim), scale, dtype, device, g),
+            "wh": _rand_uniform((dim, 4 * dim), scale, dtype, device, g),
+            "bias": _rand_uniform((4 * dim,), scale, dtype, device, g)}
+
+
+def _norm_p(cout, dtype, device):
+    return {"scale": torch.ones((cout,), dtype=dtype, device=device),
+            "bias": torch.zeros((cout,), dtype=dtype, device=device)}
+
+
+def _init_layer(g, entry, cfg: EncodecConfig, dtype, device):
+    kind = entry[0]
+    if kind in ("conv", "convtr"):
+        cin, cout, k = entry[1], entry[2], entry[3]
+        p = {"conv": _init_conv1d_p(g, cin, cout, k, dtype, device)}
+        if cfg.norm_type == "time_group_norm":
+            p["norm"] = _norm_p(cout, dtype, device)
+        return p
+    if kind == "resnet":
+        _, dim, _ = entry
+        hidden = dim // cfg.compress
+        p = {"block": [
+            {"conv": _init_conv1d_p(g, dim, hidden, cfg.residual_kernel_size, dtype, device)},
+            {"conv": _init_conv1d_p(g, hidden, dim, 1, dtype, device)},
+        ]}
+        if cfg.use_conv_shortcut:
+            p["shortcut"] = {"conv": _init_conv1d_p(g, dim, dim, 1, dtype, device)}
+        return p
+    if kind == "lstm":
+        return {"lstm": [_init_lstm_p(g, entry[1], dtype, device)
+                         for _ in range(cfg.num_lstm_layers)]}
+    if kind == "elu":
+        return {}
+    raise ValueError(kind)
+
+
+def init_encodec(generator: torch.Generator, cfg: EncodecConfig, dtype=torch.float32, device=None):
+    """Random encoder + decoder + quantizer params in the JAX tree layout,
+    drawn from `generator` (the streams differ from jax.random's)."""
+    return {
+        "encoder": [_init_layer(generator, e, cfg, dtype, device) for e in encoder_spec(cfg)],
+        "decoder": [_init_layer(generator, e, cfg, dtype, device) for e in decoder_spec(cfg)],
+        "quantizer": [
+            {"embed": torch.randn((cfg.codebook_size, cfg.codebook_dim), generator=generator,
+                                  device=device, dtype=torch.float32).to(dtype)}
+            for _ in range(cfg.num_quantizers)
+        ],
+    }
+
+
+# ------------------------------------------------------------ primitives
+
+
+def lstm_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """One LSTM layer over x (B, T, D): the input projection x·Wx + b as one
+    matmul, then the recurrence (kernel C on CUDA tensors, its plain version
+    on CPU ones; gate order (i, f, g, o), states in f32)."""
+    return lstm(p, x)
+
+
+def _pad1d(x: torch.Tensor, pad: Tuple[int, int], mode: str) -> torch.Tensor:
+    """Pad the time axis of (B, T, C). Reflect padding is built by hand, as in
+    the JAX package: the right side clamps its start at 0, so a pad as long
+    as the input is allowed (F.pad's reflect refuses it)."""
+    left, right = pad
+    if mode != "reflect":
+        return F.pad(x, (0, 0, left, right))
+    length = x.shape[1]
+    parts = []
+    if left > 0:
+        parts.append(x[:, 1:left + 1].flip(1))
+    parts.append(x)
+    if right > 0:
+        parts.append(x[:, max(length - right - 1, 0):length - 1].flip(1))
+    return torch.cat(parts, dim=1)
+
+
+def _conv1d(p: dict, x: torch.Tensor, stride: int = 1, dilation: int = 1) -> torch.Tensor:
+    """Valid conv of (B, T, Cin) with an HIO (k, Cin, Cout) kernel."""
+    w = p["kernel"].to(x.dtype).permute(2, 1, 0)
+    y = F.conv1d(x.transpose(1, 2), w, p["bias"].to(x.dtype), stride=stride, dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def _enc_conv(p, cfg: EncodecConfig, x, k, stride, dilation):
+    eff_k = (k - 1) * dilation + 1
+    pad_total = k - stride
+    length = x.shape[1]
+    n_frames = math.ceil((length - eff_k + pad_total) / stride + 1) - 1
+    ideal = n_frames * stride + eff_k - pad_total
+    extra = ideal - length
+    if cfg.use_causal_conv:
+        x = _pad1d(x, (pad_total, extra), cfg.pad_mode)
+    else:
+        pr = pad_total // 2
+        x = _pad1d(x, (pad_total - pr, pr + extra), cfg.pad_mode)
+    y = _conv1d(p["conv"], x, stride, dilation)
+    if "norm" in p:
+        y = group_norm(y, p["norm"], groups=1)
+    return y
+
+
+def _dec_convtr(p, cfg: EncodecConfig, x, k, stride):
+    """The JAX package's lhs-dilated conv over a kernel time-flipped at load
+    (HIO), which is torch's ConvTranspose1d with that kernel flipped back,
+    then pl/pr trimmed off."""
+    w = p["conv"]["kernel"].to(x.dtype).flip(0).permute(1, 2, 0)  # (Cin, Cout, k)
+    y = F.conv_transpose1d(x.transpose(1, 2), w, p["conv"]["bias"].to(x.dtype), stride=stride)
+    y = y.transpose(1, 2)
+    if "norm" in p:
+        y = group_norm(y, p["norm"], groups=1)
+    pad_total = k - stride
+    if cfg.use_causal_conv:
+        pr = math.ceil(pad_total * cfg.trim_right_ratio)
+    else:
+        pr = pad_total // 2
+    pl = pad_total - pr
+    return y[:, pl:y.shape[1] - pr]
+
+
+def _resnet(p, cfg: EncodecConfig, x, dilations):
+    y = x
+    for blk, k, d in zip(p["block"], (cfg.residual_kernel_size, 1), dilations):
+        y = F.elu(y, alpha=1.0)
+        y = _enc_conv(blk, cfg, y, k, 1, d)
+    if "shortcut" in p:
+        x = _enc_conv(p["shortcut"], cfg, x, 1, 1, 1)
+    return x + y
+
+
+def _run_spec(params, spec, cfg: EncodecConfig, x):
+    for p, entry in zip(params, spec):
+        kind = entry[0]
+        if kind == "conv":
+            x = _enc_conv(p, cfg, x, entry[3], entry[4], entry[5])
+        elif kind == "convtr":
+            x = _dec_convtr(p, cfg, x, entry[3], entry[4])
+        elif kind == "resnet":
+            x = _resnet(p, cfg, x, entry[2])
+        elif kind == "lstm":
+            h = x
+            for lp in p["lstm"]:
+                h = lstm_forward(lp, h)
+            x = x + h
+        elif kind == "elu":
+            x = F.elu(x, alpha=1.0)
+    return x
+
+
+def rvq_decode(quantizer, codes: torch.Tensor) -> torch.Tensor:
+    """codes (B, nq, T) → summed codebook vectors (B, T, D)."""
+    out = None
+    for i in range(codes.shape[1]):
+        q = quantizer[i]["embed"][codes[:, i]]
+        out = q if out is None else out + q
+    return out
+
+
+# ------------------------------------------------------------ model API
+
+
+class EncodecModel:
+    def __init__(self, cfg: EncodecConfig, params: dict):
+        self.cfg = cfg
+        self.params = params
+        self._dec_spec = decoder_spec(cfg)
+
+    @classmethod
+    def random_init(cls, cfg: Optional[EncodecConfig] = None, generator=None,
+                    dtype=torch.float32, device=None):
+        cfg = cfg or tiny_encodec_config()
+        generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        return cls(cfg, init_encodec(generator, cfg, dtype, device))
+
+    def _decode_frame(self, codes, scale=None):
+        emb = rvq_decode(self.params["quantizer"], codes)
+        audio = _run_spec(self.params["decoder"], self._dec_spec, self.cfg, emb)
+        if scale is not None:
+            audio = audio * scale
+        return audio
+
+    @staticmethod
+    def _linear_overlap_add(frames, stride: int):
+        n, frame_length, c = frames[0].shape
+        total = stride * (len(frames) - 1) + frames[-1].shape[1]
+        t = np.linspace(0, 1, frame_length + 2)[1:-1]
+        weight = torch.from_numpy((0.5 - np.abs(t - 0.5))[:, None].astype(np.float32))
+        weight = weight.to(frames[0].device, frames[0].dtype)
+        out = torch.zeros((n, total, c), dtype=frames[0].dtype, device=frames[0].device)
+        sum_w = torch.zeros((total, 1), dtype=frames[0].dtype, device=frames[0].device)
+        offset = 0
+        for frame in frames:
+            fl = frame.shape[1]
+            out[:, offset:offset + fl] += weight[:fl] * frame
+            sum_w[offset:offset + fl] += weight[:fl]
+            offset += stride
+        return out / sum_w
+
+    def decode(self, audio_codes, audio_scales, padding_mask=None):
+        """audio_codes (frames, B, nq, T) → waveform (B, T', C)."""
+        if self.cfg.chunk_length is None:
+            if audio_codes.shape[0] != 1:
+                raise ValueError("expected one frame")
+            audio = self._decode_frame(audio_codes[0], audio_scales[0])
+        else:
+            decoded = [self._decode_frame(f, s) for f, s in zip(audio_codes, audio_scales)]
+            audio = self._linear_overlap_add(decoded, self.cfg.chunk_stride or 1)
+        if padding_mask is not None and padding_mask.shape[1] < audio.shape[1]:
+            audio = audio[:, :padding_mask.shape[1]]
+        return audio

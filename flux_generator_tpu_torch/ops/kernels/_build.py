@@ -23,7 +23,8 @@ BUILD_DIR = CSRC / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LOCKS; each kernel builds under its own lock
+_LOCKS: dict = {}
 _LIBS: dict = {}
 # name → (seconds spent in nvcc or 0.0 for a cache hit, ptxas report)
 BUILD_INFO: dict = {}
@@ -74,8 +75,11 @@ def _compile(name: str) -> Path:
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Compile (or reuse) `csrc/<name>.cu` and return the loaded library with
     `argtypes`/`restype` set from `signatures` ({symbol: [argtypes]}; every
-    entry returns an int cudaError_t)."""
+    entry returns an int cudaError_t). Different kernels may build at the
+    same time from several threads."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_compile(name)))

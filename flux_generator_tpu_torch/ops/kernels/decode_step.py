@@ -1,0 +1,293 @@
+"""The fused MusicGen decode step: CUDA kernel (kernel D) and plain version.
+
+The kernel (csrc/decode_step.cu, sm_90a) replaces the TPU kernels `_kernel`
+(v1), `_kernel2` (v2) and `_kernel3` (v3) of
+flux_generator_tpu/ops/pallas/decode_layer.py. The three share one contract
+and differ only in how the KV-cache window reaches the TPU's VMEM; one
+Hopper kernel that reads a window of any length computes all three.
+
+Contract: `fused_decode_step(packed, x (B, H), cross_k/v (L, B, S, H), offset,
+k/v_cache (L, B, W, H), cond_len) → (y (B, H), k_cache, v_cache)` runs all L
+decoder layers of one AR step. Per layer: LN1 → q, k_new, v_new projections →
+self-attention over cache rows < offset seeded with the current token →
+o-projection + residual; LN_cross → q (the q third of the cross qkv) →
+cross-attention over the text K/V, masked at cond_len[b] (NEG = -1e30, dead V
+rows zeroed) → o-projection + residual; LN2 → up 4h → exact GELU → down →
+residual. The new K/V rows are written into the caches at `offset`, in
+place, and the caches are returned.
+
+Numerics: weights dequantized as w.bf16 · s.bf16 rounded to bf16, dot inputs
+rounded to bf16, f32 accumulation; LN in f32 with eps 1e-5; q scaled by
+head_dim^-½ and rounded to bf16; attention logits in f32, the running-max
+softmax divided at the end, P rounded to bf16 for P·V; the residual stream
+in f32. `fused_decode_step` dispatches on the tensors' device only: CPU
+tensors go to `fused_decode_step_plain`, CUDA tensors to the kernel, which
+raises for inputs it does not take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+# Launches of the CUDA kernel since the last reset (the plain version on CPU
+# tensors does not count).
+launches = 0
+
+SOURCE = "flux_generator_tpu_torch/csrc/decode_step.cu"
+REPLACES = "flux_generator_tpu/ops/pallas/decode_layer.py:1083"  # v2; v1 :1180, v3 :984
+
+CPL = 14  # weight chunks per layer: q k v | o | cross q | cross o | up ×4 | down ×4
+NEG = -1e30
+HEAD_DIM = 64
+MAX_BATCH = 8
+MAX_HIDDEN = 8192
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # w, s, ln, x, ck, cv, kc, vc, cond_len, y, scratch,
+    # L, B, H, S, W, offset, n_heads, w_is_int8, stream
+    "fgt_decode_step": [_P] * 11 + [_I] * 8 + [_P],
+    # B, H, w_is_int8 → f32 scratch the kernel needs (0: shape not taken)
+    "fgt_decode_step_scratch_floats": [_I, _I, _I],
+}
+
+
+# ------------------------------------------------------------ packing
+
+
+def _chunk_dense(p: dict, h: int, n_out: int, split: str):
+    """(chunks (L, n, h, h) int8-or-float, scales (L, n, 1, h)).
+
+    split="out": kernel (L, h, n·h) → n column chunks; split="in": kernel
+    (L, n·h, h) → n row chunks sharing the per-channel scales."""
+    if "kernel_q" in p:
+        k, s = p["kernel_q"], p["kernel_scale"]
+        if s.dim() == k.dim():
+            raise ValueError("grouped quantization not packable")
+    else:
+        k = p["kernel"]
+        s = torch.ones((*k.shape[:-2], k.shape[-1]), dtype=torch.float32, device=k.device)
+    n_layers = k.shape[0]
+    if split == "out":
+        kc = k.reshape(n_layers, h, n_out, h).permute(0, 2, 1, 3)
+        sc = s.reshape(n_layers, n_out, 1, h)
+    else:
+        kc = k.reshape(n_layers, n_out, h, h)
+        sc = s.reshape(n_layers, 1, 1, h).expand(n_layers, n_out, 1, h)
+    return kc, sc
+
+
+def pack_decode_weights(layers: dict, hidden_size: int, ffn_dim: int) -> dict:
+    """The stacked decoder params → the kernel's chunk stream, the layout of
+    the JAX packer (decode_layer.py:146-179): w (L·14, H, H) in the weights'
+    own type (int8 stays int8), s (L·14, 1, H) bf16, ln (L, 8, H) bf16 =
+    [norm1, norm_cross, norm2] scale/bias pairs and two zero rows."""
+    h = hidden_size
+    if ffn_dim != 4 * h:
+        raise ValueError(f"the chunk schedule needs ffn = 4h, got ffn {ffn_dim}, h {h}")
+    qkv_w, qkv_s = _chunk_dense(layers["self_attn"]["qkv"], h, 3, "out")
+    o_w, o_s = _chunk_dense(layers["self_attn"]["o"], h, 1, "out")
+    xqkv_w, xqkv_s = _chunk_dense(layers["cross_attn"]["qkv"], h, 3, "out")
+    xo_w, xo_s = _chunk_dense(layers["cross_attn"]["o"], h, 1, "out")
+    up_w, up_s = _chunk_dense(layers["linear1"], h, 4, "out")
+    dn_w, dn_s = _chunk_dense(layers["linear2"], h, 4, "in")
+    w = torch.cat([qkv_w, o_w, xqkv_w[:, :1], xo_w, up_w, dn_w], dim=1)
+    s = torch.cat([qkv_s, o_s, xqkv_s[:, :1], xo_s, up_s, dn_s], dim=1)
+    n_layers = w.shape[0]
+    w = w.reshape(n_layers * CPL, h, h).contiguous()
+    s = s.reshape(n_layers * CPL, 1, h).to(torch.bfloat16).contiguous()
+    zeros = torch.zeros_like(layers["norm1"]["scale"])
+    ln = torch.stack([layers["norm1"]["scale"], layers["norm1"]["bias"],
+                      layers["norm_cross"]["scale"], layers["norm_cross"]["bias"],
+                      layers["norm2"]["scale"], layers["norm2"]["bias"], zeros, zeros],
+                     dim=1).to(torch.bfloat16).contiguous()
+    return {"w": w, "s": s, "ln": ln}
+
+
+def packable(layers: dict) -> bool:
+    """True when every decoder dense is plain (bf16/f32) or int8 with
+    per-output-channel scales — the layouts the chunk packer takes."""
+    parts = [layers[a][b] for a in ("self_attn", "cross_attn") for b in ("qkv", "o")]
+    parts += [layers["linear1"], layers["linear2"]]
+    for p in parts:
+        if "kernel_q4" in p:
+            return False
+        if "kernel_q" in p and p["kernel_scale"].dim() == p["kernel_q"].dim():
+            return False
+    return True
+
+
+def store_kv_rows(rows: torch.Tensor, cache_dtype) -> torch.Tensor:
+    """New K/V rows in the cache's storage type. The f8 (e4m3-byte) cache of
+    the JAX package is not ported; its caches are bf16 or f32."""
+    if cache_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"KV cache type {cache_dtype} is not supported (bf16 or f32)")
+    return rows.to(cache_dtype)
+
+
+# ------------------------------------------------------------ plain version
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and widen back to f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _ln_f32(x, scale, bias):
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-5) * scale.float() + bias.float()
+
+
+def _attend(q, keys, values, live):
+    """q (B, nh, dh) bf16-valued f32; keys/values (B, R, nh, dh) f32; live
+    (B, R) bool → (B, nh, dh). Dead rows get logit NEG and zeroed V; P is
+    rounded to bf16 before P·V, the row sum stays f32."""
+    lo = torch.einsum("bhd,brhd->bhr", q, keys)
+    lo = torch.where(live[:, None, :], lo, torch.full_like(lo, NEG))
+    p = torch.exp(lo - lo.amax(dim=-1, keepdim=True))
+    values = torch.where(live[:, :, None, None], values, torch.zeros_like(values))
+    return torch.einsum("bhr,brhd->bhd", _bf(p), values) / p.sum(dim=-1)[..., None]
+
+
+def fused_decode_step_plain(packed, x, cross_k, cross_v, offset: int, k_cache, v_cache,
+                            cond_len=None, *, n_heads: int):
+    """Plain PyTorch version of kernel D, one layer at a time (see the
+    module docstring for the contract and numerics). The caches are written
+    in place at row `offset`."""
+    w, s, ln = packed["w"], packed["s"], packed["ln"]
+    n_layers = w.shape[0] // CPL
+    b, h = x.shape
+    dh = h // n_heads
+    s_text = cross_k.shape[2]
+    scale = dh ** -0.5
+    if cond_len is None:
+        live_text = torch.ones((b, s_text), dtype=torch.bool, device=x.device)
+    else:
+        live_text = torch.arange(s_text, device=x.device)[None, :] < cond_len.to(x.device)[:, None]
+    live_self = torch.ones((b, offset + 1), dtype=torch.bool, device=x.device)
+
+    def dot(a, c):
+        wf = (w[c].to(torch.bfloat16) * s[c].to(torch.bfloat16)).float()
+        return _bf(a) @ wf
+
+    xs = x.float()
+    for li in range(n_layers):
+        c0 = li * CPL
+        lnp = ln[li]
+        y = _ln_f32(xs, lnp[0], lnp[1])
+        q = _bf(dot(y, c0) * scale).reshape(b, n_heads, dh)
+        k_row = store_kv_rows(dot(y, c0 + 1), k_cache.dtype)
+        v_row = store_kv_rows(dot(y, c0 + 2), v_cache.dtype)
+        # cache rows < offset, then the current token's own row
+        keys = _bf(torch.cat([k_cache[li, :, :offset].float(), k_row[:, None].float()], dim=1))
+        values = torch.cat([_bf(v_cache[li, :, :offset].float()), v_row[:, None].float()], dim=1)
+        att = _attend(q, keys.reshape(b, offset + 1, n_heads, dh),
+                      values.reshape(b, offset + 1, n_heads, dh), live_self)
+        k_cache[li, :, offset] = k_row
+        v_cache[li, :, offset] = v_row
+        xs = xs + dot(att.reshape(b, h), c0 + 3)
+
+        y = _ln_f32(xs, lnp[2], lnp[3])
+        q = _bf(dot(y, c0 + 4) * scale).reshape(b, n_heads, dh)
+        ck = cross_k[li].float().reshape(b, s_text, n_heads, dh)
+        cv = _bf(cross_v[li].float()).reshape(b, s_text, n_heads, dh)
+        att = _attend(q, _bf(ck), cv, live_text)
+        xs = xs + dot(att.reshape(b, h), c0 + 5)
+
+        y = _ln_f32(xs, lnp[4], lnp[5])
+        hs = torch.cat([dot(y, c0 + 6 + j) for j in range(4)], dim=-1)
+        g = torch.nn.functional.gelu(hs, approximate="none")
+        acc = sum(dot(g[:, j * h:(j + 1) * h], c0 + 10 + j) for j in range(4))
+        xs = xs + acc
+    return xs.to(x.dtype), k_cache, v_cache
+
+
+# ------------------------------------------------------------ CUDA kernel
+
+
+def _check_cuda_args(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads):
+    w, s, ln = packed["w"], packed["s"], packed["ln"]
+    if w.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f"decode-step kernel takes int8 or bf16 packed weights, got {w.dtype}")
+    if s.dtype != torch.bfloat16 or ln.dtype != torch.bfloat16:
+        raise ValueError("decode-step kernel takes bf16 scales and LN params")
+    for name, t in (("x", x), ("cross_k", cross_k), ("cross_v", cross_v),
+                    ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"decode-step kernel takes bf16 {name}, got {t.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (B, H), got {tuple(x.shape)}")
+    b, h = x.shape
+    if w.dim() != 3 or w.shape[1:] != (h, h) or w.shape[0] % CPL:
+        raise ValueError(f"packed w must be (L·{CPL}, H, H) with H = {h}, got {tuple(w.shape)}")
+    n_layers = w.shape[0] // CPL
+    if s.shape != (n_layers * CPL, 1, h) or ln.shape != (n_layers, 8, h):
+        raise ValueError(f"packed s/ln shapes {tuple(s.shape)}/{tuple(ln.shape)} do not match w")
+    if not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"decode-step kernel takes 1..{MAX_BATCH} rows, got {b}")
+    if h % 256 or h > MAX_HIDDEN or n_heads * HEAD_DIM != h:
+        raise ValueError(f"decode-step kernel takes H a multiple of 256 up to {MAX_HIDDEN} and head "
+                         f"dim {HEAD_DIM}, got H {h} with {n_heads} heads")
+    if cross_k.dim() != 4 or cross_k.shape[:2] != (n_layers, b) or cross_k.shape[3] != h \
+            or cross_v.shape != cross_k.shape:
+        raise ValueError(f"cross K/V must be (L, B, S, H) = ({n_layers}, {b}, S, {h}), got "
+                         f"{tuple(cross_k.shape)}/{tuple(cross_v.shape)}")
+    if k_cache.dim() != 4 or k_cache.shape[:2] != (n_layers, b) or k_cache.shape[3] != h \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"caches must be (L, B, W, H) = ({n_layers}, {b}, W, {h}), got "
+                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
+    if not 0 <= offset < k_cache.shape[2]:
+        raise ValueError(f"offset {offset} outside the cache window {k_cache.shape[2]}")
+    if cond_len is not None and (cond_len.dtype != torch.int32 or cond_len.shape != (b,)):
+        raise ValueError(f"cond_len must be (B,) int32, got {cond_len.dtype} {tuple(cond_len.shape)}")
+    tensors = [w, s, ln, x, cross_k, cross_v, k_cache, v_cache]
+    if cond_len is not None:
+        tensors.append(cond_len)
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("decode-step kernel takes contiguous tensors")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("all decode-step operands must lie on one device")
+
+
+def _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads):
+    global launches
+    _check_cuda_args(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads)
+    b, h = x.shape
+    n_layers = packed["w"].shape[0] // CPL
+    lib = _build.load("decode_step", _SIGNATURES)
+    y = torch.empty_like(x)
+    w_is_int8 = int(packed["w"].dtype == torch.int8)
+    with torch.cuda.device(x.device):
+        n_scratch = lib.fgt_decode_step_scratch_floats(b, h, w_is_int8)
+        if n_scratch <= 0:
+            raise RuntimeError("decode-step kernel: no launch plan for this device and shape")
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+        err = lib.fgt_decode_step(
+            packed["w"].data_ptr(), packed["s"].data_ptr(), packed["ln"].data_ptr(), x.data_ptr(),
+            cross_k.data_ptr(), cross_v.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            None if cond_len is None else cond_len.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+            n_layers, b, h, cross_k.shape[2], k_cache.shape[2], int(offset), n_heads, w_is_int8,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check("fgt_decode_step", err)
+    launches += 1
+    return y, k_cache, v_cache
+
+
+def fused_decode_step(packed, x, cross_k, cross_v, offset: int, k_cache, v_cache, cond_len=None,
+                      *, n_heads: int):
+    """All decoder layers of one AR step → (y (B, H), k_cache, v_cache);
+    the caches are updated in place at row `offset`."""
+    if x.device.type == "cuda":
+        return _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cache,
+                                       cond_len, n_heads)
+    if x.device.type == "cpu":
+        return fused_decode_step_plain(packed, x, cross_k, cross_v, offset, k_cache, v_cache,
+                                       cond_len, n_heads=n_heads)
+    raise ValueError(f"no fused decode step for device {x.device}")

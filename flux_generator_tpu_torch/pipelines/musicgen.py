@@ -1,0 +1,134 @@
+"""MusicGen text-to-music pipeline (counterpart of
+flux_generator_tpu/pipelines/musicgen.py).
+
+T5-encode the prompt, project it into the decoder width, run the
+delay-pattern AR loop with CFG and top-k sampling on the device, then decode
+the codes to a waveform with EnCodec. The device is the one the params lie
+on; sampling noise comes from a `torch.Generator` seeded per request. The
+loop runs exactly `max_steps` steps: the JAX package's step-count buckets
+serve XLA's compile cache, which eager PyTorch does not have.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from ..io.params import tree_leaves
+from ..models.musicgen import model as mg
+from ..models.musicgen.encodec import EncodecModel, tiny_encodec_config
+from ..models.t5.t5 import T5Config, init_t5_encoder, t5_encode, tiny_t5_config
+from ..runtime.device import as_device, make_generator, synchronize
+
+
+class MusicGenPipeline:
+    def __init__(self, cfg: mg.MusicGenConfig, params: dict, t5_cfg: T5Config, t5_params: dict,
+                 audio_decoder: EncodecModel, tokenizer=None, dtype=torch.float32):
+        self.cfg = cfg
+        self.params = params
+        self.t5_cfg = t5_cfg
+        self.t5_params = t5_params
+        self.audio_decoder = audio_decoder
+        self.tokenizer = tokenizer
+        self.dtype = dtype
+        self.sampling_rate = audio_decoder.cfg.sampling_rate
+
+    @property
+    def device(self) -> torch.device:
+        return tree_leaves(self.params)[0].device
+
+    @classmethod
+    def random_init(cls, tiny: bool = True, dtype=torch.float32, device=None,
+                    generator: Optional[torch.Generator] = None, **cfg_overrides):
+        """Randomly initialized pipeline on `device`, drawn from `generator`
+        (seed 0 on `device` when None). tiny=False draws MusicGen-medium,
+        T5-base and EnCodec 32 kHz at their published widths (io/registry.py);
+        the decoder and T5 take `dtype`, EnCodec stays f32 as the JAX loader
+        keeps it."""
+        device = as_device(device if device is not None
+                           else (generator.device if generator is not None else None))
+        generator = generator if generator is not None else make_generator(device, 0)
+        if tiny:
+            cfg = mg.tiny_musicgen_config(**cfg_overrides)
+            t5_cfg = tiny_t5_config(d_model=cfg.text_d_model)
+            # size the bandwidth so the codec builds exactly num_codebooks
+            # quantizers (per-quantizer rate = frame_rate · log2(codebook) bps)
+            enc_cfg = tiny_encodec_config(codebook_size=cfg.codebook_size)
+            bw = cfg.num_codebooks * enc_cfg.frame_rate * enc_cfg.codebook_nbits / 1000
+            enc_cfg = tiny_encodec_config(codebook_size=cfg.codebook_size, target_bandwidths=(bw,))
+        else:
+            from ..io.registry import musicgen_configs
+
+            if cfg_overrides:
+                raise ValueError("config overrides apply to tiny=True only")
+            cfg, t5_cfg, enc_cfg = musicgen_configs()
+        return cls(
+            cfg,
+            mg.init_musicgen(generator, cfg, dtype, device),
+            t5_cfg,
+            init_t5_encoder(generator, t5_cfg, dtype, device),
+            EncodecModel.random_init(enc_cfg, generator, torch.float32, device),
+            dtype=dtype,
+        )
+
+    def conditioning(self, text: str) -> torch.Tensor:
+        """Prompt → projected T5 features (1, S, hidden) in the pipeline dtype."""
+        if self.tokenizer is None:
+            raise RuntimeError("pipeline built without a tokenizer")
+        tokens = torch.tensor(self.tokenizer.encode(text, pad=False), dtype=torch.long,
+                              device=self.device)
+        if tokens.dim() == 1:
+            tokens = tokens[None]
+        feats = t5_encode(self.t5_params, self.t5_cfg, tokens).to(self.dtype)
+        return mg.condition_text(self.params, feats)
+
+    def _codes(self, conditioning, max_steps, top_k, temp, guidance_coef, seed):
+        generator = make_generator(conditioning.device, seed)
+        return mg.generate(self.params, self.cfg, conditioning, int(max_steps), int(top_k),
+                           float(temp), float(guidance_coef), generator)
+
+    def _decode(self, codes):
+        """codes (n, K, T) → waveforms (n, T·hop, C)."""
+        return self.audio_decoder.decode(codes[None], [None])
+
+    def generate(self, text: str, max_steps: int = 200, top_k: int = 250, temp: float = 1.0,
+                 guidance_coef: float = 3.0, seed: Optional[int] = None, conditioning=None,
+                 n_samples: int = 1, trace: Optional[dict] = None):
+        """Waveform (T, C) of the first sample; with n_samples > 1 all are
+        generated in one batched AR loop (`generate_batch` returns them all).
+
+        `trace`, when a dict is given, receives the seconds of each phase
+        ("conditioning_s", "ar_s", "decode_s", each ended by a device
+        synchronize) and the codes ("codes")."""
+        t0 = time.perf_counter()
+
+        def mark(key, t0):
+            if trace is not None:
+                synchronize(self.device)
+                trace[key] = time.perf_counter() - t0
+            return time.perf_counter()
+
+        if conditioning is None:
+            conditioning = self.conditioning(text)
+        if n_samples > 1 and conditioning.shape[0] == 1:
+            conditioning = conditioning.expand(n_samples, *conditioning.shape[1:])
+        t0 = mark("conditioning_s", t0)
+        codes = self._codes(conditioning, max_steps, top_k, temp, guidance_coef, seed)
+        t0 = mark("ar_s", t0)
+        audio = self._decode(codes[:1])
+        mark("decode_s", t0)
+        if trace is not None:
+            trace["codes"] = codes
+        return audio[0]
+
+    def generate_batch(self, text: str, n_samples: int = 2, **kwargs):
+        """All n sample waveforms (n, T, C), generated in one batched AR loop."""
+        args = [kwargs.pop(k, d) for k, d in (("max_steps", 200), ("top_k", 250), ("temp", 1.0),
+                                             ("guidance_coef", 3.0), ("seed", None))]
+        if kwargs:
+            raise TypeError(f"unexpected arguments {sorted(kwargs)}")
+        conditioning = self.conditioning(text)
+        conditioning = conditioning.expand(n_samples, *conditioning.shape[1:])
+        return self._decode(self._codes(conditioning, *args))

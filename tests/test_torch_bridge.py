@@ -15,6 +15,8 @@ import torch
 from flux_generator_tpu.models.clip.text import init_clip_text, tiny_clip_config
 from flux_generator_tpu.models.flux.autoencoder import init_autoencoder, tiny_ae_config
 from flux_generator_tpu.models.flux.model import init_flux, tiny_flux_config
+from flux_generator_tpu.models.musicgen.encodec import init_encodec, tiny_encodec_config
+from flux_generator_tpu.models.musicgen.model import init_musicgen, tiny_musicgen_config
 from flux_generator_tpu.models.t5.t5 import init_t5_encoder, tiny_t5_config
 from flux_generator_tpu.ops.quant import quantize_tree
 from flux_generator_tpu_torch.io.params import (
@@ -39,6 +41,9 @@ def _trees():
     k = jax.random.split(key, 4)
     flow = init_flux(k[0], tiny_flux_config())
     t5 = init_t5_encoder(k[1], tiny_t5_config())
+    # jit: one compile is faster here than eager op-by-op construction
+    musicgen = jax.jit(lambda key: init_musicgen(key, tiny_musicgen_config()))(k[2])
+    encodec = jax.jit(lambda key: init_encodec(key, tiny_encodec_config(num_lstm_layers=2)))(k[3])
     return {
         "flow": flow,
         "flow_bf16": init_flux(k[0], tiny_flux_config(), jnp.bfloat16),
@@ -49,11 +54,17 @@ def _trees():
         "flow_int8_grouped": quantize_tree(flow, all_layers, bits=8, group_size=8),
         "t5_int4_grouped": quantize_tree(t5, all_layers, bits=4, group_size=4, pack=True),
         "t5_int4_channel": quantize_tree(t5, all_layers, bits=4, pack=True),
+        # EnCodec: lists of per-layer dicts (lists again inside resnet/lstm)
+        "encodec": encodec,
+        # MusicGen: 3-D emb and linears leaves beside the stacked layers
+        "musicgen": musicgen,
+        "musicgen_int8_bf16": jax.jit(lambda t: quantize_tree(
+            jax.tree.map(lambda a: a.astype(jnp.bfloat16), t), all_layers, bits=8))(musicgen),
     }
 
 
 TREES = ["flow", "flow_bf16", "t5", "clip", "ae", "flow_int8", "flow_int8_grouped",
-         "t5_int4_grouped", "t5_int4_channel"]
+         "t5_int4_grouped", "t5_int4_channel", "encodec", "musicgen", "musicgen_int8_bf16"]
 
 
 @pytest.fixture(scope="module")
@@ -87,6 +98,19 @@ def test_cast_touches_only_floating_leaves(trees):
     assert t["encoder"]["layers"]["dense"]["wo"]["kernel_q4"].dtype == torch.uint8
 
 
+def test_encodec_and_musicgen_trees_keep_their_layout(trees):
+    enc = jax_to_torch(trees["encodec"])
+    assert isinstance(enc["decoder"], list) and isinstance(enc["quantizer"], list)
+    lstm_stage = next(layer for layer in enc["decoder"] if "lstm" in layer)
+    assert isinstance(lstm_stage["lstm"], list) and len(lstm_stage["lstm"]) == 2
+    assert lstm_stage["lstm"][0]["wh"].shape[1] == 4 * lstm_stage["lstm"][0]["wh"].shape[0]
+    mg = jax_to_torch(trees["musicgen_int8_bf16"])
+    assert mg["linears"].dim() == 3 and mg["emb"].dim() == 3 and mg["emb"].dtype == torch.bfloat16
+    qkv = mg["layers"]["self_attn"]["qkv"]
+    assert qkv["kernel_q"].dtype == torch.int8 and qkv["kernel_q"].dim() == 3
+    assert qkv["kernel_scale"].dtype == torch.float32
+
+
 def test_layer_helpers():
     n = 3
     stacked = stack_layers(lambda: {"a": torch.randn(2, 5), "b": {"c": torch.ones(4)}}, n)
@@ -102,7 +126,8 @@ def _run(code: str):
 
 
 def test_pipeline_import_does_not_load_jax():
-    proc = _run("import sys, flux_generator_tpu_torch.pipelines.flux; "
+    proc = _run("import sys, flux_generator_tpu_torch.pipelines.flux, "
+                "flux_generator_tpu_torch.pipelines.musicgen; "
                 "assert 'jax' not in sys.modules, 'jax loaded'")
     assert proc.returncode == 0, proc.stderr
 
