@@ -5,8 +5,8 @@
 
 Phases, each of which fails the run on error:
   1. device         — the card's name and power limit; no CUDA device is an error.
-  2. build          — compile the four CUDA kernels from csrc/ with nvcc, all
-                      at once, with the ptxas report of each.
+  2. build          — compile the five CUDA sources (kernels A-F) from csrc/
+                      with nvcc, all at once, with the ptxas report of each.
   3. kernels        — flash attention (A) and the int4 matmul (B) against their
                       plain PyTorch versions at the shapes of the Flux-schnell
                       512² path, with times of both.
@@ -24,8 +24,26 @@ Phases, each of which fails the run on error:
                       the CPU (f32, plain versions) from the same weights and noise.
   8. small-musicgen — a small MusicGen config (ffn = 4h, head dim 64) on the card
                       and on the CPU: teacher-forced logits and a decoded waveform.
+  9. kernels-train  — the flash backward, dQ (E) and dK/dV (F), through the
+                      autograd function against the plain backward in f32 at
+                      the Flux-dev and Flux-schnell training shapes, a padded
+                      length and head dim 64, with times of E, F, the plain
+                      backward and SDPA's backward as a yardstick.
+ 10. main-train     — DreamBooth LoRA training of Flux-dev at full width on
+                      random weights through training.dreambooth.train: 3
+                      optimizer steps of 4 micro-steps on two seeded images;
+                      checks losses, the adapters and the launch counts.
+ 11. small-train    — a small Flux config: the training loss and its LoRA
+                      gradients on the card (bf16) against the CPU (f32).
 The last line printed is {"ok": true, "device": {...}}; a fuller record goes
 to chiprun_out/chip_smoke.json.
+
+    python3 chip_smoke.py --profile-train
+
+instead profiles one optimizer step (4 micro-steps) of the main-train
+configuration through the trainer's step function under torch.profiler
+(device time by kernel group, busy share, per micro-step) into
+chiprun_out/profile_train.json.
 """
 
 from __future__ import annotations
@@ -35,12 +53,26 @@ import pathlib
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
 FLASH_TOL = 2e-2  # bf16 P·V and bf16 output against the f32 plain version
+# flash backward, of max|ref|: P and dS rounded to bf16 before their products,
+# bf16 outputs, against the f32 plain backward
+FLASH_BWD_REL_TOL = 2e-2
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 and int8 tensor
+# cores, HBM
+PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES_S = 989e12, 1979e12, 3.35e12
+TRAIN_ARGS = ["--model", "dev", "--quantize-base", "--lora-rank", "8", "--resolution", "512x512",
+              "--batch-size", "1", "--grad-accumulate", "4", "--num-augmentations", "2",
+              "--warmup-steps", "1", "--progress-every", "0", "--checkpoint-every", "3",
+              "--iterations", "3", "--random-weights",
+              "--t5-tokenizer", str(ROOT / "tests/assets/spiece/t5_like.model"),
+              "--clip-tokenizer", str(ROOT / "tests/assets/clip_tokenizer")]
+TRAIN_PROMPTS = ["a photo of sks dog on a beach", "a photo of sks dog in a red bucket"]
 INT4_REL_TOL = 1e-2  # of max|ref|: the bf16 output rounding is 2^-9 relative
 SMALL_REL_TOL = 5e-2  # relative L2, bf16 on the card against f32 on the CPU
 STEPS, SIZE = 4, 512
@@ -67,6 +99,30 @@ def log(*args):
     print(*args, flush=True)
 
 
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    """(least time in ms, "operations" or "bytes") at the card's `peak`
+    (bf16 unless given) and memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def unported_bounds():
+    """Bounds of the TPU kernels not ported yet, at the shapes they would
+    take on the card: W8A8 at a Flux double block's image qkv (1024 tokens,
+    3072 → 9216), the row quantizer on its input, the two decode-chain
+    probes' 48 × 14 (1536, 1536) int8 weight stream, and one (1024, 128) ·
+    (128, 1024) bf16 step of the bare dot probe."""
+    m, k, n = 1024, 3072, 9216
+    chain = 48 * 14 * 1536 * 1536
+    return {
+        "w8a8_matmul": bound_ms(2 * m * k * n, 2 * m * k + k * n + 4 * n + 4 * m + 2 * m * n,
+                                PEAK_INT8_OPS),
+        "w8a8_row_quantizer": bound_ms(3 * m * k, 2 * m * k + m * k + 4 * m),
+        "decode_chain_probes": bound_ms(2 * chain, chain),
+        "bare_dot_probe_step": bound_ms(2 * 1024 * 128 * 1024, 2 * 2 * 1024 * 128 + 2 * 1024 * 1024),
+    }
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() over `iters` back-to-back calls."""
     import torch
@@ -82,6 +138,26 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Mean device time per fn() call: the sum of its CUDA kernels' times
+    under torch.profiler. For library calls whose host-side cost (the
+    autograd engine, SDPA's dispatch) would swamp CUDA-event timing at these
+    sizes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time_total for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def phase_device():
@@ -103,10 +179,12 @@ def phase_build():
     from flux_generator_tpu_torch.ops.kernels import _build
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
     from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
     from flux_generator_tpu_torch.ops.kernels import lstm as lk
 
-    mods = {"flash_attention": fa, "int4_matmul": im, "lstm": lk, "decode_step": ds}
+    mods = {"flash_attention": fa, "int4_matmul": im, "lstm": lk, "decode_step": ds,
+            "flash_attention_bwd": fb}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
         futures = {name: pool.submit(_build.load, name, mod._SIGNATURES) for name, mod in mods.items()}
@@ -121,19 +199,40 @@ def phase_build():
                 log(f"[build]   {line.strip()}")
 
 
-def _flux_rope_tables(length: int):
-    """cos/sin (1, length, 64) in bf16 from the real Flux ids: 256 text
-    tokens (id 0) then the 512² image's 32x32 patch grid."""
+def _flux_rope_tables(length: int, text: int = 256):
+    """cos/sin (1, length, 64) in bf16 from the real Flux ids: `text` text
+    tokens (id 0; 256 for schnell, 512 for dev) then the 512² image's 32x32
+    patch grid."""
     import torch
 
     from flux_generator_tpu_torch.ops.rope import multi_axis_rope
     from flux_generator_tpu_torch.pipelines.flux import latent_ids
 
     dev = torch.device("cuda")
-    ids = torch.cat([torch.zeros((1, 256, 3), dtype=torch.int64, device=dev),
+    ids = torch.cat([torch.zeros((1, text, 3), dtype=torch.int64, device=dev),
                      latent_ids(1, SIZE // 8, SIZE // 8, device=dev)], dim=1)[:, :length]
     cos, sin = multi_axis_rope(ids, [16, 56, 56], 10000.0)
     return cos.to(torch.bfloat16).contiguous(), sin.to(torch.bfloat16).contiguous()
+
+
+def _tinygemm_operands(kernel_q4, kernel_scale):
+    """Kernel B's packed int4 weights in the operands of PyTorch's
+    torch._weight_int4pack_mm, for its time as a yardstick only: the
+    unsigned nibbles u = q + 8 of (N, K), two per byte along K (even k high),
+    through _convert_weight_to_int4pack, and a (groups, N, 2) bf16 table of
+    (scale, zero = 0), so that tinygemm's (u − 8)·scale + zero is q·scale.
+    Per-channel scales go in as groups of 256 with the scale repeated."""
+    import torch
+
+    k = 2 * kernel_q4.shape[0]
+    u = torch.cat([kernel_q4 & 15, kernel_q4 >> 4]).t().contiguous()  # split layout → (N, K)
+    weight = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).contiguous(), 8)
+    if kernel_scale.ndim == 1:
+        group_size, scale = 256, kernel_scale[None].expand(k // 256, -1)
+    else:
+        group_size, scale = k // kernel_scale.shape[0], kernel_scale
+    table = torch.stack([scale, torch.zeros_like(scale)], -1).to(torch.bfloat16).contiguous()
+    return weight, group_size, table
 
 
 def phase_kernels():
@@ -159,12 +258,22 @@ def phase_kernels():
         err = max((out.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
         ms = time_ms(lambda: fa.flash_attention(q, k, v, cos, sin))
         plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, cos, sin))
+        # yardstick: SDPA's forward on pre-rotated q/k in (B, H, L, D), device time
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (
+            fa._rope_f32(q, cos, sin).to(q.dtype) if rope else q,
+            fa._rope_f32(k, cos, sin).to(q.dtype) if rope else k, v))
+        library_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs))
         gflop = 4 * length * length * 128 * 24 / 1e9
+        # q, k, v, out bf16, the two tables, lse f32
+        bound = bound_ms(gflop * 1e9, 4 * q.numel() * 2 + (2 * cos.numel() * 2 if rope else 0)
+                         + length * 24 * 4)
         log(f"[kernels] flash {label}: max|Δ| {err:.3e} (tol {FLASH_TOL}) | kernel {ms:.4f} ms "
-            f"({gflop / ms:.1f} TFLOP/s) | plain {plain_ms:.4f} ms")
+            f"({gflop / ms:.1f} TFLOP/s) | plain {plain_ms:.4f} ms | SDPA {library_ms:.4f} ms | "
+            f"bound {bound[0]:.4f} ms ({bound[1]})")
         if not err <= FLASH_TOL:
             raise AssertionError(f"flash {label} disagrees with its plain version: {err}")
-        flash.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        flash.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1]))
     results["flash_attention"] = flash
 
     int4 = []
@@ -182,12 +291,27 @@ def phase_kernels():
         tol = INT4_REL_TOL * ref.abs().max().item()
         ms = time_ms(lambda: im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"]))
         plain_ms = time_ms(lambda: im.int4_matmul_reference(x, p["kernel_q4"], p["kernel_scale"]))
+        # yardstick: PyTorch's tinygemm int4 matmul on the same weights,
+        # repacked once into its layout; device time
+        lw, lgs, ltable = _tinygemm_operands(p["kernel_q4"], p["kernel_scale"])
+        lib_out = torch._weight_int4pack_mm(x, lw, lgs, ltable)
+        lib_err = (lib_out.float() - ref).abs().max().item()
+        library_ms = device_ms(lambda: torch._weight_int4pack_mm(x, lw, lgs, ltable))
         gflop = 2 * 256 * k_dim * n_dim / 1e9
+        # x and out bf16, the packed nibbles, the f32 scales
+        bound = bound_ms(gflop * 1e9, 2 * 256 * (k_dim + n_dim) + p["kernel_q4"].numel()
+                         + p["kernel_scale"].numel() * 4)
         log(f"[kernels] int4 M=256 {label}: max|Δ| {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms "
-            f"({gflop / ms:.1f} TFLOP/s) | plain {plain_ms:.4f} ms")
+            f"({gflop / ms:.1f} TFLOP/s) | plain {plain_ms:.4f} ms | tinygemm {library_ms:.4f} ms "
+            f"(max|Δ| {lib_err:.3e}) | bound {bound[0]:.4f} ms ({bound[1]})")
         if not err <= tol:
             raise AssertionError(f"int4 {label} disagrees with its plain version: {err} > {tol}")
-        int4.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        if not lib_err <= tol:
+            raise AssertionError(f"int4 {label}: the tinygemm yardstick computes another function: "
+                                 f"{lib_err} > {tol}")
+        int4.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         library_max_abs_err=lib_err, bound_ms=bound[0], bound_by=bound[1]))
+        del lw, ltable, lib_out
     results["int4_matmul"] = int4
     torch.cuda.synchronize()
     return results
@@ -362,6 +486,7 @@ def phase_kernels_musicgen():
     step (H = 1536, 24 heads, int8 and bf16 weights, windows of 8 to 2048
     rows, the CFG batch of 2 and a batch of 8 with cond_len masks)."""
     import torch
+    import torch.backends.cudnn.rnn as cudnn_rnn
 
     from flux_generator_tpu_torch.io.registry import MUSICGEN_MEDIUM_CONFIG as cfg
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
@@ -382,11 +507,33 @@ def phase_kernels_musicgen():
         tol = LSTM_TOL["bf16" if wd == torch.bfloat16 else "f32"]
         ms = time_ms(lambda: lk.lstm_recurrence(xw, wh, torch.float32), iters=10)
         plain_ms = time_ms(lambda: lk.lstm_recurrence_plain(xw, wh, torch.float32), iters=2, warmup=1)
+        # yardstick: cuDNN's nn.LSTM, one layer of width d in the same dtype (it
+        # also does the input projection the kernel takes as xw), its weights
+        # compacted once into cuDNN's one-buffer layout so that no call copies
+        # them (flatten_parameters() skips bf16, which torch.backends.cudnn
+        # does not list as acceptable, so the layout is made directly); device time
+        cudnn = torch.nn.LSTM(d, d, batch_first=True).to(dev, wd)
+        with torch.no_grad():
+            torch._cudnn_rnn_flatten_weight(cudnn._flat_weights, 4, d,
+                                            cudnn_rnn.get_cudnn_mode("LSTM"), d, 0, 1,
+                                            True, False)
+        x_in = torch.randn((b, t, d), generator=g, device=dev).to(wd)
+        with torch.no_grad(), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            cudnn(x_in)
+            compacted = not any("compacted at every call" in str(w.message) for w in caught)
+            library_ms = device_ms(lambda: cudnn(x_in))
+        # xw and Wh read, f32 h written; 2·d·4d operations a step
+        bound = bound_ms(2 * t * b * d * 4 * d, xw.numel() * xw.element_size()
+                         + wh.numel() * wh.element_size() + b * t * d * 4)
         log(f"[kernels] lstm {label}: max|Δ| {err:.3e} (tol {tol}) | kernel {ms:.4f} ms "
-            f"({ms * 1e3 / t:.2f} us/step) | plain {plain_ms:.4f} ms")
+            f"({ms * 1e3 / t:.2f} us/step) | plain {plain_ms:.4f} ms | cuDNN LSTM {library_ms:.4f} ms"
+            f" (weights compacted once: {compacted}) | bound {bound[0]:.4f} ms ({bound[1]})")
         if not err <= tol:
             failures.append(f"lstm {label}: {err} > {tol}")
-        lstm_cases.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        lstm_cases.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms, library_weights_compacted=compacted,
+                               bound_ms=bound[0], bound_by=bound[1]))
     results["lstm"] = lstm_cases
 
     L, H, heads, s_text = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_attention_heads, 16
@@ -442,8 +589,10 @@ def phase_kernels_musicgen():
         if not (err <= tol and row_err <= row_tol and untouched):
             failures.append(f"decode {label}: y {err} (tol {tol}), rows {row_err} (tol {row_tol}), "
                             f"untouched {untouched}")
+        bound = bound_ms(2 * b * packed["w"].numel(), nbytes)
         decode_cases.append(dict(case=label, max_abs_err=err, rel_err=err / tol * DECODE_REL_TOL,
-                                 ms=ms, plain_ms=plain_ms, bytes=nbytes))
+                                 ms=ms, plain_ms=plain_ms, bytes=nbytes, library_ms=None,
+                                 bound_ms=bound[0], bound_by=bound[1]))
         del kc, vc, k1, v1, k2, v2
     results["decode_step"] = decode_cases
     torch.cuda.synchronize()
@@ -590,22 +739,379 @@ def phase_small_musicgen():
     return dict(logits_rel_l2=logit_err, waveform_rel_l2=wave_err)
 
 
+def phase_kernels_train():
+    """Kernels E (dQ) and F (dK, dV) through the autograd function against the
+    plain backward in f32, at Flux-dev training's shape (512 text + 1024
+    image tokens), Flux-schnell's (256 + 1024), a padded length and head dim
+    64; times of E and F alone, the plain backward and SDPA's backward."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+    cases, failures = [], []
+    for label, b, length, h, d, text in (("dev_L1536_rope", 1, 1536, 24, 128, 512),
+                                         ("schnell_L1280_rope", 1, 1280, 24, 128, 256),
+                                         ("L1000_rope_padding", 1, 1000, 24, 128, 256),
+                                         ("d64_B2_L1024_norope", 2, 1024, 10, 64, None)):
+        q, k, v, dout = (torch.randn((b, length, h, d), generator=g, device=dev).to(torch.bfloat16)
+                         for _ in range(4))
+        cos, sin = _flux_rope_tables(length, text) if text is not None else (None, None)
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+        out = fa.flash_attention(qg, kg, vg, cos, sin)
+        got = torch.autograd.grad(out, (qg, kg, vg), dout)
+        out = out.detach()
+        # the plain backward in f32 on the same rotated bf16 q/k, lse and dvec
+        _, lse = fa.flash_attention(q, k, v, cos, sin, return_lse=True)
+        qr, kr = ((fa._rope_f32(x, cos, sin).to(x.dtype) if cos is not None else x).contiguous()
+                  for x in (q, k))
+        dvec = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, length).contiguous()
+        ref = fb.flash_attention_bwd_reference(qr.float(), kr.float(), v.float(), dout.float(), lse,
+                                               dvec, d ** -0.5)
+        if cos is not None:
+            ref = (fa._rope_f32(ref[0], cos, -sin), fa._rope_f32(ref[1], cos, -sin), ref[2])
+        errs = [((x.float() - r).abs().max() / r.abs().max()).item() for x, r in zip(got, ref)]
+        torch.cuda.synchronize()
+
+        scale = d ** -0.5
+        e_ms = time_ms(lambda: fb.flash_attention_bwd_dq_cuda(qr, kr, v, dout, lse, dvec, scale))
+        f_ms = time_ms(lambda: fb.flash_attention_bwd_dkv_cuda(qr, kr, v, dout, lse, dvec, scale))
+        plain_ms = time_ms(lambda: fb.flash_attention_bwd_reference(qr, kr, v, dout, lse, dvec, scale),
+                           iters=5, warmup=1)
+        # yardstick: SDPA's backward on the pre-rotated q/k in (B, H, L, D), device time
+        qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (qr, kr, v))
+        os_ = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+        dos = dout.transpose(1, 2).contiguous()
+        library_ms = device_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True))
+        lsq = b * h * length * length * d
+        io = q.numel() * 2  # one (B, L, H, D) bf16 tensor
+        e_bound = bound_ms(6 * lsq, 5 * io + 2 * b * h * length * 4)  # q k v dO in, dq out
+        f_bound = bound_ms(8 * lsq, 6 * io + 2 * b * h * length * 4)  # q k v dO in, dk dv out
+        rec = dict(case=label, max_rel_err=max(errs), max_abs_err=max(
+            (x.float() - r).abs().max().item() for x, r in zip(got, ref)),
+            dq_ms=e_ms, dkv_ms=f_ms, plain_ms=plain_ms, library_ms=library_ms,
+            dq_bound_ms=e_bound[0], dq_bound_by=e_bound[1], dkv_bound_ms=f_bound[0],
+            dkv_bound_by=f_bound[1])
+        log(f"[kernels-train] flash bwd {label}: max|Δ|/max|ref| dq {errs[0]:.3e} dk {errs[1]:.3e} "
+            f"dv {errs[2]:.3e} (tol {FLASH_BWD_REL_TOL}) | E {e_ms:.4f} ms "
+            f"({6 * lsq / e_ms / 1e9:.1f} TFLOP/s, bound {e_bound[0]:.4f}) | F {f_ms:.4f} ms "
+            f"({8 * lsq / f_ms / 1e9:.1f} TFLOP/s, bound {f_bound[0]:.4f}) | plain {plain_ms:.4f} ms"
+            f" | SDPA backward {library_ms:.4f} ms")
+        if not max(errs) <= FLASH_BWD_REL_TOL:
+            failures.append(f"flash bwd {label}: {errs}")
+        cases.append(rec)
+        del q, k, v, dout, qg, kg, vg, out, got, ref, qs, ks, vs, os_
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("flash backward disagrees with its plain version: " + "; ".join(failures))
+    return {"flash_attention_bwd": cases}
+
+
+def _train_setup(out_dir: str, *extra: str):
+    """The main-train configuration: parsed trainer args (TRAIN_ARGS, then
+    `extra`), the Flux-dev pipeline that the trainer's random_pipeline
+    builds from them on the card, its build time in s, and two seeded
+    640x576 uint8 images with their prompts."""
+    import numpy as np
+    import torch
+
+    from flux_generator_tpu_torch.training.dreambooth import build_parser, random_pipeline
+
+    args = build_parser().parse_args([out_dir, *TRAIN_ARGS, "--output-dir", out_dir, *extra])
+    t0 = time.perf_counter()
+    pipe = random_pipeline(args)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(77)
+    dataset = [(rng.integers(0, 256, (576, 640, 3), dtype=np.uint8), p) for p in TRAIN_PROMPTS]
+    return args, pipe, init_s, dataset
+
+
+def phase_main_train():
+    """DreamBooth LoRA training of Flux-dev at full width (19 + 38 blocks,
+    hidden 3072, T5-XXL int4 g128, CLIP-L, VAE) on random weights: 3
+    optimizer steps of 4 micro-steps through training.dreambooth.train with
+    the base in int8, on two seeded 640x576 images and two prompts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flux_generator_tpu_torch.io.params import tree_leaves
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+    from flux_generator_tpu_torch.training.checkpoints import load_adapter_file
+    from flux_generator_tpu_torch.training.dreambooth import train
+    from flux_generator_tpu_torch.training.lora import extract_lora
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        args, pipe, init_s, dataset = _train_setup(out_dir)
+        log(f"[main-train] random init + T5 int4 {init_s:.2f} s, resident "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        micro = args.iterations * args.grad_accumulate
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fb.dq_launches = fb.dkv_launches = im.launches = 0
+        trace = {}
+        t0 = time.perf_counter()
+        train(args, pipeline=pipe, dataset=dataset, trace=trace)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = {"flash_attention": fa.launches, "flash_attention_bwd_dq": fb.dq_launches,
+                    "flash_attention_bwd_dkv": fb.dkv_launches, "int4_matmul": im.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = trace["micro_step_s"]
+        log(f"[main-train] train {total_s:.3f} s: encode dataset {trace['encode_s']:.4f} s "
+            f"({len(dataset)} images x {args.num_augmentations} augmentations, {len(dataset)} prompts)"
+            f" | first micro-step {steps[0]:.4f} s | later micro-steps "
+            + " ".join(f"{x:.4f}" for x in steps[1:]) + f" s | peak {peak:.2f} GiB")
+        log(f"[main-train] losses " + " ".join(f"{x:.5f}" for x in trace["losses"]))
+        per_step = {k: v / micro for k, v in launches.items() if k != "int4_matmul"}
+        log(f"[main-train] launches over {micro} micro-steps: {launches} | per micro-step "
+            f"{per_step} | int4 per prompt {launches['int4_matmul'] / len(dataset)}")
+
+        cfg = pipe.flow_cfg
+        blocks = cfg.depth + cfg.depth_single_blocks
+        want = {"flash_attention": 2 * blocks * micro, "flash_attention_bwd_dq": blocks * micro,
+                "flash_attention_bwd_dkv": blocks * micro, "int4_matmul": 24 * 7 * len(dataset)}
+        if launches != want:
+            raise AssertionError(f"launch counts {launches}, want {want}")
+        if len(steps) != micro or not np.isfinite(trace["losses"]).all():
+            raise AssertionError(f"micro-steps {len(steps)} (want {micro}), losses {trace['losses']}")
+        lora = extract_lora(pipe.params["flow"])
+        lora_b = [t for path, t in _named(lora) if path.endswith("lora_b")]
+        if not all(bool(t.any()) for t in lora_b):
+            raise AssertionError("some lora_b is still zero after training")
+        trained = [t.detach().clone() for t in tree_leaves(lora)]
+        final = pathlib.Path(out_dir) / "final_adapters.safetensors"
+        written = sorted(p.name for p in pathlib.Path(out_dir).iterdir())
+        load_adapter_file(pipe, final)
+        reread = tree_leaves(extract_lora(pipe.params["flow"]))
+        same = len(reread) == len(trained) and all(torch.equal(a, b) for a, b in zip(reread, trained))
+        log(f"[main-train] written {written}; adapter re-read equal to the trained LoRA: {same}; "
+            f"{len(trained)} LoRA tensors, {sum(t.numel() for t in trained) / 1e6:.2f} M params")
+        if not same or "0000003_adapters.safetensors" not in written:
+            raise AssertionError("the adapter files were not written or do not read back")
+    return dict(init_s=init_s, train_s=total_s, encode_s=trace["encode_s"], micro_step_s=steps,
+                losses=trace["losses"], peak_gib=peak, launches=launches,
+                launches_per_micro_step=per_step)
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def phase_small_train():
+    """A small Flux-dev config (head dim 128, 1 + 1 blocks, int8 base, LoRA
+    rank 4 with nonzero lora_b): the training loss and its LoRA gradients at
+    fixed numpy x0/t/eps, on the card in bf16 with the kernels against the
+    CPU in f32 with the plain versions."""
+    import numpy as np
+    import torch
+
+    from flux_generator_tpu_torch.io.params import tree_leaves
+    from flux_generator_tpu_torch.models.flux.autoencoder import tiny_ae_config
+    from flux_generator_tpu_torch.models.flux.model import FluxConfig, init_flux
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
+    from flux_generator_tpu_torch.ops.quant import quantize_tree
+    from flux_generator_tpu_torch.pipelines.flux import FluxPipeline
+    from flux_generator_tpu_torch.training.lora import apply_lora_to_flux, extract_lora, merge_lora
+
+    cfg = FluxConfig(in_channels=64, vec_in_dim=64, context_in_dim=256, hidden_size=256, mlp_ratio=2.0,
+                     num_heads=2, depth=1, depth_single_blocks=1, guidance_embed=True)
+    g = torch.Generator().manual_seed(15)
+    flow = apply_lora_to_flux(init_flux(g, cfg), rank=4, generator=g)
+    rng = np.random.default_rng(16)
+    for path, t in _named(extract_lora(flow)):
+        if path.endswith("lora_b"):
+            t.copy_(torch.from_numpy(0.05 * rng.standard_normal(t.shape).astype(np.float32)))
+    flow = quantize_tree(flow, lambda p: True)
+    x0 = torch.from_numpy(rng.standard_normal((1, 16, 16, 16)).astype(np.float32))
+    # a timestep that bf16 holds exactly: the flow takes t in the working dtype,
+    # and 0.6 → 0.5977 would move the timestep embedding's fast sinusoids
+    t = torch.tensor([0.625], dtype=torch.float32)
+    eps = torch.from_numpy(rng.standard_normal((1, 64, 64)).astype(np.float32))
+    t5 = torch.from_numpy(rng.standard_normal((1, 32, 256)).astype(np.float32))
+    clip = torch.from_numpy(rng.standard_normal((1, 64)).astype(np.float32))
+    guidance = torch.tensor([3.0])
+    outs = {}
+    counts0 = (fa.launches, fb.dq_launches, fb.dkv_launches)
+    flows = {"cpu": flow, "gpu": _to_device(flow, "cuda", torch.bfloat16)}
+    for name, dev, dt in (("cpu", "cpu", torch.float32), ("gpu", "cuda", torch.bfloat16)):
+        f = flows[name]
+        pipe = FluxPipeline("flux-dev", {"flow": f}, cfg, tiny_ae_config(z_channels=16), None, None,
+                            dtype=dt)
+        lora = extract_lora(f)
+        leaves = tree_leaves(lora)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = pipe._training_loss_at(merge_lora(f, lora), x0.to(dev, dt), t.to(dev), eps.to(dev, dt),
+                                      t5.to(dev, dt), clip.to(dev, dt), guidance.to(dev, dt))
+        grads = torch.autograd.grad(loss, leaves)
+        outs[name] = (loss.item(), torch.cat([gr.float().cpu().reshape(-1) for gr in grads]))
+    counts = tuple(c - c0 for c, c0 in zip((fa.launches, fb.dq_launches, fb.dkv_launches), counts0))
+    loss_err = abs(outs["gpu"][0] - outs["cpu"][0]) / abs(outs["cpu"][0])
+    grad_err = ((outs["gpu"][1] - outs["cpu"][1]).norm() / outs["cpu"][1].norm()).item()
+    log(f"[small-train] loss cpu {outs['cpu'][0]:.6f} gpu {outs['gpu'][0]:.6f} (rel {loss_err:.3e}) | "
+        f"LoRA grads rel-L2 {grad_err:.3e} (tol {SMALL_REL_TOL}) | launches A/E/F on the card {counts}")
+    if counts != (4, 2, 2):
+        raise AssertionError(f"small training config did not run the kernels on the card: {counts}")
+    if not (loss_err <= SMALL_REL_TOL and grad_err <= SMALL_REL_TOL):
+        raise AssertionError("the card's training step disagrees with the CPU reference")
+    return dict(loss_rel_err=loss_err, lora_grad_rel_l2=grad_err)
+
+
+def _kernel_group(name: str) -> str:
+    """Coarse group of a CUDA kernel by its name, for the training profile."""
+    for key, group in (("flash_fwd_kernel", "A flash forward"), ("flash_bwd_dq", "E flash dQ"),
+                       ("flash_bwd_dkv", "F flash dK/dV"), ("int4_matmul", "B int4 matmul")):
+        if key in name:
+            return group
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "GEMMs (cuBLAS)"
+    if "norm" in low:
+        return "norms"
+    if "reduce" in low:
+        return "reductions"
+    if any(k in low for k in ("elementwise", "copy", "cast", "fill")):
+        return "elementwise, casts, copies"
+    return "other"
+
+
+def phase_profile_train():
+    """One optimizer step of Flux-dev training (the main-train configuration:
+    grad_accumulate micro-steps, the last with the Adam update) under
+    torch.profiler, through the step function that training.dreambooth.train
+    runs (make_train_step), after a warm-up through train itself: device time
+    by kernel group and by kernel, and the device's busy share of the wall,
+    per micro-step. Writes chiprun_out/profile_train.json."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flux_generator_tpu_torch.io.params import tree_leaves
+    from flux_generator_tpu_torch.training.dreambooth import build_optimizer, make_train_step, train
+    from flux_generator_tpu_torch.training.lora import extract_lora
+    from flux_generator_tpu_torch.training.trainer import Trainer
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as out_dir:
+        args, pipe, _, dataset = _train_setup(out_dir, "--checkpoint-every", "0", "--iterations", "1")
+        train(args, pipeline=pipe, dataset=dataset)  # warm-up; applies LoRA and the int8 base
+
+    # the trained flow tree carries the LoRA leaves, which train left requiring grad
+    flow = pipe.params["flow"]
+    lora = extract_lora(flow)
+    optimizer = build_optimizer(args.learning_rate, args.warmup_steps, args.iterations)
+    step_fn = make_train_step(pipe, optimizer, flow, args.grad_accumulate)
+    trainer = Trainer(pipe, dataset, resolution=args.resolution,
+                      num_augmentations=args.num_augmentations)
+    trainer.encode_dataset()
+    batches = trainer.iterate(args.batch_size)
+    guidance = torch.full((args.batch_size,), args.guidance, dtype=pipe.dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    state = {"opt": optimizer.init(lora), "accum": None}
+    micro_steps = args.grad_accumulate
+    if not all(p.requires_grad for p in tree_leaves(lora)):
+        raise AssertionError("the LoRA leaves do not require grad after train")
+
+    def micro_step(i):
+        x0, t5f, clipf = next(batches)
+        loss, _, state["opt"], state["accum"] = step_fn(
+            lora, state["opt"], state["accum"], g, x0, t5f, clipf, guidance,
+            is_first=i == 0, should_step=i == micro_steps - 1)
+        return float(loss)  # waits for the device, as train does
+
+    for i in range(micro_steps):  # one whole step to warm the update path too
+        micro_step(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(micro_steps):
+            micro_step(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / micro_steps
+
+    kernels, spans = {}, []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0:
+            kernels.setdefault(ev.name, [0.0, 0])
+            kernels[ev.name][0] += ev.device_time_total / 1e3 / micro_steps
+            kernels[ev.name][1] += 1
+            spans.append((ev.time_range.start, ev.time_range.end))
+    busy_us, last = 0.0, None
+    for start, end in sorted(spans):  # union of the kernels' intervals
+        if last is None or start > last:
+            busy_us += end - start
+            last = end
+        elif end > last:
+            busy_us += end - last
+            last = end
+    busy_ms = busy_us / 1e3 / micro_steps
+    groups = {}
+    for kname, (ms, _) in kernels.items():
+        grp = _kernel_group(kname)
+        groups[grp] = groups.get(grp, 0.0) + ms
+    kernel_ms = sum(groups.values())
+    log(f"[profile-train] micro-step wall {wall_ms:.1f} ms with the profiler on (mean of "
+        f"{micro_steps}, the last with the Adam update) | device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle {100 - 100 * busy_ms / wall_ms:.1f}% "
+        f"| kernel time {kernel_ms:.1f} ms | {sum(n for _, n in kernels.values()) // micro_steps} "
+        f"kernel launches a micro-step")
+    for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"[profile-train]   {grp}: {ms:.2f} ms ({100 * ms / kernel_ms:.1f}%)")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    for kname, (ms, n) in top:
+        log(f"[profile-train]   {ms:8.2f} ms {n // micro_steps:6d}x  {kname[:110]}")
+    record = dict(wall_ms=wall_ms, busy_ms=busy_ms, kernel_ms=kernel_ms, groups=groups,
+                  top=[dict(name=k, ms=ms, calls=n // micro_steps) for k, (ms, n) in top])
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_train.json").write_text(json.dumps(record, indent=1))
+    return record
+
+
 def main() -> int:
     smi, name = phase_device()
+    if sys.argv[1:] == ["--profile-train"]:
+        phase_build()
+        phase_profile_train()
+        return 0
+    import gc
+
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
     from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
     from flux_generator_tpu_torch.ops.kernels import lstm as lk
 
+    def run(phase):
+        out = phase()
+        gc.collect()  # each phase's pipeline goes before the next is built
+        torch.cuda.empty_cache()
+        return out
+
     phase_build()
-    kernels = phase_kernels()
-    kernels.update(phase_kernels_musicgen())
-    main_run = phase_main()
-    main_music = phase_main_musicgen()
-    small = phase_small()
-    small_music = phase_small_musicgen()
+    kernels = run(phase_kernels)
+    kernels.update(run(phase_kernels_musicgen))
+    kernels.update(run(phase_kernels_train))
+    main_run = run(phase_main)
+    main_music = run(phase_main_musicgen)
+    main_train = run(phase_main_train)
+    small = run(phase_small)
+    small_music = run(phase_small_musicgen)
+    small_train = run(phase_small_train)
 
     entries = []
     for mod, key, main_case, path in (
@@ -617,9 +1123,25 @@ def main() -> int:
         entries.append(dict(name=key, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
                             launches=path["launches"][key],
                             max_abs_err=max(c["max_abs_err"] for c in kernels[key]),
-                            ms=case["ms"], plain_ms=case["plain_ms"]))
+                            ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                            bound_by=case["bound_by"], library_ms=case["library_ms"]))
+    bwd = kernels["flash_attention_bwd"]
+    case = next(c for c in bwd if c["case"] == "dev_L1536_rope")
+    for key, which, replaces in (("flash_attention_bwd_dq", "dq", fb.REPLACES_DQ),
+                                 ("flash_attention_bwd_dkv", "dkv", fb.REPLACES_DKV)):
+        # the plain backward and SDPA's backward compute dq, dk and dv together
+        entries.append(dict(name=key, route="cuda", source=fb.SOURCE, replaces=replaces,
+                            launches=main_train["launches"][key],
+                            max_abs_err=max(c["max_abs_err"] for c in bwd),
+                            ms=case[f"{which}_ms"], plain_ms=case["plain_ms"],
+                            bound_ms=case[f"{which}_bound_ms"], bound_by=case[f"{which}_bound_by"],
+                            library_ms=case["library_ms"]))
+    bounds = unported_bounds()
+    log("[bounds] kernels still to port: " + " | ".join(
+        f"{key} {ms:.4f} ms ({by})" for key, (ms, by) in bounds.items()))
     record = dict(device=smi, kernels=kernels, main=main_run, main_musicgen=main_music,
-                  small=small, small_musicgen=small_music)
+                  main_train=main_train, small=small, small_musicgen=small_music,
+                  small_train=small_train, unported_bounds=bounds)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -5,8 +5,9 @@ heterogeneous VAE levels) of tensors, dense kernels stored (in, out), convs
 HWIO, homogeneous transformer stacks stacked on a leading layer axis, and
 quantized dense leaves under `kernel_q` (int8), `kernel_q4` (uint8, two int4
 nibbles per byte, split layout) and `kernel_scale` (f32, (…, out) per channel
-or (…, groups, out) per input group). So one converter serves trees built by
-the JAX package (tests) and, later, checkpoints mapped by the jax-free
+or (…, groups, out) per input group), and LoRA adapters under `lora_a` /
+`lora_b`. So one converter serves trees built by the JAX package (tests),
+optimizer states included, and, later, checkpoints mapped by the jax-free
 `flux_generator_tpu.io.sanitize`.
 """
 
@@ -19,9 +20,12 @@ import torch
 
 
 def tree_map(fn: Callable, tree):
-    """Apply `fn` to every leaf of a dict/list/tuple tree."""
+    """Apply `fn` to every leaf of a dict/list/tuple tree (named tuples,
+    such as optax's optimizer states, keep their type)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)

@@ -1,12 +1,11 @@
-"""Flux VAE (16-channel latent conv autoencoder), decoder path (counterpart
-of flux_generator_tpu/models/flux/autoencoder.py).
+"""Flux VAE (16-channel latent conv autoencoder) (counterpart of
+flux_generator_tpu/models/flux/autoencoder.py).
 
 ResnetBlocks (GroupNorm32 + SiLU + 3x3 conv, linear nin_shortcut on a
-channel change), a single-head mid attention block, nearest 2x upsampling,
-and the scale/shift factors applied in `decode`. Activations are NHWC and
-conv kernels HWIO, as in the JAX package. The encoder's params are built by
-`init_autoencoder` so trees match the JAX layout; `encode` and the tiled
-decode are not ported yet.
+channel change), a single-head mid attention block, stride-2 downsampling
+after a (0, 1) pad and nearest 2x upsampling, and the scale/shift factors
+applied in `encode` / `decode`. Activations are NHWC and conv kernels HWIO,
+as in the JAX package. The tiled decode is not ported yet.
 """
 
 from __future__ import annotations
@@ -154,6 +153,33 @@ def _attn_block(p, x):
     y = dot_product_attention(q, k, v).reshape(b, hh * ww, c)
     y = dense(p["proj_out"], y)
     return x + y.reshape(b, hh, ww, c)
+
+
+def encoder_forward(p, cfg: AutoEncoderConfig, x):
+    h = conv2d(p["conv_in"], x, padding=1)
+    for lvl in p["down"]:
+        for blk in lvl["block"]:
+            h = _resnet(blk, h)
+        if "downsample" in lvl:
+            # asymmetric pad: one row and one column after, none before
+            h = conv2d(lvl["downsample"], h, stride=2, padding=((0, 1), (0, 1)))
+    h = _resnet(p["mid"]["block_1"], h)
+    h = _attn_block(p["mid"]["attn_1"], h)
+    h = _resnet(p["mid"]["block_2"], h)
+    h = F.silu(group_norm(h, p["norm_out"], _groups(h.shape[-1]), eps=1e-6))
+    return conv2d(p["conv_out"], h, padding=1)
+
+
+def encode(params, cfg: AutoEncoderConfig, x, generator=None):
+    """Image (B, H, W, 3) in about [-1, 1] → latent (B, H/8, W/8, z). The
+    mean, unless a generator is given for the reparameterized sample."""
+    moments = encoder_forward(params["encoder"], cfg, x)
+    mean, logvar = torch.chunk(moments, 2, dim=-1)
+    z = mean
+    if generator is not None:
+        eps = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=torch.float32)
+        z = mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+    return cfg.scale_factor * (z - cfg.shift_factor)
 
 
 def decoder_forward(p, cfg: AutoEncoderConfig, z):

@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...io.params import num_layers, stack_layers, take_layer
 from ...ops.embeddings import timestep_embedding
@@ -218,10 +219,15 @@ def _single_block(p, x, vec, cos, sin, cfg: FluxConfig):
 
 
 def flux_forward(params, cfg: FluxConfig, img, img_ids, txt, txt_ids, timesteps, y,
-                 guidance: Optional[torch.Tensor] = None):
+                 guidance: Optional[torch.Tensor] = None, remat: bool = False):
     """img: (B, L_img, in_channels) packed 2x2 latent patches; txt: (B, L_txt,
     context_in_dim) T5 features; y: (B, vec_in_dim) pooled CLIP; timesteps,
-    guidance: (B,). Returns (B, L_img, in_channels)."""
+    guidance: (B,). Returns (B, L_img, in_channels).
+
+    remat=True recomputes each block in the backward pass
+    (torch.utils.checkpoint, non-reentrant), as the JAX package's
+    jax.checkpoint per block: training holds one block's activations
+    instead of all 19 + 38."""
     dtype = img.dtype
     img = dense(params["img_in"], img)
     vec = _mlp_embedder(params["time_in"], timestep_embedding(timesteps, 256))
@@ -236,13 +242,22 @@ def flux_forward(params, cfg: FluxConfig, img, img_ids, txt, txt_ids, timesteps,
     cos, sin = multi_axis_rope(ids, list(cfg.axes_dim), float(cfg.theta))
     cos, sin = cos.to(dtype).contiguous(), sin.to(dtype).contiguous()
 
+    dbl_body, sgl_body = _double_block, _single_block
+    if remat:
+        # the blocks draw no random numbers, so no RNG state is stashed
+        def dbl_body(*args):
+            return checkpoint(_double_block, *args, use_reentrant=False, preserve_rng_state=False)
+
+        def sgl_body(*args):
+            return checkpoint(_single_block, *args, use_reentrant=False, preserve_rng_state=False)
+
     blocks = params["double_blocks"]
     for i in range(num_layers(blocks)):
-        img, txt = _double_block(take_layer(blocks, i), img, txt, vec, cos, sin, cfg)
+        img, txt = dbl_body(take_layer(blocks, i), img, txt, vec, cos, sin, cfg)
     x = torch.cat([txt, img], dim=1)
     blocks = params["single_blocks"]
     for i in range(num_layers(blocks)):
-        x = _single_block(take_layer(blocks, i), x, vec, cos, sin, cfg)
+        x = sgl_body(take_layer(blocks, i), x, vec, cos, sin, cfg)
     img = x[:, txt.shape[1]:]
 
     fl = params["final_layer"]

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from ...ops.kernels.lstm import lstm
 from ...ops.linear import _rand_uniform
 from ...ops.norms import group_norm
+from ...runtime.device import as_device, make_generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,8 +319,13 @@ class EncodecModel:
     @classmethod
     def random_init(cls, cfg: Optional[EncodecConfig] = None, generator=None,
                     dtype=torch.float32, device=None):
+        """Random params on `device`, drawn from `generator` (seed 0 on
+        `device` when None); with neither given, on the current CUDA device,
+        raising where there is none."""
         cfg = cfg or tiny_encodec_config()
-        generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        device = as_device(device if device is not None
+                           else (generator.device if generator is not None else None))
+        generator = generator if generator is not None else make_generator(device, 0)
         return cls(cfg, init_encodec(generator, cfg, dtype, device))
 
     def _decode_frame(self, codes, scale=None):

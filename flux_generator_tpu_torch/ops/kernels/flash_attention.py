@@ -1,11 +1,13 @@
-"""Flash-attention forward with fused RoPE: CUDA kernel and plain version.
+"""Flash attention with fused RoPE: CUDA kernel (forward) and plain version,
+differentiable through kernels E and F (flash_attention_bwd.py).
 
-The kernel (csrc/flash_attention.cu, sm_90a) replaces the TPU kernels
-`_attn_kernel` / `_flash_kernel` of flux_generator_tpu/ops/pallas/
+The forward kernel (csrc/flash_attention.cu, sm_90a) replaces the TPU
+kernels `_attn_kernel` / `_flash_kernel` of flux_generator_tpu/ops/pallas/
 flash_attention.py. `flash_attention` dispatches on the tensors' device
 only: CPU tensors go to `flash_attention_reference`, CUDA tensors to the
 kernel, which raises for shapes, dtypes or layouts it does not take. There is
-no fallback from one to the other.
+no fallback from one to the other. Its gradient is `_FlashAttention`, the
+counterpart of the JAX package's `_flash_core` custom VJP.
 
 Layout: q, k, v (B, L, H, D); cos/sin (B, L, D/2) tables shared by all
 heads, in the working dtype. RoPE rotates interleaved pairs (2i, 2i+1).
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .flash_attention_bwd import flash_attention_bwd
 
 # Launches of the CUDA kernel since the last reset (the plain version on CPU
 # tensors does not count).
@@ -115,17 +118,52 @@ def _flash_attention_cuda(q, k, v, cos, sin, scale):
     return out, lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel (or its plain version) with the flash backward, as
+    `_flash_core_fwd` / `_flash_core_bwd` of the JAX package: the backward
+    rotates q and k once with the tables, forms dvec = rowsum(dO·O) in f32,
+    runs dQ and dK/dV on the rotated q/k, and pulls dq and dk back through
+    the (orthogonal) rotation with (cos, −sin). cos/sin get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, scale):
+        if q.device.type == "cuda":
+            out, lse = _flash_attention_cuda(q, k, v, cos, sin, scale)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_reference(q, k, v, cos, sin, scale)
+        else:
+            raise ValueError(f"no flash attention for device {q.device}")
+        ctx.save_for_backward(q, k, v, cos, sin, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, cos, sin, out, lse = ctx.saved_tensors
+        b, l, h, _ = q.shape
+        dt = q.dtype
+        if cos is not None:  # the tables as the forward rounds them
+            cos, sin = cos.to(dt), sin.to(dt)
+            q, k = _rope_f32(q, cos, sin).to(dt), _rope_f32(k, cos, sin).to(dt)
+        dout = dout.contiguous()
+        dvec = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, l).contiguous()
+        dq, dk, dv = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), dout,
+                                         lse, dvec, ctx.scale)
+        if cos is not None:
+            dq, dk = _rope_f32(dq, cos, -sin).to(dt), _rope_f32(dk, cos, -sin).to(dt)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, cos=None, sin=None, scale: Optional[float] = None,
                     return_lse: bool = False):
     """softmax(rope(q)·rope(k)ᵀ·scale)·v over (B, L, H, D); scale defaults to
     D^-½, RoPE applies when cos/sin (B, L, D/2) are given. Returns out, or
-    (out, lse) with lse (B·H, L) f32 when return_lse."""
+    (out, lse) with lse (B·H, L) f32 when return_lse. Differentiable in q, k
+    and v."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cuda":
-        out, lse = _flash_attention_cuda(q, k, v, cos, sin, scale)
-    elif q.device.type == "cpu":
-        out, lse = flash_attention_reference(q, k, v, cos, sin, scale)
-    else:
-        raise ValueError(f"no flash attention for device {q.device}")
+    if (cos is None) != (sin is None):
+        raise ValueError("pass both RoPE tables or neither")
+    out, lse = _FlashAttention.apply(q, k, v, cos, sin, float(scale))
     return (out, lse) if return_lse else out

@@ -61,15 +61,18 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (…, in) @ kernel (in, out) [+ bias], for f32/bf16 kernels, int8
-    weight-only (per channel or grouped) and packed int4. Packed int4 runs
-    the int4 kernel on CUDA tensors and its plain version on CPU ones."""
+    """x (…, in) @ kernel (in, out) [+ (x @ lora_a) @ lora_b] [+ bias], for
+    f32/bf16 kernels, int8 weight-only (per channel or grouped) and packed
+    int4. Packed int4 runs the int4 kernel on CUDA tensors and its plain
+    version on CPU ones. The LoRA term (scale 1) applies on every tier."""
     if "kernel_q4" in p:
         y = int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
     elif "kernel_q" in p:
         y = x @ _dequant(p["kernel_q"], p["kernel_scale"], x.dtype)
     else:
         y = x @ p["kernel"].to(x.dtype)
+    if "lora_a" in p:
+        y = y + (x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y

@@ -1,10 +1,12 @@
 """Flux text-to-image pipeline (counterpart of flux_generator_tpu/pipelines/flux.py).
 
 tokenize → T5 / CLIP conditioning → 2x2 latent patchify with 3-axis
-position ids → flow-matching Euler denoise → unpatchify + VAE decode. The
-device is the one the params lie on; noise comes from a `torch.Generator`
-seeded per request. PyTorch runs eagerly, so the JAX package's jitted
-whole-schedule program becomes a plain loop over the schedule.
+position ids → flow-matching Euler denoise → unpatchify + VAE decode, plus
+the VAE encode and the flow-matching training loss that DreamBooth LoRA
+training runs. The device is the one the params lie on; noise comes from a
+`torch.Generator` seeded per request. PyTorch runs eagerly, so the JAX
+package's jitted whole-schedule program becomes a plain loop over the
+schedule.
 """
 
 from __future__ import annotations
@@ -77,7 +79,9 @@ class FluxPipeline:
     def random_init(cls, name: str = "flux-schnell", tiny: bool = False, dtype=torch.bfloat16,
                     device=None, generator: Optional[torch.Generator] = None, **cfg_overrides):
         """Randomly initialized pipeline (tests, benchmarks, offline runs) on
-        `device`, drawn from `generator` (seed 0 on `device` when None)."""
+        `device`, drawn from `generator` (seed 0 on `device` when None).
+        With neither given it builds on the current CUDA device, and raises
+        where there is none."""
         from ..io.registry import flux_configs
 
         device = as_device(device if device is not None
@@ -145,6 +149,19 @@ class FluxPipeline:
             x_t = self._step(x_t, x_ids, txt, txt_ids, vec, ts[i], ts[i + 1], g)
         return x_t
 
+    # -------------------------------------------------- encoding
+
+    def _encode_image(self, x: torch.Tensor) -> torch.Tensor:
+        """Images (B, H, W, 3) in about [-1, 1] → latents (B, H/8, W/8, z),
+        one image at a time past one 1024² image's activations."""
+        b, hh, ww = x.shape[:3]
+        if max(hh, ww) > 1024:
+            raise NotImplementedError("images above 1024² need the tiled encode, which is not "
+                                      "ported yet")
+        if b > 1 and b * hh * ww > 1024 * 1024:
+            return torch.cat([ae_mod.encode(self.params["ae"], self.ae_cfg, xi[None]) for xi in x])
+        return ae_mod.encode(self.params["ae"], self.ae_cfg, x)
+
     # -------------------------------------------------- decoding
 
     def _decode(self, x, h: int, w: int, as_uint8: bool):
@@ -205,3 +222,33 @@ class FluxPipeline:
         if trace is not None:
             trace["latent"] = x_t
         return img
+
+    # -------------------------------------------------- training
+
+    def training_loss(self, flow_params, generator: torch.Generator, x_0, t5_features,
+                      clip_features, guidance):
+        """Flow-matching loss with timesteps from the schnell/dev schedule
+        and noise, both drawn from `generator`: see `_training_loss_at`."""
+        b, h, w, c = x_0.shape
+        t = sampler_mod.random_timesteps(generator, b, h * w // 4, self.schnell)
+        eps = torch.randn((b, h * w // 4, 4 * c), generator=generator, device=generator.device,
+                          dtype=torch.float32)
+        return self._training_loss_at(flow_params, x_0, t.to(x_0.device), eps.to(x_0.device, x_0.dtype),
+                                      t5_features, clip_features, guidance)
+
+    def _training_loss_at(self, flow_params, x_0, t, eps, t5_features, clip_features, guidance):
+        """mean((pred + x_0 − eps)²) in f32 at given timesteps t (B,) f32 and
+        packed noise eps (B, h·w/4, 4c): x_0 (B, h, w, c) latents are packed,
+        noised to x_t = (1 − t)·x_0 + t·eps (detached, no gradient through
+        it), and the flow runs with per-block recomputation."""
+        txt = t5_features
+        txt_ids = torch.zeros((*txt.shape[:-1], 3), dtype=torch.int32, device=txt.device)
+        x_ids = latent_ids(*x_0.shape[:3], device=x_0.device)
+        x_0 = pack_latents(x_0)
+        x_t = sampler_mod.add_noise(x_0, t, eps).detach()
+        pred = flux_forward(
+            flow_params, self.flow_cfg, img=x_t, img_ids=x_ids, txt=txt, txt_ids=txt_ids,
+            timesteps=t.to(self.dtype), y=clip_features,
+            guidance=guidance if self.flow_cfg.guidance_embed else None, remat=True,
+        )
+        return torch.mean((pred + x_0 - eps).float() ** 2)

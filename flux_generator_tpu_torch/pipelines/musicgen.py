@@ -43,7 +43,8 @@ class MusicGenPipeline:
     def random_init(cls, tiny: bool = True, dtype=torch.float32, device=None,
                     generator: Optional[torch.Generator] = None, **cfg_overrides):
         """Randomly initialized pipeline on `device`, drawn from `generator`
-        (seed 0 on `device` when None). tiny=False draws MusicGen-medium,
+        (seed 0 on `device` when None); with neither given, on the current
+        CUDA device, raising where there is none. tiny=False draws MusicGen-medium,
         T5-base and EnCodec 32 kHz at their published widths (io/registry.py);
         the decoder and T5 take `dtype`, EnCodec stays f32 as the JAX loader
         keeps it."""

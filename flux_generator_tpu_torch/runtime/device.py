@@ -1,9 +1,11 @@
 """Explicit device and random-generator helpers.
 
-The port never picks a device behind the caller's back: every constructor
-takes a `device`, and every random draw takes a `torch.Generator` created on
-that device. Which kernels run follows from where the tensors lie (see
-ops/kernels/), not from any switch here.
+Entry points run on the card unless the caller asks for the CPU: a device
+spec of None means the current CUDA device, and it is an error where there
+is none (there is no fallback to the CPU). Every random draw takes a
+`torch.Generator` created on the device it draws for. Which kernels run
+follows from where the tensors lie (see ops/kernels/), not from any switch
+here.
 """
 
 from __future__ import annotations
@@ -14,9 +16,13 @@ import torch
 
 
 def as_device(device) -> torch.device:
-    """Normalise a device spec ("cuda", "cuda:0", torch.device, None→cpu)."""
+    """Normalise a device spec ("cuda", "cuda:0", "cpu", torch.device;
+    None → the current CUDA device, raising when there is no card)."""
     if device is None:
-        return torch.device("cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the card by default; pass "
+                               "device='cpu' (or a CPU generator) to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

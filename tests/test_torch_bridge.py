@@ -125,11 +125,85 @@ def _run(code: str):
                           timeout=120)
 
 
+# the JAX package (not the port, whose name shares its prefix) and jax itself
+_LOADED = ("[m for m in sys.modules if m in ('jax', 'flux_generator_tpu') "
+           "or m.startswith(('jax.', 'flux_generator_tpu.'))]")
+
+
 def test_pipeline_import_does_not_load_jax():
     proc = _run("import sys, flux_generator_tpu_torch.pipelines.flux, "
-                "flux_generator_tpu_torch.pipelines.musicgen; "
-                "assert 'jax' not in sys.modules, 'jax loaded'")
+                "flux_generator_tpu_torch.pipelines.musicgen, "
+                "flux_generator_tpu_torch.training.dreambooth\n"
+                f"loaded = {_LOADED}\n"
+                "assert not loaded, loaded")
     assert proc.returncode == 0, proc.stderr
+
+
+def test_tokenizers_and_a_pipeline_load_nothing_of_the_jax_package():
+    """Load both tokenizers from tests/assets and build a tiny pipeline: no
+    module of the JAX package, and no jax, is imported."""
+    proc = _run(
+        "import sys, torch\n"
+        "from flux_generator_tpu_torch.io.tokenizers import load_clip_tokenizer, load_t5_tokenizer\n"
+        "from flux_generator_tpu_torch.pipelines.flux import FluxPipeline\n"
+        "t5 = load_t5_tokenizer('tests/assets/spiece/t5_like.model')\n"
+        "clip = load_clip_tokenizer('tests/assets/clip_tokenizer/vocab.json', "
+        "'tests/assets/clip_tokenizer/merges.txt')\n"
+        "pipe = FluxPipeline.random_init('flux-schnell', tiny=True, device='cpu')\n"
+        "pipe.t5_tokenizer, pipe.clip_tokenizer = t5, clip\n"
+        "assert pipe.tokenize('a red fox')[0].shape == (1, 256)\n"
+        f"loaded = {_LOADED}\n"
+        "assert not loaded, loaded\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+PROMPTS = ["a photo of a cat", "An OIL painting — of a lighthouse at dusk!", "  naïve café, 2 ümlauts ",
+           "", "photo of sks dog in a bucket, 8k, ultra-detailed"]
+
+
+def test_own_tokenizers_give_the_jax_ids():
+    from flux_generator_tpu.tokenizers.clip_bpe import CLIPTokenizer as JaxCLIP
+    from flux_generator_tpu.tokenizers.sentencepiece_unigram import (
+        SentencePieceUnigramTokenizer as JaxSPM,
+    )
+    from flux_generator_tpu_torch.io.tokenizers import load_clip_tokenizer, load_t5_tokenizer
+
+    assets = REPO / "tests" / "assets"
+    for model in ("t5_like.model", "byte_fallback.model"):
+        ours = load_t5_tokenizer(assets / "spiece" / model, max_length=64)
+        theirs = JaxSPM.from_file(assets / "spiece" / model, max_length=64)
+        assert ours.encode(PROMPTS) == theirs.encode(PROMPTS)
+        assert ours.encode(PROMPTS[1], pad=False) == theirs.encode(PROMPTS[1], pad=False)
+    vocab, merges = assets / "clip_tokenizer" / "vocab.json", assets / "clip_tokenizer" / "merges.txt"
+    ours = load_clip_tokenizer(vocab, merges)
+    theirs = JaxCLIP.from_files(vocab, merges)
+    assert ours.encode(PROMPTS) == theirs.encode(PROMPTS)
+    assert ours.tokenize("word " * 100) == theirs.tokenize("word " * 100)
+
+
+def test_entry_points_run_on_the_card_by_default(monkeypatch):
+    """With no card, the default device raises and nothing falls back to
+    the CPU; a CPU device or a CPU generator still builds."""
+    from flux_generator_tpu_torch.models.musicgen.encodec import EncodecModel
+    from flux_generator_tpu_torch.pipelines.flux import FluxPipeline
+    from flux_generator_tpu_torch.pipelines.musicgen import MusicGenPipeline
+    from flux_generator_tpu_torch.runtime.device import as_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        as_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FluxPipeline.random_init("flux-schnell", tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MusicGenPipeline.random_init(tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EncodecModel.random_init()
+    assert EncodecModel.random_init(device="cpu").params["quantizer"][0]["embed"].device.type == "cpu"
+    assert FluxPipeline.random_init("flux-schnell", tiny=True, device="cpu").device.type == "cpu"
+    pipe = MusicGenPipeline.random_init(tiny=True, generator=torch.Generator().manual_seed(0))
+    assert pipe.device.type == "cpu"
+    assert as_device("cpu") == torch.device("cpu")
 
 
 def test_no_module_of_the_port_loads_jax():
@@ -137,7 +211,8 @@ def test_no_module_of_the_port_loads_jax():
         "import importlib, pkgutil, sys, flux_generator_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'jax' not in sys.modules, 'jax loaded'\n"
+        f"loaded = {_LOADED}\n"
+        "assert not loaded, loaded\n"
     )
     assert proc.returncode == 0, proc.stderr
 
@@ -147,6 +222,8 @@ def test_no_source_of_the_port_imports_jax():
         str(path.relative_to(REPO))
         for path in PORT.rglob("*.py")
         for line in path.read_text().splitlines()
-        if line.strip().startswith(("import jax", "from jax"))
+        if line.strip().startswith(("import jax", "from jax", "import flux_generator_tpu ",
+                                    "import flux_generator_tpu.", "from flux_generator_tpu ",
+                                    "from flux_generator_tpu."))
     ]
     assert offenders == []
