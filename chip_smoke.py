@@ -5,35 +5,49 @@
 
 Phases, each of which fails the run on error:
   1. device         — the card's name and power limit; no CUDA device is an error.
-  2. build          — compile the five CUDA sources (kernels A-F) from csrc/
+  2. build          — compile the six CUDA sources (kernels A-H) from csrc/
                       with nvcc, all at once, with the ptxas report of each.
   3. kernels        — flash attention (A) and the int4 matmul (B) against their
                       plain PyTorch versions at the shapes of the Flux-schnell
                       512² path, with times of both.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
                       plain versions at MusicGen-medium shapes, with times.
-  5. main           — Flux-schnell at full width on random weights (flow int8
-                      per channel, T5-XXL int4 g=128), three 512², 4-step
-                      requests through FluxPipeline.generate_images; checks the
-                      images, the latents and the kernels' launch counts.
-  6. main-musicgen  — MusicGen-medium at full width on random weights (decoder
-                      and T5-base int8 per channel, EnCodec f32), three
-                      500-step requests through MusicGenPipeline.generate;
-                      checks the waveforms, the codes and the launch counts.
-  7. small          — a small Flux config run on the card (bf16, kernels) and on
-                      the CPU (f32, plain versions) from the same weights and noise.
-  8. small-musicgen — a small MusicGen config (ffn = 4h, head dim 64) on the card
-                      and on the CPU: teacher-forced logits and a decoded waveform.
-  9. kernels-train  — the flash backward, dQ (E) and dK/dV (F), through the
+  5. kernels-train  — the flash backward, dQ (E) and dK/dV (F), through the
                       autograd function against the plain backward in f32 at
                       the Flux-dev and Flux-schnell training shapes, a padded
                       length and head dim 64, with times of E, F, the plain
                       backward and SDPA's backward as a yardstick.
+  6. kernels-w8a8   — the fused W8A8 matmul (G) at the Flux 512² shapes, the
+                      row quantizer (H) and A's int8 tiers ("qk", "full")
+                      against their plain versions, with times, bounds and
+                      torch._int_mm on the quantized operands as G's yardstick.
+  7. main           — Flux-schnell at full width on random weights (flow int8
+                      per channel, T5-XXL int4 g=128), three 512², 4-step
+                      requests through FluxPipeline.generate_images; checks the
+                      images, the latents and the kernels' launch counts.
+  8. main-w8a8      — the same pipeline in the W8A8 configuration: three
+                      requests each on the "fused" (G) and "rows" (H) routes,
+                      one each with int8 attention "qk" and "full"; checks as
+                      main, exact launch counts, and each final latent's
+                      rel-L2 against the weight-only latent of its seed;
+                      weight-only and "fused" requests in turns; one of each
+                      under torch.profiler.
+  9. main-musicgen  — MusicGen-medium at full width on random weights (decoder
+                      and T5-base int8 per channel, EnCodec f32), three
+                      500-step requests through MusicGenPipeline.generate;
+                      checks the waveforms, the codes and the launch counts.
  10. main-train     — DreamBooth LoRA training of Flux-dev at full width on
                       random weights through training.dreambooth.train: 3
                       optimizer steps of 4 micro-steps on two seeded images;
                       checks losses, the adapters and the launch counts.
- 11. small-train    — a small Flux config: the training loss and its LoRA
+ 11. small          — a small Flux config run on the card (bf16, kernels) and on
+                      the CPU (f32, plain versions) from the same weights and noise.
+ 12. small-w8a8     — the same small config with an int8 flow in the W8A8
+                      configuration ("fused" + "qk", "rows" + "full") on the
+                      card and on the CPU.
+ 13. small-musicgen — a small MusicGen config (ffn = 4h, head dim 64) on the card
+                      and on the CPU: teacher-forced logits and a decoded waveform.
+ 14. small-train    — a small Flux config: the training loss and its LoRA
                       gradients on the card (bf16) against the CPU (f32).
 The last line printed is {"ok": true, "device": {...}}; a fuller record goes
 to chiprun_out/chip_smoke.json.
@@ -50,6 +64,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -60,6 +75,16 @@ ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
 FLASH_TOL = 2e-2  # bf16 P·V and bf16 output against the f32 plain version
+# A's int8 tiers against their plain versions: (out rel-L2, lse max|Δ|).
+# Both sides quantize alike and take exact integer dots; "qk" rounds P to
+# bf16 against a running max, "full" may move one int8 level of p near a .5
+# boundary, and both round O to bf16 (measured 2.4e-3 and 2.0e-3 at most on
+# an H100 80GB HBM3 at 700 W). The out bound lies between that and the distance of every
+# control (the bf16 function, 9.2e-3 at least; for "full" also the "qk" and
+# the streamed tier, 2.6e-2 at least), which the run checks. lse as the bf16
+# tier's: a rotated q value that rounds the other way moves its row's logits
+# by one int8 level of q.
+INT8_ATTN_TOL = {"qk": (4.5e-3, FLASH_TOL), "full": (7e-3, FLASH_TOL)}
 # flash backward, of max|ref|: P and dS rounded to bf16 before their products,
 # bf16 outputs, against the f32 plain backward
 FLASH_BWD_REL_TOL = 2e-2
@@ -74,6 +99,13 @@ TRAIN_ARGS = ["--model", "dev", "--quantize-base", "--lora-rank", "8", "--resolu
               "--clip-tokenizer", str(ROOT / "tests/assets/clip_tokenizer")]
 TRAIN_PROMPTS = ["a photo of sks dog on a beach", "a photo of sks dog in a red bucket"]
 INT4_REL_TOL = 1e-2  # of max|ref|: the bf16 output rounding is 2^-9 relative
+# G, of max|ref|: one bf16 step; the same quantization and exact integer dots
+# as the plain version, the f32 fold rounded one operation at a time in both
+W8A8_REL_TOL = 2.0 ** -8
+# a W8A8 request's final latent against the weight-only latent of its seed:
+# activation rounding (1/254 of a row's amax a value) through 57 blocks and
+# 4 steps on random weights; a wrong route or scale gives O(1)
+W8A8_LATENT_REL_TOL = 0.1
 SMALL_REL_TOL = 5e-2  # relative L2, bf16 on the card against f32 on the CPU
 STEPS, SIZE = 4, 512
 PROMPTS = [
@@ -102,22 +134,24 @@ def log(*args):
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """(least time in ms, "operations" or "bytes") at the card's `peak`
     (bf16 unless given) and memory rate."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return bound_ms_parts([(flops, peak)], nbytes)
+
+
+def bound_ms_parts(parts, nbytes: float):
+    """As bound_ms for work of several types: `parts` is [(operations,
+    peak), ...], whose times at their peaks add up."""
+    t_ops = sum(ops / peak for ops, peak in parts) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def unported_bounds():
     """Bounds of the TPU kernels not ported yet, at the shapes they would
-    take on the card: W8A8 at a Flux double block's image qkv (1024 tokens,
-    3072 → 9216), the row quantizer on its input, the two decode-chain
-    probes' 48 × 14 (1536, 1536) int8 weight stream, and one (1024, 128) ·
-    (128, 1024) bf16 step of the bare dot probe."""
-    m, k, n = 1024, 3072, 9216
+    take on the card: the two decode-chain probes' 48 × 14 (1536, 1536) int8
+    weight stream, and one (1024, 128) · (128, 1024) bf16 step of the bare
+    dot probe."""
     chain = 48 * 14 * 1536 * 1536
     return {
-        "w8a8_matmul": bound_ms(2 * m * k * n, 2 * m * k + k * n + 4 * n + 4 * m + 2 * m * n,
-                                PEAK_INT8_OPS),
-        "w8a8_row_quantizer": bound_ms(3 * m * k, 2 * m * k + m * k + 4 * m),
         "decode_chain_probes": bound_ms(2 * chain, chain),
         "bare_dot_probe_step": bound_ms(2 * 1024 * 128 * 1024, 2 * 2 * 1024 * 128 + 2 * 1024 * 1024),
     }
@@ -152,12 +186,15 @@ def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.device_time_total for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA) / 1e3 / iters
+    for _ in range(3):  # the profiler now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ev.device_time_total for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    raise RuntimeError("torch.profiler recorded no device time in three tries")
 
 
 def phase_device():
@@ -182,9 +219,10 @@ def phase_build():
     from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
     from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
     from flux_generator_tpu_torch.ops.kernels import lstm as lk
+    from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
     mods = {"flash_attention": fa, "int4_matmul": im, "lstm": lk, "decode_step": ds,
-            "flash_attention_bwd": fb}
+            "flash_attention_bwd": fb, "w8a8_matmul": wm}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
         futures = {name: pool.submit(_build.load, name, mod._SIGNATURES) for name, mod in mods.items()}
@@ -199,10 +237,10 @@ def phase_build():
                 log(f"[build]   {line.strip()}")
 
 
-def _flux_rope_tables(length: int, text: int = 256):
-    """cos/sin (1, length, 64) in bf16 from the real Flux ids: `text` text
-    tokens (id 0; 256 for schnell, 512 for dev) then the 512² image's 32x32
-    patch grid."""
+def _flux_rope_tables(length: int, text: int = 256, axes_dim=(16, 56, 56)):
+    """cos/sin (1, length, sum(axes_dim) / 2) in bf16 from the real Flux ids:
+    `text` text tokens (id 0; 256 for schnell, 512 for dev) then the 512²
+    image's 32x32 patch grid; axes (8, 28, 28) give head dim 64."""
     import torch
 
     from flux_generator_tpu_torch.ops.rope import multi_axis_rope
@@ -211,7 +249,7 @@ def _flux_rope_tables(length: int, text: int = 256):
     dev = torch.device("cuda")
     ids = torch.cat([torch.zeros((1, text, 3), dtype=torch.int64, device=dev),
                      latent_ids(1, SIZE // 8, SIZE // 8, device=dev)], dim=1)[:, :length]
-    cos, sin = multi_axis_rope(ids, [16, 56, 56], 10000.0)
+    cos, sin = multi_axis_rope(ids, list(axes_dim), 10000.0)
     return cos.to(torch.bfloat16).contiguous(), sin.to(torch.bfloat16).contiguous()
 
 
@@ -340,6 +378,8 @@ def _tokenizers():
 
 
 def phase_main():
+    """Returns the record, the pipeline (main-w8a8 runs on it) and the final
+    latent of each seed."""
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
@@ -377,7 +417,7 @@ def phase_main():
 
     fa.launches = 0
     im.launches = 0
-    requests, images = [], []
+    requests, images, latents = [], [], {}
     for seed, prompt in PROMPTS:
         torch.cuda.reset_peak_memory_stats()
         fa0, im0 = fa.launches, im.launches
@@ -407,11 +447,139 @@ def phase_main():
                                  f"int4 {int4_n} (want {24 * 7})")
         requests.append(rec)
         images.append(img)
+        latents[seed] = trace["latent"]
     if any(torch.equal(images[0], other) for other in images[1:]):
         raise AssertionError("requests with different seeds gave identical images")
-    return dict(init_s=init_s, quantize_s=quant_s, setup_peak_gib=setup_peak,
-                resident_gib=resident, clip_tokens=clip_source, requests=requests,
-                launches={"flash_attention": fa.launches, "int4_matmul": im.launches})
+    record = dict(init_s=init_s, quantize_s=quant_s, setup_peak_gib=setup_peak,
+                  resident_gib=resident, clip_tokens=clip_source, requests=requests,
+                  launches={"flash_attention": fa.launches, "int4_matmul": im.launches})
+    return record, pipe, latents
+
+
+def _launch_counts():
+    """Every kernel counter the Flux paths touch."""
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+    from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
+
+    return {"flash_attention": fa.launches, "flash_attention_int8_qk": fa.int8_launches["qk"],
+            "flash_attention_int8_full": fa.int8_launches["full"], "int4_matmul": im.launches,
+            "w8a8_matmul": wm.launches, "w8a8_quantize_rows": wm.quantize_launches}
+
+
+def _reset_launch_counts():
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+    from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
+
+    fa.launches = im.launches = wm.launches = wm.quantize_launches = 0
+    fa.int8_launches.update(qk=0, full=0)
+
+
+def _flux_request(pipe, seed: int, prompt: str):
+    """One 512², 4-step request → (uint8 image, trace, latency s)."""
+    import torch
+
+    trace = {}
+    t0 = time.perf_counter()
+    img = pipe.generate_images(prompt, num_steps=STEPS, latent_size=(SIZE // 8, SIZE // 8), seed=seed,
+                               as_uint8=True, trace=trace)
+    torch.cuda.synchronize()
+    return img, trace, time.perf_counter() - t0
+
+
+def phase_main_w8a8(pipe, weight_only_latents):
+    """The W8A8 serving configuration on main's pipeline as main built it
+    (int8 flow, int4 T5-XXL, bf16 CLIP): three requests each on the "fused" and "rows"
+    routes, then one "fused" request each with int8 attention "qk" and
+    "full", with the seeds and prompts of main. Per request: the image, a
+    finite latent, the exact launch counts (a step runs 230 int8-activation
+    denses on G or H: 8 in each of the 19 double blocks, linear1 and linear2
+    in each of the 38 single blocks, txt_in and the final linear; the 79
+    with one activation row, the modulations and the embedders' out layers,
+    take the "ops" formulation), and the final latent's rel-L2 against the
+    weight-only latent of its seed. Then weight-only and "fused" requests in
+    turns for their latencies on one card, and one of each under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    denses = (8 * pipe.flow_cfg.depth + 2 * pipe.flow_cfg.depth_single_blocks + 2) * STEPS
+    attn = (pipe.flow_cfg.depth + pipe.flow_cfg.depth_single_blocks) * STEPS
+    runs = [("fused", "", PROMPTS), ("rows", "", PROMPTS), ("fused", "qk", PROMPTS[:1]),
+            ("fused", "full", PROMPTS[:1])]
+    for w8a8 in ("fused", "rows"):
+        pipe.w8a8, pipe.attn_int8 = w8a8, ""
+        t0 = time.perf_counter()
+        _flux_request(pipe, 0, "warm-up")
+        log(f"[main-w8a8] warm-up request ({w8a8}) {time.perf_counter() - t0:.3f} s (not counted)")
+
+    _reset_launch_counts()
+    requests, failures = [], []
+    for w8a8, attn_int8, prompts in runs:
+        pipe.w8a8, pipe.attn_int8 = w8a8, attn_int8
+        images = []
+        for seed, prompt in prompts:
+            torch.cuda.reset_peak_memory_stats()
+            c0 = _launch_counts()
+            img, trace, latency = _flux_request(pipe, seed, prompt)
+            n = {key: v - c0[key] for key, v in _launch_counts().items()}
+            want = {"flash_attention": attn, "flash_attention_int8_qk": attn if attn_int8 == "qk" else 0,
+                    "flash_attention_int8_full": attn if attn_int8 == "full" else 0,
+                    "int4_matmul": 24 * 7, "w8a8_matmul": denses if w8a8 == "fused" else 0,
+                    "w8a8_quantize_rows": denses if w8a8 == "rows" else 0}
+            lat, ref = trace["latent"].float(), weight_only_latents[seed].float()
+            rel = ((lat - ref).norm() / ref.norm()).item()
+            finite = bool(torch.isfinite(lat).all())
+            rec = dict(route=w8a8, attn_int8=attn_int8, seed=seed, latency_s=latency,
+                       conditioning_s=trace["conditioning_s"], denoise_s=trace["denoise_s"],
+                       decode_s=trace["decode_s"], peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       launches=n, latent_rel_l2_vs_weight_only=rel, shape=list(img.shape),
+                       dtype=str(img.dtype), latent_finite=finite)
+            log(f"[main-w8a8] {w8a8}{'+' + attn_int8 if attn_int8 else ''} seed={seed}: {latency:.4f} s "
+                f"(conditioning {rec['conditioning_s']:.4f} + denoise {rec['denoise_s']:.4f} + decode "
+                f"{rec['decode_s']:.4f}) | peak {rec['peak_gib']:.2f} GiB | latent rel-L2 vs weight-only "
+                f"{rel:.4e} (tol {W8A8_LATENT_REL_TOL}) | launches G {n['w8a8_matmul']} H "
+                f"{n['w8a8_quantize_rows']} A {n['flash_attention']} (int8 qk "
+                f"{n['flash_attention_int8_qk']}, full {n['flash_attention_int8_full']}) B "
+                f"{n['int4_matmul']} | {tuple(img.shape)} {img.dtype} | latent finite {finite}")
+            if tuple(img.shape) != (1, SIZE, SIZE, 3) or img.dtype != torch.uint8 or not finite:
+                failures.append(f"{w8a8}/{attn_int8} seed {seed}: image {tuple(img.shape)} {img.dtype}, "
+                                f"latent finite {finite}")
+            if n != want:
+                failures.append(f"{w8a8}/{attn_int8} seed {seed}: launches {n}, want {want}")
+            if not rel <= W8A8_LATENT_REL_TOL:
+                failures.append(f"{w8a8}/{attn_int8} seed {seed}: latent rel-L2 {rel}")
+            requests.append(rec)
+            images.append(img)
+        if any(torch.equal(images[0], other) for other in images[1:]):
+            failures.append(f"{w8a8}/{attn_int8}: different seeds gave identical images")
+    launches = _launch_counts()
+    log(f"[main-w8a8] launches over the {len(requests)} requests: {launches}")
+
+    # weight-only against "fused" in turns (W F F W, twice) on this card
+    turns = {None: [], "fused": []}
+    for w8a8 in (None, "fused", "fused", None) * 2:
+        pipe.w8a8, pipe.attn_int8 = w8a8, ""
+        turns[w8a8].append(_flux_request(pipe, 1, PROMPTS[0][1])[2])
+    ab = {("weight_only" if k is None else k): sorted(v) for k, v in turns.items()}
+    log("[main-w8a8] in turns, seed 1: " + " | ".join(
+        f"{k} " + " ".join(f"{x:.4f}" for x in v) + f" s (median {statistics.median(v):.4f})"
+        for k, v in ab.items()))
+
+    profiles = {}
+    for label, w8a8 in (("weight_only", None), ("fused", "fused")):
+        pipe.w8a8, pipe.attn_int8 = w8a8, ""
+        _flux_request(pipe, 9, "a profiled request")  # same shapes, warm
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, latency = _flux_request(pipe, 9, "a profiled request")
+        profiles[label] = _profile_record(prof, 1, latency * 1e3, f"main-w8a8 profile {label}",
+                                          "request", "512², 4 steps")
+    pipe.w8a8, pipe.attn_int8 = None, ""
+    if failures:
+        raise AssertionError("W8A8 requests failed: " + "; ".join(failures))
+    return dict(requests=requests, launches=launches, profiles=profiles, latency_in_turns_s=ab,
+                g_or_h_per_request=denses, attention_per_request=attn)
 
 
 def _to_device(tree, device, dtype):
@@ -425,9 +593,12 @@ def _to_device(tree, device, dtype):
     return tree.to(device, dtype) if tree.is_floating_point() else tree.to(device)
 
 
-def phase_small():
-    """A small Flux config (head dim 128, T5 width 256) on the card in bf16
-    with the kernels, against the CPU in f32 with the plain versions."""
+def _small_flux(tag: str, w8a8=None, attn_int8=""):
+    """A small Flux config (head dim 128, T5 width 256, every flow dense int8
+    per channel, T5 int4 g128) on the card in bf16 with the kernels, against
+    the CPU in f32 with the plain versions, from the same weights, tokens
+    and noise, in the given W8A8 configuration. Returns the latent's and
+    the image's rel-L2 and the card's launch counts."""
     import numpy as np
     import torch
 
@@ -435,8 +606,6 @@ def phase_small():
     from flux_generator_tpu_torch.models.flux.autoencoder import init_autoencoder, tiny_ae_config
     from flux_generator_tpu_torch.models.flux.model import FluxConfig, init_flux
     from flux_generator_tpu_torch.models.t5.t5 import T5Config, init_t5_encoder
-    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
-    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
     from flux_generator_tpu_torch.ops.quant import quantize_tree
     from flux_generator_tpu_torch.pipelines.flux import FluxPipeline, latent_ids, pack_latents
 
@@ -450,34 +619,61 @@ def phase_small():
               "clip": init_clip_text(g, clip_cfg), "t5": init_t5_encoder(g, t5_cfg)}
     params["flow"] = quantize_tree(params["flow"], lambda p: True)
     params["t5"] = quantize_tree(params["t5"], lambda p: True, bits=4, group_size=128, pack=True)
-    cpu = FluxPipeline("flux-schnell", params, flow_cfg, ae_cfg, clip_cfg, t5_cfg, dtype=torch.float32)
+    cpu = FluxPipeline("flux-schnell", params, flow_cfg, ae_cfg, clip_cfg, t5_cfg, dtype=torch.float32,
+                       w8a8=w8a8, attn_int8=attn_int8)
     gpu = FluxPipeline("flux-schnell", _to_device(params, "cuda", torch.bfloat16), flow_cfg, ae_cfg,
-                       clip_cfg, t5_cfg, dtype=torch.bfloat16)
+                       clip_cfg, t5_cfg, dtype=torch.bfloat16, w8a8=w8a8, attn_int8=attn_int8)
 
     rng = np.random.default_rng(6)
     t5_tok = torch.from_numpy(rng.integers(1, 64, (1, 64)))
     clip_tok = torch.from_numpy(rng.integers(1, 64, (1, 16)))
     noise = torch.from_numpy(rng.standard_normal((1, 16, 16, 16)).astype(np.float32))
     outs = {}
-    fa0, im0 = fa.launches, im.launches
     for name, pipe in (("cpu", cpu), ("gpu", gpu)):
         dev = pipe.device
+        c0 = _launch_counts()
         txt, txt_ids, vec = pipe.prepare_conditioning(1, t5_tok.to(dev), clip_tok.to(dev))
         x_t = pack_latents(noise.to(dev, pipe.dtype))
         lat = pipe.denoise_latents(x_t, latent_ids(1, 16, 16, device=dev), txt, txt_ids, vec, STEPS, 0.0)
         outs[name] = (lat.float().cpu(), pipe.decode(lat, (16, 16)).float().cpu())
+        counts = {key: v - c0[key] for key, v in _launch_counts().items()}
 
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
 
     lat_err = rel(outs["gpu"][0], outs["cpu"][0])
     img_err = rel(outs["gpu"][1], outs["cpu"][1])
-    log(f"[small] latent rel-L2 {lat_err:.3e}, image rel-L2 {img_err:.3e} (tol {SMALL_REL_TOL})")
-    if fa.launches - fa0 != 2 * STEPS or im.launches - im0 != 2 * 7:
-        raise AssertionError("small config did not run the kernels on the card")
+    log(f"[{tag}] latent rel-L2 {lat_err:.3e}, image rel-L2 {img_err:.3e} (tol {SMALL_REL_TOL}) | "
+        f"launches on the card {counts}")
     if not (lat_err <= SMALL_REL_TOL and img_err <= SMALL_REL_TOL):
-        raise AssertionError("the card's run disagrees with the CPU reference")
-    return dict(latent_rel_l2=lat_err, image_rel_l2=img_err)
+        raise AssertionError(f"{tag}: the card's run disagrees with the CPU reference")
+    return dict(latent_rel_l2=lat_err, image_rel_l2=img_err, launches=counts)
+
+
+def phase_small():
+    out = _small_flux("small")
+    if out["launches"]["flash_attention"] != 2 * STEPS or out["launches"]["int4_matmul"] != 2 * 7:
+        raise AssertionError("small config did not run the kernels on the card")
+    return out
+
+
+def phase_small_w8a8():
+    """The small config in the W8A8 configuration: "fused" with int8
+    attention "qk", and "rows" with "full". A step runs 12 int8-activation
+    denses on G (8 in the double block, 2 in the single block, txt_in, the
+    final linear) and 13 on H (img_in too: its K of 64 tiles no G block);
+    the one-row denses take "ops"."""
+    out = {}
+    for w8a8, attn_int8 in (("fused", "qk"), ("rows", "full")):
+        res = _small_flux(f"small-w8a8 {w8a8}+{attn_int8}", w8a8, attn_int8)
+        n = res["launches"]
+        want = {"flash_attention": 2 * STEPS, f"flash_attention_int8_{attn_int8}": 2 * STEPS,
+                "int4_matmul": 2 * 7, "w8a8_matmul": 12 * STEPS if w8a8 == "fused" else 0,
+                "w8a8_quantize_rows": 13 * STEPS if w8a8 == "rows" else 0}
+        if any(n[key] != v for key, v in want.items()):
+            raise AssertionError(f"small W8A8 config {w8a8}+{attn_int8}: launches {n}, want {want}")
+        out[f"{w8a8}+{attn_int8}"] = res
+    return out
 
 
 def phase_kernels_musicgen():
@@ -809,6 +1005,136 @@ def phase_kernels_train():
     return {"flash_attention_bwd": cases}
 
 
+def phase_kernels_w8a8():
+    """Kernel G (fused W8A8 matmul) at the Flux-schnell 512² shapes: a double
+    block's image qkv, a single block's linear2 (K 15360, blocks of 512),
+    txt_in (256 text tokens) and the final linear (N 64, a masked N edge);
+    kernel H (row quantizer) on the qkv input; A's int8 tiers at L 1280 with
+    RoPE (D 128 and 64) and at a padded L 1000. Each against its plain
+    version on the same bf16 inputs. G and its yardstick, torch._int_mm,
+    take the weights as ops.quant stores them (K-contiguous)."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
+    from flux_generator_tpu_torch.ops.quant import quantize_dense
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8642)
+    results, failures = {}, []
+
+    cases = []
+    for label, m, k, n in (("qkv_1024x3072x9216", 1024, 3072, 9216),
+                           ("linear2_1280x15360x3072", 1280, 15360, 3072),
+                           ("txt_in_256x4096x3072", 256, 4096, 3072),
+                           ("final_1024x3072x64", 1024, 3072, 64)):
+        p = quantize_dense({"kernel": torch.randn((k, n), generator=g, device=dev) / k ** 0.5})
+        wq, ws = p["kernel_q"], p["kernel_scale"]
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        out = wm.w8a8_matmul(x, wq, ws)
+        ref = wm.w8a8_matmul_reference(x, wq, ws)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = W8A8_REL_TOL * ref.float().abs().max().item()
+        ms = time_ms(lambda: wm.w8a8_matmul(x, wq, ws))
+        plain_ms = time_ms(lambda: wm.w8a8_matmul_reference(x, wq, ws), iters=3, warmup=1)
+        # yardstick: torch._int_mm on the operands already quantized (row-quantized
+        # x, the weight): the int8 product alone; device time
+        x_q = wm.quantize_rows_reference(x)[0]
+        library_ms = device_ms(lambda: torch._int_mm(x_q, wq))
+        gop = 2 * m * k * n / 1e9
+        # x, out bf16; weights int8; scales f32
+        bound = bound_ms(gop * 1e9, 2 * m * k + k * n + 4 * n + 2 * m * n, PEAK_INT8_OPS)
+        log(f"[kernels-w8a8] G {label}: max|Δ| {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms "
+            f"({gop / ms:.1f} TOP/s) | plain {plain_ms:.4f} ms | torch._int_mm {library_ms:.4f} ms | "
+            f"bound {bound[0]:.4f} ms ({bound[1]})")
+        if not err <= tol:
+            failures.append(f"G {label}: {err} > {tol}")
+        cases.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound[0], bound_by=bound[1]))
+        del p, wq, ws, x, out, ref, x_q
+    results["w8a8_matmul"] = cases
+
+    m, k = 1024, 3072
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    q, sx = wm.quantize_rows(x)
+    rq, rsx = wm.quantize_rows_reference(x)
+    err = max((q.int() - rq.int()).abs().max().item(), (sx - rsx).abs().max().item())
+    ms = time_ms(lambda: wm.quantize_rows(x))
+    plain_ms = time_ms(lambda: wm.quantize_rows_reference(x))
+    # bf16 read, int8 and f32 scales written; abs, max and a scaled round a value
+    bound = bound_ms(3 * m * k, 2 * m * k + m * k + 4 * m)
+    log(f"[kernels-w8a8] H 1024x3072: max|Δ| {err:.3e} (tol 0: the same correctly rounded f32 "
+        f"operations) | kernel {ms:.4f} ms ({(3 * m * k + 4 * m) / ms / 1e6:.1f} GB/s) | plain "
+        f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]})")
+    if err != 0:
+        failures.append(f"H: {err}")
+    results["w8a8_quantize_rows"] = [dict(case="1024x3072", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                          library_ms=None, bound_ms=bound[0], bound_by=bound[1])]
+
+    # A's int8 tiers: out by rel-L2 and lse by max|Δ| against the tier's plain
+    # version, and every control (a function the tier must not be) has to
+    # fail the same check, or the check could not tell the tier apart
+    for tier in ("qk", "full"):
+        tol_out, tol_lse = INT8_ATTN_TOL[tier]
+        tier_cases = []
+        for label, length, d, peaked in (("L1280_rope", 1280, 128, False),
+                                         ("L1280_d64_rope", 1280, 64, False),
+                                         ("L1000_rope_padding", 1000, 128, False),
+                                         ("L1280_rope_peaked_outlier_v", 1280, 128, True)):
+            h = 3072 // d
+            q, k_, v = (torch.randn((1, length, h, d), generator=g, device=dev) for _ in range(3))
+            if peaked:  # quantization dominates: logits 3x sharper, every 97th key's V 16x larger
+                q = q * 3
+                v[:, ::97] *= 16
+            q, k_, v = (x.to(torch.bfloat16) for x in (q, k_, v))
+            cos, sin = _flux_rope_tables(length, axes_dim=(16, 56, 56) if d == 128 else (8, 28, 28))
+            out, lse = fa.flash_attention(q, k_, v, cos, sin, return_lse=True, int8=tier)
+            ref, ref_lse = fa.flash_attention_reference(q, k_, v, cos, sin, int8=tier)
+
+            def dist(o, ls):
+                return ((o.float() - ref.float()).norm() / ref.float().norm()).item(), \
+                    (ls - ref_lse).abs().max().item()
+
+            err_out, err_lse = dist(out, lse)
+            err = max((out.float() - ref.float()).abs().max().item(), err_lse)
+            controls = {"bf16": fa.flash_attention_reference(q, k_, v, cos, sin)}
+            if tier == "full":
+                controls["qk"] = fa.flash_attention_reference(q, k_, v, cos, sin, int8="qk")
+                controls["streamed"] = fa.streamed_full_reference(q, k_, v, cos, sin)
+            control_dist = {name: dist(*c) for name, c in controls.items()}
+            ms = time_ms(lambda: fa.flash_attention(q, k_, v, cos, sin, int8=tier))
+            plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k_, v, cos, sin, int8=tier),
+                               iters=5, warmup=1)
+            qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (
+                fa._rope_f32(q, cos, sin).to(q.dtype), fa._rope_f32(k_, cos, sin).to(q.dtype), v))
+            sdpa_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs))
+            half = 2 * length * length * d * h  # one of the two products
+            parts = ([(half, PEAK_INT8_OPS), (half, PEAK_BF16_FLOPS)] if tier == "qk"
+                     else [(2 * half, PEAK_INT8_OPS)])
+            # q, k, v, out bf16, the two tables, lse f32
+            bound = bound_ms_parts(parts, 4 * q.numel() * 2 + 2 * cos.numel() * 2 + length * h * 4)
+            log(f"[kernels-w8a8] A-{tier} {label}: out rel-L2 {err_out:.3e} (tol {tol_out}), lse max|Δ| "
+                f"{err_lse:.3e} (tol {tol_lse}), max|Δ| {err:.3e} | controls (out rel-L2, lse max|Δ|): "
+                + ", ".join(f"{n} {o:.3e} {ls:.3e}" for n, (o, ls) in control_dist.items())
+                + f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | SDPA bf16 forward {sdpa_ms:.4f} ms "
+                f"(for scale) | bound {bound[0]:.4f} ms ({bound[1]})")
+            if not (err_out <= tol_out and err_lse <= tol_lse):
+                failures.append(f"A-{tier} {label}: out rel-L2 {err_out}, lse {err_lse}")
+            passed = [n for n, (o, ls) in control_dist.items() if o <= tol_out and ls <= tol_lse]
+            if passed:
+                failures.append(f"A-{tier} {label}: controls {passed} pass the check")
+            tier_cases.append(dict(case=label, max_abs_err=err, out_rel_l2=err_out, lse_max_abs_err=err_lse,
+                                   control_out_rel_l2_lse=control_dist, ms=ms, plain_ms=plain_ms,
+                                   library_ms=None, sdpa_bf16_ms=sdpa_ms, bound_ms=bound[0],
+                                   bound_by=bound[1]))
+            del q, k_, v, out, ref, qs, ks, vs, controls
+        results[f"flash_attention_int8_{tier}"] = tier_cases
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("W8A8 kernels disagree with their plain versions: " + "; ".join(failures))
+    return results
+
+
 def _train_setup(out_dir: str, *extra: str):
     """The main-train configuration: parsed trainer args (TRAIN_ARGS, then
     `extra`), the Flux-dev pipeline that the trainer's random_pipeline
@@ -969,9 +1295,11 @@ def phase_small_train():
 
 
 def _kernel_group(name: str) -> str:
-    """Coarse group of a CUDA kernel by its name, for the training profile."""
+    """Coarse group of a CUDA kernel by its name, for the profiles."""
     for key, group in (("flash_fwd_kernel", "A flash forward"), ("flash_bwd_dq", "E flash dQ"),
-                       ("flash_bwd_dkv", "F flash dK/dV"), ("int4_matmul", "B int4 matmul")):
+                       ("flash_bwd_dkv", "F flash dK/dV"), ("int4_matmul", "B int4 matmul"),
+                       ("w8a8_matmul_kernel", "G W8A8 matmul"), ("quantize_rows_kernel", "H row quantizer"),
+                       ("v_col_amax", "A int8 V column pre-pass")):
         if key in name:
             return group
     low = name.lower()
@@ -986,6 +1314,46 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
+def _profile_record(prof, per: int, wall_ms: float, tag: str, unit: str, note: str) -> dict:
+    """Device time by kernel group and by kernel, and the device's busy time
+    (the union of the kernels' intervals), each per `unit` (the profiled
+    window holds `per` of them), logged under [tag] and returned."""
+    from torch.autograd import DeviceType
+
+    kernels, spans = {}, []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0:
+            kernels.setdefault(ev.name, [0.0, 0])
+            kernels[ev.name][0] += ev.device_time_total / 1e3 / per
+            kernels[ev.name][1] += 1
+            spans.append((ev.time_range.start, ev.time_range.end))
+    busy_us, last = 0.0, None
+    for start, end in sorted(spans):  # union of the kernels' intervals
+        if last is None or start > last:
+            busy_us += end - start
+            last = end
+        elif end > last:
+            busy_us += end - last
+            last = end
+    busy_ms = busy_us / 1e3 / per
+    groups = {}
+    for kname, (ms, _) in kernels.items():
+        grp = _kernel_group(kname)
+        groups[grp] = groups.get(grp, 0.0) + ms
+    kernel_ms = sum(groups.values())
+    log(f"[{tag}] {unit} wall {wall_ms:.1f} ms with the profiler on (mean of {per}, {note}) | "
+        f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}% | kernel time {kernel_ms:.1f} ms | "
+        f"{sum(n for _, n in kernels.values()) // per} kernel launches a {unit}")
+    for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"[{tag}]   {grp}: {ms:.2f} ms ({100 * ms / kernel_ms:.1f}%)")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    for kname, (ms, n) in top:
+        log(f"[{tag}]   {ms:8.2f} ms {n // per:6d}x  {kname[:110]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernel_ms=kernel_ms, groups=groups,
+                top=[dict(name=k, ms=ms, calls=n // per) for k, (ms, n) in top])
+
+
 def phase_profile_train():
     """One optimizer step of Flux-dev training (the main-train configuration:
     grad_accumulate micro-steps, the last with the Adam update) under
@@ -996,7 +1364,6 @@ def phase_profile_train():
     import tempfile
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from flux_generator_tpu_torch.io.params import tree_leaves
@@ -1042,39 +1409,8 @@ def phase_profile_train():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / micro_steps
 
-    kernels, spans = {}, []
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0:
-            kernels.setdefault(ev.name, [0.0, 0])
-            kernels[ev.name][0] += ev.device_time_total / 1e3 / micro_steps
-            kernels[ev.name][1] += 1
-            spans.append((ev.time_range.start, ev.time_range.end))
-    busy_us, last = 0.0, None
-    for start, end in sorted(spans):  # union of the kernels' intervals
-        if last is None or start > last:
-            busy_us += end - start
-            last = end
-        elif end > last:
-            busy_us += end - last
-            last = end
-    busy_ms = busy_us / 1e3 / micro_steps
-    groups = {}
-    for kname, (ms, _) in kernels.items():
-        grp = _kernel_group(kname)
-        groups[grp] = groups.get(grp, 0.0) + ms
-    kernel_ms = sum(groups.values())
-    log(f"[profile-train] micro-step wall {wall_ms:.1f} ms with the profiler on (mean of "
-        f"{micro_steps}, the last with the Adam update) | device busy "
-        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle {100 - 100 * busy_ms / wall_ms:.1f}% "
-        f"| kernel time {kernel_ms:.1f} ms | {sum(n for _, n in kernels.values()) // micro_steps} "
-        f"kernel launches a micro-step")
-    for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"[profile-train]   {grp}: {ms:.2f} ms ({100 * ms / kernel_ms:.1f}%)")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    for kname, (ms, n) in top:
-        log(f"[profile-train]   {ms:8.2f} ms {n // micro_steps:6d}x  {kname[:110]}")
-    record = dict(wall_ms=wall_ms, busy_ms=busy_ms, kernel_ms=kernel_ms, groups=groups,
-                  top=[dict(name=k, ms=ms, calls=n // micro_steps) for k, (ms, n) in top])
+    record = _profile_record(prof, micro_steps, wall_ms, "profile-train",
+                             "micro-step", "the last with the Adam update")
     OUT.mkdir(exist_ok=True)
     (OUT / "profile_train.json").write_text(json.dumps(record, indent=1))
     return record
@@ -1095,6 +1431,7 @@ def main() -> int:
     from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
     from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
     from flux_generator_tpu_torch.ops.kernels import lstm as lk
+    from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
     def run(phase):
         out = phase()
@@ -1106,10 +1443,14 @@ def main() -> int:
     kernels = run(phase_kernels)
     kernels.update(run(phase_kernels_musicgen))
     kernels.update(run(phase_kernels_train))
-    main_run = run(phase_main)
+    kernels.update(run(phase_kernels_w8a8))
+    main_run, pipe, latents = phase_main()
+    main_w8a8 = run(lambda: phase_main_w8a8(pipe, latents))
+    del pipe, latents
     main_music = run(phase_main_musicgen)
     main_train = run(phase_main_train)
     small = run(phase_small)
+    small_w8a8 = run(phase_small_w8a8)
     small_music = run(phase_small_musicgen)
     small_train = run(phase_small_train)
 
@@ -1136,12 +1477,23 @@ def main() -> int:
                             ms=case[f"{which}_ms"], plain_ms=case["plain_ms"],
                             bound_ms=case[f"{which}_bound_ms"], bound_by=case[f"{which}_bound_by"],
                             library_ms=case["library_ms"]))
+    for key, source, replaces, main_case in (
+            ("w8a8_matmul", wm.SOURCE, wm.REPLACES, "qkv_1024x3072x9216"),
+            ("w8a8_quantize_rows", wm.SOURCE, wm.REPLACES_QUANTIZE, "1024x3072"),
+            ("flash_attention_int8_qk", fa.SOURCE, fa.REPLACES, "L1280_rope"),
+            ("flash_attention_int8_full", fa.SOURCE, fa.REPLACES, "L1280_rope")):
+        case = next(c for c in kernels[key] if c["case"] == main_case)
+        entries.append(dict(name=key, route="cuda", source=source, replaces=replaces,
+                            launches=main_w8a8["launches"][key],
+                            max_abs_err=max(c["max_abs_err"] for c in kernels[key]),
+                            ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                            bound_by=case["bound_by"], library_ms=case["library_ms"]))
     bounds = unported_bounds()
     log("[bounds] kernels still to port: " + " | ".join(
         f"{key} {ms:.4f} ms ({by})" for key, (ms, by) in bounds.items()))
-    record = dict(device=smi, kernels=kernels, main=main_run, main_musicgen=main_music,
-                  main_train=main_train, small=small, small_musicgen=small_music,
-                  small_train=small_train, unported_bounds=bounds)
+    record = dict(device=smi, kernels=kernels, main=main_run, main_w8a8=main_w8a8,
+                  main_musicgen=main_music, main_train=main_train, small=small, small_w8a8=small_w8a8,
+                  small_musicgen=small_music, small_train=small_train, unported_bounds=bounds)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": entries}))

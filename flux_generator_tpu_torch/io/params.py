@@ -18,6 +18,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..ops.quant import to_k_major
+
 
 def tree_map(fn: Callable, tree):
     """Apply `fn` to every leaf of a dict/list/tuple tree (named tuples,
@@ -82,7 +84,8 @@ def _np_to_torch(a) -> torch.Tensor:
 def to_torch(tree, device=None, dtype=None):
     """numpy (or array-like) leaf tree → torch tensors on `device`. `dtype`,
     when given, casts floating leaves only; integer (quantized) leaves keep
-    their type."""
+    their type and values, int8 per-channel kernels stored K-contiguous, the
+    port's layout for them (ops.quant)."""
 
     def conv(a):
         if isinstance(a, (int, float, bool)) or a is None:
@@ -92,7 +95,7 @@ def to_torch(tree, device=None, dtype=None):
             t = t.to(dtype)
         return t.to(device) if device is not None else t
 
-    return tree_map(conv, tree)
+    return to_k_major(tree_map(conv, tree))
 
 
 def _torch_to_np(t: torch.Tensor) -> np.ndarray:

@@ -75,21 +75,22 @@ def init_clip_text(generator: torch.Generator, cfg: CLIPTextConfig, dtype=torch.
     return p
 
 
-def _layer(p, x, mask, cfg: CLIPTextConfig, act):
+def _layer(p, x, mask, cfg: CLIPTextConfig, act, w8a8=None):
     b, n, d = x.shape
     y = layer_norm(x, p["ln1"])
-    q = dense(p["q"], y).reshape(b, n, cfg.num_heads, -1)
-    k = dense(p["k"], y).reshape(b, n, cfg.num_heads, -1)
-    v = dense(p["v"], y).reshape(b, n, cfg.num_heads, -1)
+    q = dense(p["q"], y, w8a8).reshape(b, n, cfg.num_heads, -1)
+    k = dense(p["k"], y, w8a8).reshape(b, n, cfg.num_heads, -1)
+    v = dense(p["v"], y, w8a8).reshape(b, n, cfg.num_heads, -1)
     attn = dot_product_attention(q, k, v, mask=mask).reshape(b, n, d)
-    x = x + dense(p["o"], attn)
+    x = x + dense(p["o"], attn, w8a8)
     y = layer_norm(x, p["ln2"])
-    return x + dense(p["fc2"], act(dense(p["fc1"], y)))
+    return x + dense(p["fc2"], act(dense(p["fc1"], y, w8a8)), w8a8)
 
 
-def clip_text_forward(params, cfg: CLIPTextConfig, tokens: torch.Tensor) -> dict:
+def clip_text_forward(params, cfg: CLIPTextConfig, tokens: torch.Tensor, w8a8=None) -> dict:
     """tokens (B, N) int → {"last_hidden_state": (B, N, D), "pooled_output":
-    (B, D or projection_dim)}."""
+    (B, D or projection_dim)}. `w8a8` takes an int8 per-channel tree through
+    int8 activations (ops.linear.dense)."""
     b, n = tokens.shape
     eos = torch.argmax(tokens, dim=-1)
     x = params["token_embedding"][tokens] + params["position_embedding"][:n]
@@ -97,9 +98,9 @@ def clip_text_forward(params, cfg: CLIPTextConfig, tokens: torch.Tensor) -> dict
     act = _act(cfg.hidden_act)
     layers = params["layers"]
     for i in range(num_layers(layers)):
-        x = _layer(take_layer(layers, i), x, causal, cfg, act)
+        x = _layer(take_layer(layers, i), x, causal, cfg, act, w8a8)
     x = layer_norm(x, params["final_ln"])
     pooled = x[torch.arange(b, device=x.device), eos]
     if "text_projection" in params:
-        pooled = dense(params["text_projection"], pooled)
+        pooled = dense(params["text_projection"], pooled, w8a8)
     return {"last_hidden_state": x, "pooled_output": pooled}

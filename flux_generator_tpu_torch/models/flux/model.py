@@ -152,13 +152,13 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _mlp_embedder(p, x):
-    return dense(p["out_layer"], F.silu(dense(p["in_layer"], x)))
+def _mlp_embedder(p, x, w8a8=None):
+    return dense(p["out_layer"], F.silu(dense(p["in_layer"], x, w8a8)), w8a8)
 
 
-def _modulation(p, vec, n: int):
+def _modulation(p, vec, n: int, w8a8=None):
     """silu(vec) → linear → 3n chunks of (shift, scale, gate)."""
-    m = dense(p, F.silu(vec))[:, None, :]
+    m = dense(p, F.silu(vec), w8a8)[:, None, :]
     return torch.chunk(m, 3 * n, dim=-1)
 
 
@@ -167,59 +167,61 @@ def _heads(x, num_heads):
     return x.reshape(b, l, num_heads, -1)
 
 
-def _attn_qkv(p, x, num_heads):
+def _attn_qkv(p, x, num_heads, w8a8=None):
     """qkv projection → (q, k, v) each (B, L, H, D) with QK-RMSNorm."""
-    q, k, v = torch.chunk(dense(p["qkv"], x), 3, dim=-1)
+    q, k, v = torch.chunk(dense(p["qkv"], x, w8a8), 3, dim=-1)
     q = rms_norm(_heads(q, num_heads), p["q_norm"])
     k = rms_norm(_heads(k, num_heads), p["k_norm"])
     return q, k, _heads(v, num_heads).contiguous()
 
 
-def _double_block(p, img, txt, vec, cos, sin, cfg: FluxConfig):
+def _double_block(p, img, txt, vec, cos, sin, cfg: FluxConfig, w8a8=None, attn_int8=""):
     b, l, h = img.shape
     s = txt.shape[1]
-    i_shift, i_scale, i_gate, i_shift2, i_scale2, i_gate2 = _modulation(p["img_mod"], vec, 2)
-    t_shift, t_scale, t_gate, t_shift2, t_scale2, t_gate2 = _modulation(p["txt_mod"], vec, 2)
+    i_shift, i_scale, i_gate, i_shift2, i_scale2, i_gate2 = _modulation(p["img_mod"], vec, 2, w8a8)
+    t_shift, t_scale, t_gate, t_shift2, t_scale2, t_gate2 = _modulation(p["txt_mod"], vec, 2, w8a8)
 
     img_mod = (1 + i_scale) * layer_norm(img, eps=1e-6) + i_shift
     txt_mod = (1 + t_scale) * layer_norm(txt, eps=1e-6) + t_shift
-    iq, ik, iv = _attn_qkv(p["img_attn"], img_mod, cfg.num_heads)
-    tq, tk, tv = _attn_qkv(p["txt_attn"], txt_mod, cfg.num_heads)
+    iq, ik, iv = _attn_qkv(p["img_attn"], img_mod, cfg.num_heads, w8a8)
+    tq, tk, tv = _attn_qkv(p["txt_attn"], txt_mod, cfg.num_heads, w8a8)
 
     # joint attention over concat(txt, img), the reference order
     q = torch.cat([tq, iq], dim=1)
     k = torch.cat([tk, ik], dim=1)
     v = torch.cat([tv, iv], dim=1)
-    attn = flash_attention(q, k, v, cos=cos, sin=sin).reshape(b, s + l, h)
+    attn = flash_attention(q, k, v, cos=cos, sin=sin, int8=attn_int8).reshape(b, s + l, h)
     txt_attn, img_attn = attn[:, :s], attn[:, s:]
 
-    img = img + i_gate * dense(p["img_attn"]["proj"], img_attn)
-    img_mlp_in = (1 + i_scale2) * layer_norm(img, eps=1e-6) + i_shift2
-    img = img + i_gate2 * dense(p["img_mlp"]["out"], _gelu(dense(p["img_mlp"]["in"], img_mlp_in)))
+    def mlp(pm, x_in):
+        return dense(pm["out"], _gelu(dense(pm["in"], x_in, w8a8)), w8a8)
 
-    txt = txt + t_gate * dense(p["txt_attn"]["proj"], txt_attn)
-    txt_mlp_in = (1 + t_scale2) * layer_norm(txt, eps=1e-6) + t_shift2
-    txt = txt + t_gate2 * dense(p["txt_mlp"]["out"], _gelu(dense(p["txt_mlp"]["in"], txt_mlp_in)))
+    img = img + i_gate * dense(p["img_attn"]["proj"], img_attn, w8a8)
+    img = img + i_gate2 * mlp(p["img_mlp"], (1 + i_scale2) * layer_norm(img, eps=1e-6) + i_shift2)
+
+    txt = txt + t_gate * dense(p["txt_attn"]["proj"], txt_attn, w8a8)
+    txt = txt + t_gate2 * mlp(p["txt_mlp"], (1 + t_scale2) * layer_norm(txt, eps=1e-6) + t_shift2)
     return img, txt
 
 
-def _single_block(p, x, vec, cos, sin, cfg: FluxConfig):
+def _single_block(p, x, vec, cos, sin, cfg: FluxConfig, w8a8=None, attn_int8=""):
     b, l, h = x.shape
-    shift, scale, gate = _modulation(p["modulation"], vec, 1)
+    shift, scale, gate = _modulation(p["modulation"], vec, 1, w8a8)
     x_mod = (1 + scale) * layer_norm(x, eps=1e-6) + shift
-    proj = dense(p["linear1"], x_mod)
+    proj = dense(p["linear1"], x_mod, w8a8)
     qkv, mlp = proj[..., : 3 * h], proj[..., 3 * h:]
     q, k, v = torch.chunk(qkv, 3, dim=-1)
     q = rms_norm(_heads(q, cfg.num_heads), p["q_norm"])
     k = rms_norm(_heads(k, cfg.num_heads), p["k_norm"])
     v = _heads(v, cfg.num_heads).contiguous()
-    attn = flash_attention(q, k, v, cos=cos, sin=sin).reshape(b, l, h)
-    y = dense(p["linear2"], torch.cat([attn, _gelu(mlp)], dim=-1))
+    attn = flash_attention(q, k, v, cos=cos, sin=sin, int8=attn_int8).reshape(b, l, h)
+    y = dense(p["linear2"], torch.cat([attn, _gelu(mlp)], dim=-1), w8a8)
     return x + gate * y
 
 
 def flux_forward(params, cfg: FluxConfig, img, img_ids, txt, txt_ids, timesteps, y,
-                 guidance: Optional[torch.Tensor] = None, remat: bool = False):
+                 guidance: Optional[torch.Tensor] = None, remat: bool = False,
+                 w8a8: Optional[str] = None, attn_int8: str = ""):
     """img: (B, L_img, in_channels) packed 2x2 latent patches; txt: (B, L_txt,
     context_in_dim) T5 features; y: (B, vec_in_dim) pooled CLIP; timesteps,
     guidance: (B,). Returns (B, L_img, in_channels).
@@ -227,16 +229,21 @@ def flux_forward(params, cfg: FluxConfig, img, img_ids, txt, txt_ids, timesteps,
     remat=True recomputes each block in the backward pass
     (torch.utils.checkpoint, non-reentrant), as the JAX package's
     jax.checkpoint per block: training holds one block's activations
-    instead of all 19 + 38."""
+    instead of all 19 + 38.
+
+    w8a8 ("ops", "rows" or "fused", see ops.linear.dense) takes every int8
+    per-channel dense, embedders and modulations included, through int8
+    activations; attn_int8 ("qk" or "full") picks the int8 tier of both
+    block kinds' attention. Both are inference only."""
     dtype = img.dtype
-    img = dense(params["img_in"], img)
-    vec = _mlp_embedder(params["time_in"], timestep_embedding(timesteps, 256))
+    img = dense(params["img_in"], img, w8a8)
+    vec = _mlp_embedder(params["time_in"], timestep_embedding(timesteps, 256), w8a8)
     if cfg.guidance_embed:
         if guidance is None:
             raise ValueError("guidance-distilled model needs a guidance strength")
-        vec = vec + _mlp_embedder(params["guidance_in"], timestep_embedding(guidance, 256))
-    vec = vec + _mlp_embedder(params["vector_in"], y)
-    txt = dense(params["txt_in"], txt)
+        vec = vec + _mlp_embedder(params["guidance_in"], timestep_embedding(guidance, 256), w8a8)
+    vec = vec + _mlp_embedder(params["vector_in"], y, w8a8)
+    txt = dense(params["txt_in"], txt, w8a8)
 
     ids = torch.cat([txt_ids, img_ids], dim=1)
     cos, sin = multi_axis_rope(ids, list(cfg.axes_dim), float(cfg.theta))
@@ -253,14 +260,14 @@ def flux_forward(params, cfg: FluxConfig, img, img_ids, txt, txt_ids, timesteps,
 
     blocks = params["double_blocks"]
     for i in range(num_layers(blocks)):
-        img, txt = dbl_body(take_layer(blocks, i), img, txt, vec, cos, sin, cfg)
+        img, txt = dbl_body(take_layer(blocks, i), img, txt, vec, cos, sin, cfg, w8a8, attn_int8)
     x = torch.cat([txt, img], dim=1)
     blocks = params["single_blocks"]
     for i in range(num_layers(blocks)):
-        x = sgl_body(take_layer(blocks, i), x, vec, cos, sin, cfg)
+        x = sgl_body(take_layer(blocks, i), x, vec, cos, sin, cfg, w8a8, attn_int8)
     img = x[:, txt.shape[1]:]
 
     fl = params["final_layer"]
-    shift, scale = torch.chunk(dense(fl["adaLN"], F.silu(vec)), 2, dim=-1)
+    shift, scale = torch.chunk(dense(fl["adaLN"], F.silu(vec), w8a8), 2, dim=-1)
     img = (1 + scale[:, None]) * layer_norm(img, eps=1e-6) + shift[:, None]
-    return dense(fl["linear"], img)
+    return dense(fl["linear"], img, w8a8)

@@ -2,7 +2,8 @@
 flux_generator_tpu/models/t5/t5.py): relative-position-bias attention with
 scale 1.0 and no projection biases, gated-gelu feed-forward (tanh GELU),
 RMSNorm pre-norm. Layers are stacked on a leading axis and run by a loop.
-Its dense layers run the int4 kernel when the tree is int4-packed."""
+Its dense layers run the int4 kernel when the tree is int4-packed; `w8a8`
+takes an int8 per-channel tree through int8 activations (ops.linear.dense)."""
 
 from __future__ import annotations
 
@@ -133,15 +134,15 @@ def init_t5_encoder(generator: torch.Generator, cfg: T5Config, dtype=torch.float
     }
 
 
-def _attn(p, q_in, kv_in, cfg: T5Config, bias=None, mask=None):
+def _attn(p, q_in, kv_in, cfg: T5Config, bias=None, mask=None, w8a8=None):
     b, lq, _ = q_in.shape
     lk = kv_in.shape[1]
     h = cfg.num_heads
-    q = dense(p["q"], q_in).reshape(b, lq, h, -1)
-    k = dense(p["k"], kv_in).reshape(b, lk, h, -1)
-    v = dense(p["v"], kv_in).reshape(b, lk, h, -1)
+    q = dense(p["q"], q_in, w8a8).reshape(b, lq, h, -1)
+    k = dense(p["k"], kv_in, w8a8).reshape(b, lk, h, -1)
+    v = dense(p["v"], kv_in, w8a8).reshape(b, lk, h, -1)
     out = dot_product_attention(q, k, v, bias=bias, mask=mask, scale=1.0)
-    return dense(p["o"], out.reshape(b, lq, -1))
+    return dense(p["o"], out.reshape(b, lq, -1), w8a8)
 
 
 _ACTS = {
@@ -151,16 +152,16 @@ _ACTS = {
 }
 
 
-def _dense_act(p, x, cfg: T5Config):
+def _dense_act(p, x, cfg: T5Config, w8a8=None):
     act = _ACTS[cfg.feed_forward_proj.removeprefix("gated-")]
     if "wi_0" in p:
-        x = act(dense(p["wi_0"], x)) * dense(p["wi_1"], x)
+        x = act(dense(p["wi_0"], x, w8a8)) * dense(p["wi_1"], x, w8a8)
     else:
-        x = act(dense(p["wi"], x))
-    return dense(p["wo"], x)
+        x = act(dense(p["wi"], x, w8a8))
+    return dense(p["wo"], x, w8a8)
 
 
-def t5_encode(params, cfg: T5Config, tokens: torch.Tensor) -> torch.Tensor:
+def t5_encode(params, cfg: T5Config, tokens: torch.Tensor, w8a8=None) -> torch.Tensor:
     """tokens (B, L) int → (B, L, d_model) in the params' dtype."""
     enc = params["encoder"]
     x = params["wte"][tokens]
@@ -170,7 +171,7 @@ def t5_encode(params, cfg: T5Config, tokens: torch.Tensor) -> torch.Tensor:
     for i in range(num_layers(layers)):
         p = take_layer(layers, i)
         y = rms_norm(x, p["ln1"], cfg.layer_norm_epsilon)
-        x = x + _attn(p["attention"], y, y, cfg, bias=bias)
+        x = x + _attn(p["attention"], y, y, cfg, bias=bias, w8a8=w8a8)
         y = rms_norm(x, p["ln2"], cfg.layer_norm_epsilon)
-        x = x + _dense_act(p["dense"], y, cfg)
+        x = x + _dense_act(p["dense"], y, cfg, w8a8)
     return rms_norm(x, enc["ln"], cfg.layer_norm_epsilon)

@@ -9,6 +9,12 @@ kernel, which raises for shapes, dtypes or layouts it does not take. There is
 no fallback from one to the other. Its gradient is `_FlashAttention`, the
 counterpart of the JAX package's `_flash_core` custom VJP.
 
+`int8` selects the int8 tiers of the TPU kernel (`int8_mxu`, the one-shot
+path's semantics): "qk" quantizes q and k rows for an int8 Q·Kᵀ, "full" also
+p (against the row's final max) and V's columns for an int8 P·V. They are an
+inference datapath: like the JAX wrapper, a sequence longer than the one-shot
+path's 6144 drops them, and a gradient through them raises.
+
 Layout: q, k, v (B, L, H, D); cos/sin (B, L, D/2) tables shared by all
 heads, in the working dtype. RoPE rotates interleaved pairs (2i, 2i+1).
 """
@@ -23,18 +29,24 @@ import torch
 from . import _build
 from .flash_attention_bwd import flash_attention_bwd
 
-# Launches of the CUDA kernel since the last reset (the plain version on CPU
-# tensors does not count).
+# Launches of the CUDA kernel since the last reset, all tiers (the plain
+# version on CPU tensors does not count), and of its int8 tiers alone.
 launches = 0
+int8_launches = {"qk": 0, "full": 0}
 
 SOURCE = "flux_generator_tpu_torch/csrc/flash_attention.cu"
 REPLACES = "flux_generator_tpu/ops/pallas/flash_attention.py:258"
 HEAD_DIMS = (64, 128)
+INT8_TIERS = ("", "qk", "full")
+_MODES = {"": 0, "qk": 1, "full": 2}
+# The JAX wrapper keeps the int8 tiers to its one-shot path: a padded length
+# of at most 6144 (flash_attention.py:544-551).
+INT8_MAX_LEN = 6144
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "fgt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    "fgt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P],
 }
 
 
@@ -49,13 +61,28 @@ def _rope_f32(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Te
     return torch.stack([e * c - o * s, e * s + o * c], dim=-1).reshape(shape)
 
 
-def flash_attention_reference(q, k, v, cos=None, sin=None, scale: Optional[float] = None):
+def _quant(x: torch.Tensor, dim: int):
+    """int8 levels (as f32) of f32 x with max-abs scales over `dim`: the TPU
+    kernel's `_quant_rows` (over D) and `_quant_cols` (over the keys)."""
+    s = x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-20) / 127.0
+    return torch.clamp(torch.round(x / s), -127, 127), s
+
+
+def _check_tier(int8: str):
+    if int8 not in INT8_TIERS:
+        raise ValueError(f"int8 must be one of {INT8_TIERS}, got {int8!r}")
+
+
+def flash_attention_reference(q, k, v, cos=None, sin=None, scale: Optional[float] = None,
+                              int8: str = ""):
     """Plain PyTorch version of the kernel's function → (out, lse).
 
     out (B, L, H, D) in q's dtype, lse (B·H, L) f32. RoPE in f32 with the
     tables rounded to the working dtype, q/k rounded back to it; f32 logits
     and softmax; P rounded to the working dtype before P·V; O divided by the
-    f32 row sum."""
+    f32 row sum. The int8 tiers (see the module docstring) take their
+    integer dots in f64, which holds them exactly."""
+    _check_tier(int8)
     b, l, h, d = q.shape
     dt = q.dtype
     if scale is None:
@@ -64,13 +91,61 @@ def flash_attention_reference(q, k, v, cos=None, sin=None, scale: Optional[float
         cos, sin = cos.to(dt), sin.to(dt)
         q = _rope_f32(q, cos, sin).to(dt)
         k = _rope_f32(k, cos, sin).to(dt)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if int8:
+        qi, sq = _quant(q.float(), -1)
+        ki, sk = _quant(k.float(), -1)
+        dots = torch.einsum("bqhd,bkhd->bhqk", qi.double(), ki.double()).float()
+        s = dots * (sq.permute(0, 2, 1, 3) * scale) * sk.permute(0, 2, 3, 1)
+    else:
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), v.float()) / denom
+    if int8 == "full":
+        vi, sv = _quant(v.float(), 1)
+        dots = torch.einsum("bhqk,bkhd->bhqd", torch.round(p * 127.0).double(), vi.double()).float()
+        o = dots * (sv.permute(0, 2, 1, 3) / 127.0) / denom
+    else:
+        o = torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), v.float()) / denom
     lse = (m + torch.log(denom)).reshape(b * h, l)
     return o.permute(0, 2, 1, 3).to(dt), lse
+
+
+def streamed_full_reference(q, k, v, cos=None, sin=None, scale: Optional[float] = None,
+                            blk_k: int = 64):
+    """The "full" tier as the JAX package's *streamed* kernel computes it
+    (`_flash_kernel`, which its public wrapper never runs with a tier): p
+    quantized per key block against the running max and that block's own p
+    max, V per column within each block. Not a semantics of the port: it is
+    the control a check of the "full" kernel must be able to fail → (out,
+    lse) as `flash_attention_reference`."""
+    b, l, h, d = q.shape
+    dt = q.dtype
+    if scale is None:
+        scale = d ** -0.5
+    if cos is not None:
+        cos, sin = cos.to(dt), sin.to(dt)
+        q, k = _rope_f32(q, cos, sin).to(dt), _rope_f32(k, cos, sin).to(dt)
+    qi, sq = _quant(q.float(), -1)
+    ki, sk = _quant(k.float(), -1)
+    s = torch.einsum("bqhd,bkhd->bhqk", qi.double(), ki.double()).float()
+    s = s * (sq.permute(0, 2, 1, 3) * scale) * sk.permute(0, 2, 3, 1)
+    m = torch.full((b, h, l, 1), -torch.inf, device=q.device)
+    denom = torch.zeros((b, h, l, 1), device=q.device)
+    acc = torch.zeros((b, h, l, d), device=q.device)
+    for k0 in range(0, l, blk_k):
+        sb = s[..., k0:k0 + blk_k]
+        m_new = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sb - m_new)
+        denom = denom * alpha + p.sum(dim=-1, keepdim=True)
+        sp = p.amax(dim=-1, keepdim=True).clamp_min(1e-20) / 127.0
+        vi, sv = _quant(v[:, k0:k0 + blk_k].float(), 1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", torch.round(p / sp).double(), vi.double()).float()
+        acc = acc * alpha + pv * sp * sv.permute(0, 2, 1, 3)
+        m = m_new
+    lse = (m + torch.log(denom)).reshape(b * h, l)
+    return (acc / denom).permute(0, 2, 1, 3).to(dt), lse
 
 
 def _check_cuda_args(q, k, v, cos, sin):
@@ -96,7 +171,7 @@ def _check_cuda_args(q, k, v, cos, sin):
             raise ValueError("RoPE tables must lie on q's device")
 
 
-def _flash_attention_cuda(q, k, v, cos, sin, scale):
+def _flash_attention_cuda(q, k, v, cos, sin, scale, int8=""):
     global launches
     _check_cuda_args(q, k, v, cos, sin)
     b, l, h, d = q.shape
@@ -106,15 +181,20 @@ def _flash_attention_cuda(q, k, v, cos, sin, scale):
         sin = sin.to(q.dtype).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b * h, l), dtype=torch.float32, device=q.device)
+    # V's column amax for the "full" tier, combined with atomicMax from zero
+    vamax = torch.zeros((b * h, d), dtype=torch.int32, device=q.device) if int8 == "full" else None
     with torch.cuda.device(q.device):
         err = lib.fgt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, l, h, d, float(scale),
+            None if vamax is None else vamax.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, l, h, d, float(scale), _MODES[int8],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check("fgt_flash_attention_fwd", err)
     launches += 1
+    if int8:
+        int8_launches[int8] += 1
     return out, lse
 
 
@@ -123,23 +203,28 @@ class _FlashAttention(torch.autograd.Function):
     `_flash_core_fwd` / `_flash_core_bwd` of the JAX package: the backward
     rotates q and k once with the tables, forms dvec = rowsum(dO·O) in f32,
     runs dQ and dK/dV on the rotated q/k, and pulls dq and dk back through
-    the (orthogonal) rotation with (cos, −sin). cos/sin get no gradient."""
+    the (orthogonal) rotation with (cos, −sin). cos/sin get no gradient. The
+    int8 tiers have no gradient: asking for one raises."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos, sin, scale):
+    def forward(ctx, q, k, v, cos, sin, scale, int8):
         if q.device.type == "cuda":
-            out, lse = _flash_attention_cuda(q, k, v, cos, sin, scale)
+            out, lse = _flash_attention_cuda(q, k, v, cos, sin, scale, int8)
         elif q.device.type == "cpu":
-            out, lse = flash_attention_reference(q, k, v, cos, sin, scale)
+            out, lse = flash_attention_reference(q, k, v, cos, sin, scale, int8)
         else:
             raise ValueError(f"no flash attention for device {q.device}")
         ctx.save_for_backward(q, k, v, cos, sin, out, lse)
         ctx.scale = scale
+        ctx.int8 = int8
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
+        if ctx.int8:
+            raise RuntimeError(f"the int8 attention tier {ctx.int8!r} is inference only and has no "
+                               "gradient; use int8=''")
         q, k, v, cos, sin, out, lse = ctx.saved_tensors
         b, l, h, _ = q.shape
         dt = q.dtype
@@ -152,18 +237,26 @@ class _FlashAttention(torch.autograd.Function):
                                          lse, dvec, ctx.scale)
         if cos is not None:
             dq, dk = _rope_f32(dq, cos, -sin).to(dt), _rope_f32(dk, cos, -sin).to(dt)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
+
+
+def effective_int8(length: int, int8: str) -> str:
+    """The int8 tier a call of this length runs: none past the one-shot
+    path's length, where the JAX wrapper drops it."""
+    _check_tier(int8)
+    return int8 if length <= INT8_MAX_LEN else ""
 
 
 def flash_attention(q, k, v, cos=None, sin=None, scale: Optional[float] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, int8: str = ""):
     """softmax(rope(q)·rope(k)ᵀ·scale)·v over (B, L, H, D); scale defaults to
     D^-½, RoPE applies when cos/sin (B, L, D/2) are given. Returns out, or
     (out, lse) with lse (B·H, L) f32 when return_lse. Differentiable in q, k
-    and v."""
+    and v with int8 = "" (the default); "qk" and "full" are the int8 tiers."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if (cos is None) != (sin is None):
         raise ValueError("pass both RoPE tables or neither")
-    out, lse = _FlashAttention.apply(q, k, v, cos, sin, float(scale))
+    int8 = effective_int8(q.shape[1], int8)
+    out, lse = _FlashAttention.apply(q, k, v, cos, sin, float(scale), int8)
     return (out, lse) if return_lse else out

@@ -10,10 +10,14 @@ copy.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
+from .kernels import w8a8_matmul as w8a8_kernels
 from .kernels.int4_matmul import int4_matmul
+from .quant import is_k_major
 
 
 def _rand_uniform(shape, bound, dtype, device, generator):
@@ -60,15 +64,96 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return q.to(dtype) * scale.to(dtype)[..., None, :]
 
 
-def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+W8A8_ROUTES = (None, "ops", "rows", "fused")
+
+
+def _up8(v: int, least: int = 8) -> int:
+    return max(least, -(-v // 8) * 8)
+
+
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """t (r, c) with zero rows and columns up to (rows, cols); t itself when
+    it has them."""
+    if t.shape == (rows, cols):
+        return t
+    return F.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
+
+
+def int8_dot(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 x_q (…, K) and int8 w_q (K, N); the JAX
+    package leaves this dot to XLA. On the card w_q is K-contiguous, as
+    ops.quant stores int8 per-channel weights (cuBLAS's fast int8 layout),
+    and torch._int_mm (cuBLASLt) wants more than 16 rows in x_q and K, N
+    multiples of 8, so the operands are padded with zero rows and columns
+    (exact)."""
+    *lead, k = x_q.shape
+    n = w_q.shape[1]
+    a = x_q.reshape(-1, k)
+    m = a.shape[0]
+    if a.device.type != "cuda":
+        return torch._int_mm(a.contiguous(), w_q).reshape(*lead, n)
+    if not is_k_major(w_q):
+        raise ValueError(f"int8 weights on the card are K-contiguous (strides (1, {k}), as ops.quant "
+                         f"stores them), got strides {w_q.stride()}")
+    kp = _up8(k)
+    w_q = _pad_to(w_q.t(), _up8(n), kp).t()  # stays K-contiguous
+    y = torch._int_mm(_pad_to(a, _up8(m, 24), kp), w_q)
+    return y[:m, :n].reshape(*lead, n)
+
+
+def _w8a8(p: dict, x: torch.Tensor, route: str) -> torch.Tensor:
+    """int8 activations × int8 per-channel weights, the W8A8 branch of the
+    JAX package's `dense` (flux_generator_tpu/ops/linear.py:145-191) with
+    its FGT_W8A8_IMPL formulations as explicit routes:
+
+      "fused" ↔ "pallas": kernel G, per-(row, K block) scales, f32 until
+                the output cast;
+      "rows"  ↔ "pq":     kernel H (per-row scales in f32), the int8 dot,
+                then acc·sx·scale in x's dtype;
+      "ops"   ↔ "xla":    everything in x's dtype: sx = max(amax/127, 1e-8),
+                x_q = clip(round(x/sx), ±127), the int8 dot, (acc·sx)·scale.
+
+    "fused" and "rows" take their kernel only for a 2-D kernel with at least
+    16 activation rows, "fused" also only for K % 128 == 0; every other case
+    takes the "ops" formulation, as the JAX package dispatches."""
+    q, scale = p["kernel_q"], p["kernel_scale"]
+    if q.dim() != 2:
+        raise NotImplementedError("W8A8 takes a 2-D kernel; take the layer first")
+    k = x.shape[-1]
+    dt = x.dtype
+    m_rows = x.numel() // k
+    if route == "fused" and m_rows >= 16 and w8a8_kernels.supported(k, scale):
+        return w8a8_kernels.w8a8_matmul(x, q, scale)
+    if route == "rows" and m_rows >= 16:
+        x_q, sx = w8a8_kernels.quantize_rows(x)
+        return int8_dot(x_q, q).to(dt) * sx.to(dt) * scale.to(dt)
+    # max(sx, 1e-8): the floor rounded to x's dtype, as JAX's weak-typed
+    # scalar, since no value of that dtype lies between the two
+    sx = (x.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    x_q = torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8)
+    return int8_dot(x_q, q).to(dt) * sx * scale.to(dt)
+
+
+def dense(p: dict, x: torch.Tensor, w8a8: Optional[str] = None) -> torch.Tensor:
     """x (…, in) @ kernel (in, out) [+ (x @ lora_a) @ lora_b] [+ bias], for
     f32/bf16 kernels, int8 weight-only (per channel or grouped) and packed
     int4. Packed int4 runs the int4 kernel on CUDA tensors and its plain
-    version on CPU ones. The LoRA term (scale 1) applies on every tier."""
+    version on CPU ones. The LoRA term (scale 1) applies on every tier.
+
+    `w8a8` ("ops", "rows" or "fused"; see `_w8a8`) sends an int8 kernel with
+    per-channel scales through int8 activations; grouped scales and int4
+    keep their weight-only paths, as in the JAX package. (The bridge widens
+    unpacked int4 trees to int8, so those take the W8A8 branch here.)"""
+    if w8a8 not in W8A8_ROUTES:
+        raise ValueError(f"w8a8 must be one of {W8A8_ROUTES}, got {w8a8!r}")
     if "kernel_q4" in p:
         y = int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
     elif "kernel_q" in p:
-        y = x @ _dequant(p["kernel_q"], p["kernel_scale"], x.dtype)
+        grouped = p["kernel_scale"].dim() == p["kernel_q"].dim()
+        if w8a8 and not grouped and p["kernel_q"].dtype == torch.int8:
+            y = _w8a8(p, x, w8a8)
+        else:
+            y = x @ _dequant(p["kernel_q"], p["kernel_scale"], x.dtype)
     else:
         y = x @ p["kernel"].to(x.dtype)
     if "lora_a" in p:

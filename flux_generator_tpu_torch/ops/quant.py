@@ -5,7 +5,12 @@ dense kernels, with f32 scales: int8 under `kernel_q`, or int4 packed two per
 byte under `kernel_q4` in the SPLIT nibble layout — packed row r holds
 original row r in the low nibble and row r + in/2 in the high nibble, both
 biased by +8. The int4 matmul kernel (ops/kernels/int4_matmul.py) reads that
-layout directly.
+layout directly. An int8 kernel with per-channel scales is stored
+K-contiguous: the same (…, in, out) values with strides (…, 1, in), the layout
+in which the W8A8 kernel and cuBLAS's int8 GEMM read the weight (int8 tensor
+cores take that operand along K only), and which every other path takes as
+well. `quantize_dense` writes it so, and `to_k_major` relays a tree built
+elsewhere (the JAX bridge).
 """
 
 from __future__ import annotations
@@ -66,14 +71,17 @@ def quantize_dense(p: dict, bits: int = 8, group_size: int = None,
     flat = kern.reshape(-1, d_in, d_out)
     n = flat.shape[0]
     q_rows = d_in // 2 if pack else d_in
-    q_out = torch.empty((n, q_rows, d_out), dtype=torch.uint8 if pack else torch.int8,
-                        device=kern.device)
+    k_major = bits == 8 and not group_size
+    q_shape = (n, d_out, q_rows) if k_major else (n, q_rows, d_out)
+    q_out = torch.empty(q_shape, dtype=torch.uint8 if pack else torch.int8, device=kern.device)
     s_shape = (n, d_in // group_size, d_out) if group_size else (n, d_out)
     s_out = torch.empty(s_shape, dtype=torch.float32, device=kern.device)
     for i in range(n):
         q, s = _quantize_2d(flat[i], qmax, group_size)
-        q_out[i] = pack_int4(q) if pack else q.to(torch.int8)
+        q_out[i] = pack_int4(q) if pack else (q.t() if k_major else q).to(torch.int8)
         s_out[i] = s
+    if k_major:
+        q_out = q_out.transpose(-1, -2)
     out = {k: v for k, v in p.items() if k != "kernel"}
     out["kernel_q4" if pack else "kernel_q"] = q_out.reshape(*lead, q_rows, d_out)
     out["kernel_scale"] = s_out.reshape(*lead, *s_shape[1:])
@@ -105,3 +113,29 @@ def quantize_tree(params, predicate=default_predicate, bits: int = 8,
         return node
 
     return walk(params)
+
+
+def is_k_major(q: torch.Tensor) -> bool:
+    """(…, K, N) stored K-contiguous: strides (…, 1, K) (any stride where a
+    dim is 1)."""
+    k, n = q.shape[-2:]
+    return (k == 1 or q.stride(-2) == 1) and (n == 1 or q.stride(-1) == k)
+
+
+def to_k_major(tree):
+    """Store every int8 per-channel `kernel_q` of a tree K-contiguous (see
+    the module docstring), in place; one already so stays as it is. Each
+    tensor is replaced as it is relaid, so no tree holds both layouts.
+    Returns the tree."""
+    if isinstance(tree, dict):
+        q, scale = tree.get("kernel_q"), tree.get("kernel_scale")
+        if (q is not None and q.dtype == torch.int8 and scale is not None
+                and scale.dim() == q.dim() - 1 and not is_k_major(q)):
+            tree["kernel_q"] = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+            del q
+        for v in tree.values():
+            to_k_major(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            to_k_major(v)
+    return tree

@@ -7,6 +7,12 @@ training runs. The device is the one the params lie on; noise comes from a
 `torch.Generator` seeded per request. PyTorch runs eagerly, so the JAX
 package's jitted whole-schedule program becomes a plain loop over the
 schedule.
+
+`w8a8` and `attn_int8` are the W8A8 serving configuration: the JAX
+package's process-wide `set_w8a8(True)` (with FGT_W8A8_IMPL) and
+`set_attn_int8`, here attributes of the pipeline passed to every encoder
+and flow call of a request (see ops.linear.dense and
+ops.kernels.flash_attention). Set them before a request, or between two.
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ def latent_ids(batch: int, h: int, w: int, device=None) -> torch.Tensor:
 class FluxPipeline:
     def __init__(self, name: str, params: dict, flow_cfg: FluxConfig, ae_cfg: AutoEncoderConfig,
                  clip_cfg: CLIPTextConfig, t5_cfg: T5Config, clip_tokenizer=None,
-                 t5_tokenizer=None, dtype=torch.bfloat16):
+                 t5_tokenizer=None, dtype=torch.bfloat16, w8a8: Optional[str] = None,
+                 attn_int8: str = ""):
         self.name = name
         self.params = params
         self.flow_cfg = flow_cfg
@@ -68,6 +75,8 @@ class FluxPipeline:
         self.t5_tokenizer = t5_tokenizer
         self.dtype = dtype
         self.schnell = "schnell" in name
+        self.w8a8 = w8a8
+        self.attn_int8 = attn_int8
 
     @property
     def device(self) -> torch.device:
@@ -77,7 +86,8 @@ class FluxPipeline:
 
     @classmethod
     def random_init(cls, name: str = "flux-schnell", tiny: bool = False, dtype=torch.bfloat16,
-                    device=None, generator: Optional[torch.Generator] = None, **cfg_overrides):
+                    device=None, generator: Optional[torch.Generator] = None,
+                    w8a8: Optional[str] = None, attn_int8: str = "", **cfg_overrides):
         """Randomly initialized pipeline (tests, benchmarks, offline runs) on
         `device`, drawn from `generator` (seed 0 on `device` when None).
         With neither given it builds on the current CUDA device, and raises
@@ -100,7 +110,8 @@ class FluxPipeline:
             "clip": init_clip_text(generator, clip_cfg, dtype, device),
             "t5": init_t5_encoder(generator, t5_cfg, dtype, device),
         }
-        return cls(name, params, flow_cfg, ae_cfg, clip_cfg, t5_cfg, dtype=dtype)
+        return cls(name, params, flow_cfg, ae_cfg, clip_cfg, t5_cfg, dtype=dtype, w8a8=w8a8,
+                   attn_int8=attn_int8)
 
     # -------------------------------------------------- text conditioning
 
@@ -113,11 +124,12 @@ class FluxPipeline:
         return t5_tokens, clip_tokens
 
     def prepare_conditioning(self, n_images: int, t5_tokens, clip_tokens):
-        txt = t5_encode(self.params["t5"], self.t5_cfg, t5_tokens).to(self.dtype)
+        txt = t5_encode(self.params["t5"], self.t5_cfg, t5_tokens, self.w8a8).to(self.dtype)
         if txt.shape[0] == 1 and n_images > 1:
             txt = txt.expand(n_images, *txt.shape[1:])
         txt_ids = torch.zeros((n_images, txt.shape[1], 3), dtype=torch.int32, device=txt.device)
-        vec = clip_text_forward(self.params["clip"], self.clip_cfg, clip_tokens)["pooled_output"]
+        vec = clip_text_forward(self.params["clip"], self.clip_cfg, clip_tokens,
+                                self.w8a8)["pooled_output"]
         vec = vec.to(self.dtype)
         if vec.shape[0] == 1 and n_images > 1:
             vec = vec.expand(n_images, *vec.shape[1:])
@@ -134,6 +146,7 @@ class FluxPipeline:
             self.params["flow"], self.flow_cfg, img=x_t, img_ids=x_ids, txt=txt,
             txt_ids=txt_ids, timesteps=t.expand(b), y=vec,
             guidance=guidance.expand(b) if self.flow_cfg.guidance_embed else None,
+            w8a8=self.w8a8, attn_int8=self.attn_int8,
         )
         # t_prev − t is taken in the schedule's dtype, then promoted to x_t's
         return sampler_mod.flux_step(pred, x_t, t, t_prev)

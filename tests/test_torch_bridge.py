@@ -140,18 +140,29 @@ def test_pipeline_import_does_not_load_jax():
 
 
 def test_tokenizers_and_a_pipeline_load_nothing_of_the_jax_package():
-    """Load both tokenizers from tests/assets and build a tiny pipeline: no
-    module of the JAX package, and no jax, is imported."""
+    """Load both tokenizers from tests/assets, build a tiny W8A8 pipeline
+    (int8 flow, int8 activations through the fused route, int8 attention)
+    and run a denoise step and the decode: no module of the JAX package, and no jax, is
+    imported."""
     proc = _run(
         "import sys, torch\n"
         "from flux_generator_tpu_torch.io.tokenizers import load_clip_tokenizer, load_t5_tokenizer\n"
+        "from flux_generator_tpu_torch.ops.quant import quantize_tree\n"
         "from flux_generator_tpu_torch.pipelines.flux import FluxPipeline\n"
         "t5 = load_t5_tokenizer('tests/assets/spiece/t5_like.model')\n"
         "clip = load_clip_tokenizer('tests/assets/clip_tokenizer/vocab.json', "
         "'tests/assets/clip_tokenizer/merges.txt')\n"
-        "pipe = FluxPipeline.random_init('flux-schnell', tiny=True, device='cpu')\n"
+        "pipe = FluxPipeline.random_init('flux-schnell', tiny=True, device='cpu', w8a8='fused', "
+        "attn_int8='full', dtype=torch.float32, hidden_size=256, num_heads=2, axes_dim=(32, 48, 48))\n"
+        "pipe.params['flow'] = quantize_tree(pipe.params['flow'], lambda p: True)\n"
         "pipe.t5_tokenizer, pipe.clip_tokenizer = t5, clip\n"
         "assert pipe.tokenize('a red fox')[0].shape == (1, 256)\n"
+        "from flux_generator_tpu_torch.pipelines.flux import latent_ids, pack_latents\n"
+        "txt, txt_ids, vec = pipe.prepare_conditioning(1, torch.ones((1, 16), dtype=torch.long), "
+        "torch.ones((1, 7), dtype=torch.long))\n"
+        "x = pack_latents(torch.randn((1, 8, 8, pipe.ae_cfg.z_channels)))\n"
+        "img = pipe.decode(pipe.denoise_latents(x, latent_ids(1, 8, 8), txt, txt_ids, vec, 1, 0.0), (8, 8))\n"
+        "assert img.shape[::3] == (1, 3) and bool(torch.isfinite(img).all())\n"
         f"loaded = {_LOADED}\n"
         "assert not loaded, loaded\n"
     )

@@ -90,6 +90,75 @@ def test_methods_match_jax_pipeline(quantized_pipelines):
     assert np.abs(u8_t.astype(int) - u8_j.astype(int)).max() <= 1
 
 
+# the JAX package's FGT_W8A8_IMPL formulation of each route
+W8A8_IMPL = {"ops": "xla", "rows": "pq", "fused": "pallas"}
+
+
+@pytest.mark.parametrize("w8a8,attn_int8", [("fused", "qk"), ("rows", "full")])
+def test_w8a8_pipeline_matches_jax_pipeline(monkeypatch, w8a8, attn_int8):
+    """The W8A8 serving configuration end to end (f32, CPU): flow, T5 and
+    CLIP int8 per channel with int8 activations, int8 attention, against the
+    JAX pipeline under set_w8a8(True), FGT_W8A8_IMPL and set_attn_int8 with
+    its Pallas attention (interpret mode). Hidden 512 with heads of 64, so
+    that the Pallas attention and the K-block predicate apply; 64 image and
+    16 text tokens, so that every image and text dense has m_rows ≥ 16 and
+    the modulations (M = 1) take the "ops" formulation. The conditioning
+    agrees to atol 2e-3 (it agrees to 5e-7 here). The latents (max|x| ≈ 4.2)
+    to rel-L2 1e-3 and atol 1e-2: an int8 level (of p above all) that rounds
+    the other way after a last-bit difference upstream moves an output by
+    about 1/127 of one term, and two steps carry it on (measured rel-L2
+    1.6e-4 and 5.9e-4; the weight-only pipeline is 3.0e-3 away)."""
+    import functools
+    import importlib
+
+    from flux_generator_tpu.ops import linear as jlinear
+    from flux_generator_tpu.runtime.config import set_attn_int8
+
+    # the module (ops/pallas/__init__ re-exports its function under its name)
+    jattn = importlib.import_module("flux_generator_tpu.ops.pallas.flash_attention")
+
+    pipe_j = jflux.FluxPipeline.random_init(
+        "flux-schnell", tiny=True, dtype=jnp.float32, key=jax.random.PRNGKey(6), hidden_size=512,
+        num_heads=8, axes_dim=(16, 24, 24), depth=1, depth_single_blocks=1)
+    for part in ("t5", "clip", "flow"):
+        pipe_j.params[part] = jax_quantize_tree(pipe_j.params[part], all_layers, bits=8)
+    pipe_t = _port_pipeline(pipe_j)
+    pipe_t.w8a8, pipe_t.attn_int8 = w8a8, attn_int8
+
+    rng = np.random.default_rng(8)
+    h = w = 16
+    t5_tok = rng.integers(1, pipe_j.t5_cfg.vocab_size, (1, 16)).astype(np.int32)
+    clip_tok = rng.integers(1, pipe_j.clip_cfg.vocab_size, (1, 7)).astype(np.int32)
+    noise = rng.standard_normal((1, h, w, pipe_j.ae_cfg.z_channels)).astype(np.float32)
+
+    monkeypatch.setenv("FGT_PALLAS_ATTENTION", "1")
+    monkeypatch.setenv("FGT_W8A8_IMPL", W8A8_IMPL[w8a8])
+    monkeypatch.setattr(jattn, "flash_attention", functools.partial(jattn.flash_attention, interpret=True))
+    jlinear.set_w8a8(True)
+    set_attn_int8(attn_int8)
+    try:
+        txt_j, ids_j, vec_j = pipe_j.prepare_conditioning(1, jnp.asarray(t5_tok), jnp.asarray(clip_tok))
+        lat_j = pipe_j.denoise_latents(jflux.pack_latents(jnp.asarray(noise)), jflux.latent_ids(1, h, w),
+                                       txt_j, ids_j, vec_j, 2, 4.0)
+    finally:
+        jlinear.set_w8a8(None)
+        set_attn_int8(None)
+    txt_t, ids_t, vec_t = pipe_t.prepare_conditioning(1, torch.from_numpy(t5_tok).long(),
+                                                      torch.from_numpy(clip_tok).long())
+    np.testing.assert_allclose(txt_t.numpy(), np.asarray(txt_j), atol=2e-3)
+    np.testing.assert_allclose(vec_t.numpy(), np.asarray(vec_j), atol=2e-3)
+    lat_t = pipe_t.denoise_latents(tflux.pack_latents(torch.from_numpy(noise)), tflux.latent_ids(1, h, w),
+                                   txt_t, ids_t, vec_t, 2, 4.0)
+    lat_j = np.asarray(lat_j)
+    assert np.linalg.norm(lat_t.numpy() - lat_j) <= 1e-3 * np.linalg.norm(lat_j)
+    np.testing.assert_allclose(lat_t.numpy(), lat_j, atol=1e-2)
+    # the configuration is live: the weight-only pipeline gives another latent
+    pipe_t.w8a8, pipe_t.attn_int8 = None, ""
+    plain = pipe_t.denoise_latents(tflux.pack_latents(torch.from_numpy(noise)), tflux.latent_ids(1, h, w),
+                                   txt_t, ids_t, vec_t, 2, 4.0)
+    assert (plain - lat_t).abs().max().item() > 1e-3
+
+
 def test_unpack_inverts_pack():
     x = torch.randn(2, 6, 10, 4)
     np.testing.assert_array_equal(tflux.unpack_latents(tflux.pack_latents(x), 6, 10).numpy(), x.numpy())

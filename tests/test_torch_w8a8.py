@@ -1,0 +1,357 @@
+"""W8A8: the fused W8A8 matmul (kernel G) and the row quantizer (kernel H),
+their plain versions against the JAX Pallas kernels (interpret mode on CPU),
+`dense(..., w8a8=route)` against the JAX `dense` under `set_w8a8(True)`, and
+the CUDA kernels against the plain versions on a card.
+
+jax is imported inside the tests that use it, so the `cuda` cases run on a
+machine without jax: `python -m pytest --noconftest -m cuda
+tests/test_torch_w8a8.py`."""
+
+import numpy as np
+import pytest
+import torch
+
+from flux_generator_tpu_torch.ops import linear as tl
+from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as tw
+
+# the JAX package's FGT_W8A8_IMPL formulation of each route
+ROUTES = {"ops": "xla", "rows": "pq", "fused": "pallas"}
+
+
+def _mk(seed, m, k, n, lead=()):
+    """x (…, M, K) f32 and an int8 per-channel (K, N) weight, as
+    tests/test_w8a8.py builds them, from numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((*lead, m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    ws = (np.abs(w).max(0) / 127).astype(np.float32)
+    return x, np.round(w / ws).astype(np.int8), ws
+
+
+def _as(x, dtype):
+    """numpy f32 → (jax array, torch tensor) in `dtype` ("f32" or "bf16")."""
+    import jax.numpy as jnp
+
+    xj = jnp.asarray(x, jnp.float32 if dtype == "f32" else jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32)))
+    return xj, xt if dtype == "f32" else xt.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_quantize_rows_plain_matches_jax(dtype, lead):
+    """Bytes equal; scales at rtol 1e-6 (the JAX test's tolerance; they agree
+    exactly here: the same f32 amax, multiply and reciprocal)."""
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.pallas.w8a8_matmul import quantize_rows as jax_quantize_rows
+
+    x, _, _ = _mk(3, 20, 768, 1, lead)
+    x[..., 0, :] = 0.0  # an all-zero row keeps the 1e-12 floor
+    xj, xt = _as(x, dtype)
+    qj, sj = jax_quantize_rows(xj, interpret=True)
+    qt, st = tw.quantize_rows(xt)
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32 and st.shape == (*lead, 20, 1)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj.astype(jnp.float32)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(64, 1024, 256), (200, 1536, 700), (16, 512, 128)])
+def test_w8a8_matmul_plain_matches_jax(shape, dtype):
+    """The shapes of tests/test_w8a8.py. Both sides quantize identically and
+    take exact integer dots; only the f32 fold of several K blocks may round
+    differently (XLA may contract it into fused multiply-adds): rtol 1e-6 of
+    max|ref| in f32, and at most one bf16 step (2^-8 of max|ref|) in bf16."""
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.pallas.w8a8_matmul import w8a8_matmul as jax_w8a8
+
+    m, k, n = shape
+    x, wq, ws = _mk(0, m, k, n)
+    xj, xt = _as(x, dtype)
+    want = np.asarray(jax_w8a8(xj, jnp.asarray(wq), jnp.asarray(ws), interpret=True).astype(jnp.float32))
+    got = tw.w8a8_matmul(xt, torch.from_numpy(wq), torch.from_numpy(ws))
+    assert got.dtype == xt.dtype and got.shape == (m, n)
+    tol = (1e-6 if dtype == "f32" else 2.0 ** -8) * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+def test_w8a8_matmul_leading_dims_and_zero_rows():
+    """Leading dims reshape exactly; all-zero rows give exact zeros (the
+    1e-12 floor keeps the scale finite), as in the JAX tests."""
+    x, wq, ws = _mk(1, 96, 1024, 384)
+    x[5] = 0.0
+    w, s = torch.from_numpy(wq), torch.from_numpy(ws)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    flat = tw.w8a8_matmul(xt, w, s)
+    lead = tw.w8a8_matmul(xt.reshape(4, 24, 1024), w, s)
+    assert lead.shape == (4, 24, 384) and lead.dtype == torch.bfloat16
+    assert torch.equal(lead.reshape(96, 384), flat)
+    assert torch.equal(flat[5], torch.zeros(384, dtype=torch.bfloat16))
+
+
+def test_supported_guards():
+    assert tw.pick_bk(1536) == 512 and tw.pick_bk(768) == 256 and tw.pick_bk(384) == 128
+    assert not tw.supported(100, torch.ones(64))          # K does not tile
+    assert not tw.supported(1024, torch.ones(8, 64))      # grouped scales
+    assert tw.supported(1024, torch.ones(64))
+
+
+def _dense_pair(x, wq, ws, *, bias=True, lora=False, grouped=False):
+    """The same dense params for JAX and for the port."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(7)
+    k, n = wq.shape
+    p = {"kernel_q": wq, "kernel_scale": ws}
+    if grouped:
+        p["kernel_scale"] = np.repeat(ws[None], k // 128, 0) * (1 + 0.1 * rng.random((k // 128, n))
+                                                                ).astype(np.float32)
+    if bias:
+        p["bias"] = (np.arange(n) * 0.01).astype(np.float32)
+    if lora:
+        p["lora_a"] = (0.05 * rng.standard_normal((k, 4))).astype(np.float32)
+        p["lora_b"] = (0.05 * rng.standard_normal((4, n))).astype(np.float32)
+    return ({key: jnp.asarray(v) for key, v in p.items()},
+            {key: torch.from_numpy(v) for key, v in p.items()})
+
+
+def _jax_dense(monkeypatch, impl, p, x):
+    from flux_generator_tpu.ops import linear as jl
+
+    monkeypatch.setenv("FGT_W8A8_IMPL", impl)
+    jl.set_w8a8(True)
+    try:
+        return jl.dense(p, x)
+    finally:
+        jl.set_w8a8(None)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("extra", ["bias", "lora"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_dense_route_matches_jax(monkeypatch, route, extra, dtype):
+    """Each route against the JAX `dense` with the matching FGT_W8A8_IMPL
+    (its Pallas kernels in interpret mode): the same quantization, exact
+    integer dots and the same rounding order in x's dtype, so the outputs
+    are equal; atol 1e-6 of max|ref| leaves room for the f32 bias and LoRA
+    additions' order."""
+    import jax.numpy as jnp
+
+    x, wq, ws = _mk(5, 48, 512, 256, lead=(2,))
+    pj, pt = _dense_pair(x, wq, ws, lora=extra == "lora")
+    xj, xt = _as(x, dtype)
+    want = np.asarray(_jax_dense(monkeypatch, ROUTES[route], pj, xj).astype(jnp.float32))
+    got = tl.dense(pt, xt, w8a8=route)
+    assert got.dtype == xt.dtype and got.shape == (2, 48, 256)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_grouped_scales_keep_the_weight_only_path(monkeypatch, route):
+    """As JAX's test_grouped_quant_ignores_w8a8: grouped int8 scales
+    dequantize the weight whatever the route."""
+    import jax.numpy as jnp
+
+    x, wq, ws = _mk(6, 32, 512, 128)
+    pj, pt = _dense_pair(x, wq, ws, grouped=True)
+    want = np.asarray(_jax_dense(monkeypatch, ROUTES[route], pj, jnp.asarray(x)))
+    got = tl.dense(pt, torch.from_numpy(x), w8a8=route)
+    assert torch.equal(got, tl.dense(pt, torch.from_numpy(x)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["rows", "fused"])
+def test_few_rows_and_odd_k_take_the_ops_formulation(monkeypatch, route):
+    """Fewer than 16 activation rows (the modulations' M = 1), and for
+    "fused" a K that no block tiles, take JAX's XLA formulation ("ops"),
+    equal to the JAX run of the same route."""
+    import jax.numpy as jnp
+
+    for m, k in ((1, 512), (8, 512)) + (((32, 320),) if route == "fused" else ()):
+        x, wq, ws = _mk(8, m, k, 64)
+        pj, pt = _dense_pair(x, wq, ws)
+        want = np.asarray(_jax_dense(monkeypatch, ROUTES[route], pj, jnp.asarray(x)))
+        got = tl.dense(pt, torch.from_numpy(x), w8a8=route)
+        assert torch.equal(got, tl.dense(pt, torch.from_numpy(x), w8a8="ops"))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_w8a8_argument_is_checked_and_leaves_other_tiers_alone():
+    x, wq, ws = _mk(9, 16, 512, 64)
+    _, pt = _dense_pair(x, wq, ws)
+    with pytest.raises(ValueError):
+        tl.dense(pt, torch.from_numpy(x), w8a8="pallas")
+    p = {"kernel": torch.from_numpy(np.random.default_rng(1).standard_normal((512, 64)).astype(np.float32))}
+    xt = torch.from_numpy(x)
+    assert torch.equal(tl.dense(p, xt, w8a8="fused"), tl.dense(p, xt))
+
+
+def test_int8_dot_is_exact_past_float_precision():
+    """The full-K int32 product at K 15360 (the single blocks' linear2),
+    where f32 sums of up to 2.5e8 would round."""
+    rng = np.random.default_rng(10)
+    a = rng.integers(-127, 128, (3, 15360)).astype(np.int8)
+    b = rng.integers(-127, 128, (15360, 5)).astype(np.int8)
+    a[0] = 127
+    b[:, 0] = 127
+    got = tl.int8_dot(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(got.numpy(), a.astype(np.int64) @ b.astype(np.int64))
+
+
+def test_jax_w8a8_tree_crosses_the_bridge_unchanged():
+    """An int8 per-channel flow tree from the JAX quantizer keeps int8
+    `kernel_q` (values unchanged, stored K-contiguous) and f32 (layers, N)
+    `kernel_scale` leaves, and its layer runs every route."""
+    import jax
+
+    from flux_generator_tpu.models.flux.model import init_flux, tiny_flux_config
+    from flux_generator_tpu.ops.quant import quantize_tree
+    from flux_generator_tpu_torch.io.params import take_layer, to_numpy, to_torch
+
+    tree = quantize_tree(init_flux(jax.random.PRNGKey(0), tiny_flux_config()), lambda p: True, bits=8)
+    want = jax.tree.map(np.asarray, tree)
+    t = to_torch(want)
+    for a, b in zip(jax.tree.leaves(to_numpy(t)), jax.tree.leaves(want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    qkv = t["double_blocks"]["img_attn"]["qkv"]
+    assert qkv["kernel_q"].dtype == torch.int8 and qkv["kernel_scale"].dtype == torch.float32
+    assert qkv["kernel_scale"].shape == (2, 192)
+    assert qkv["kernel_q"].stride() == (64 * 192, 1, 64)  # stored K-contiguous, as ops.quant does
+    layer = take_layer(t["double_blocks"], 0)["img_attn"]["qkv"]
+    x = torch.randn(2, 16, 64)
+    ys = [tl.dense(layer, x, w8a8=r) for r in ROUTES]
+    assert all(y.shape == (2, 16, 192) and torch.isfinite(y).all() for y in ys)
+
+
+def test_k_major_relayout_keeps_values_and_routes():
+    """The quantizer stores int8 per-channel kernels (stacked ones too)
+    K-contiguous, strides (…, 1, K), and grouped and int4 ones row-major;
+    to_k_major relays an N-contiguous tree (as the JAX bridge receives one)
+    in place to the same layout and leaves every other leaf alone; every
+    route gives the same output on either layout."""
+    from flux_generator_tpu_torch.io.params import take_layer
+    from flux_generator_tpu_torch.ops.quant import is_k_major, quantize_tree, to_k_major
+
+    g = torch.Generator().manual_seed(0)
+    tree = {"stack": {"kernel": torch.randn(3, 512, 64, generator=g)},
+            "grouped": {"kernel": torch.randn(512, 64, generator=g)},
+            "int4": {"kernel": torch.randn(512, 64, generator=g)},
+            "bf16": {"kernel": torch.randn(512, 64, generator=g)}}
+    q = quantize_tree({"stack": tree["stack"]})
+    q["grouped"] = quantize_tree(tree["grouped"], group_size=128)
+    q["int4"] = quantize_tree(tree["int4"], bits=4, pack=True)
+    q["bf16"] = tree["bf16"]
+    assert q["stack"]["kernel_q"].stride() == (512 * 64, 1, 512)
+    assert is_k_major(take_layer(q["stack"], 1)["kernel_q"])
+    assert q["grouped"]["kernel_q"].is_contiguous() and q["int4"]["kernel_q4"].is_contiguous()
+    values = q["stack"]["kernel_q"].clone()
+    q["stack"]["kernel_q"] = values.contiguous()  # N-contiguous, as a bridged tree arrives
+    x = torch.randn(20, 512, generator=g)
+    before = {r: tl.dense(take_layer(q["stack"], 1), x, w8a8=r) for r in ROUTES}
+    kept = {key: q[key][name] for key, name in (("grouped", "kernel_q"), ("int4", "kernel_q4"),
+                                                ("bf16", "kernel"))}
+    assert to_k_major(q) is q
+    assert q["stack"]["kernel_q"].stride() == (512 * 64, 1, 512)
+    assert torch.equal(q["stack"]["kernel_q"], values)
+    assert all(q[key][name] is kept[key] for key, name in (("grouped", "kernel_q"), ("int4", "kernel_q4"),
+                                                           ("bf16", "kernel")))
+    relaid = q["stack"]["kernel_q"]
+    assert to_k_major(q)["stack"]["kernel_q"] is relaid  # already K-contiguous: kept
+    for r in ROUTES:
+        assert torch.equal(tl.dense(take_layer(q["stack"], 1), x, w8a8=r), before[r])
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting():
+    before = (tw.launches, tw.quantize_launches)
+    x, wq, ws = _mk(11, 32, 512, 64)
+    xt = torch.from_numpy(x)
+    assert torch.equal(tw.w8a8_matmul(xt, torch.from_numpy(wq), torch.from_numpy(ws)),
+                       tw.w8a8_matmul_reference(xt, torch.from_numpy(wq), torch.from_numpy(ws)))
+    assert torch.equal(tw.quantize_rows(xt)[0], tw.quantize_rows_reference(xt)[0])
+    assert (tw.launches, tw.quantize_launches) == before
+
+
+@pytest.mark.parametrize("bad", ["f32", "k_100", "grouped", "f64_scales", "int16_weight", "n_contiguous"])
+def test_kernel_argument_checks_raise(bad):
+    """The wrapper's checks run before any build, so they raise here too. The
+    weight is K-contiguous, as ops.quant stores it, unless `bad` says."""
+    x = torch.zeros(32, 512, dtype=torch.bfloat16)
+    wq = torch.zeros(64, 512, dtype=torch.int8).t()
+    ws = torch.ones(64)
+    if bad == "f32":
+        x = x.float()
+    elif bad == "k_100":
+        x, wq = torch.zeros(32, 100, dtype=torch.bfloat16), torch.zeros(64, 100, dtype=torch.int8).t()
+    elif bad == "grouped":
+        ws = torch.ones(4, 64)
+    elif bad == "f64_scales":
+        ws = ws.double()
+    elif bad == "int16_weight":
+        wq = wq.to(torch.int16)
+    elif bad == "n_contiguous":
+        wq = wq.contiguous()
+    with pytest.raises(ValueError):
+        tw._w8a8_matmul_cuda(x, wq, ws)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1024, 3072, 9216), (1280, 15360, 3072), (256, 4096, 3072),
+                                   (1024, 3072, 64), (77, 1536, 700), (16, 384, 130)])
+def test_cuda_w8a8_matmul_matches_plain_version(cuda, m, k, n):
+    """Kernel G, on the K-contiguous weights ops.quant stores, against its
+    plain version on the same bf16 inputs: the same quantization and exact
+    integer dots, the f32 fold rounded one operation at a time in both; atol
+    one bf16 step (2^-8) of max|ref|."""
+    x, wq, ws = _mk(12, m, k, n)
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(wq).to(cuda).t().contiguous().t()
+    s = torch.from_numpy(ws).to(cuda)
+    before = tw.launches
+    out = tw.w8a8_matmul(xt, w, s)
+    torch.cuda.synchronize()
+    assert tw.launches == before + 1
+    ref = tw.w8a8_matmul_reference(xt, w, s)
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0 ** -8 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(1024, 3072), (1280, 15360), (17, 100)])
+def test_cuda_quantize_rows_matches_plain_version(cuda, m, k):
+    """Kernel H against its plain version: bytes and scales equal (the same
+    correctly rounded f32 operations)."""
+    x, _, _ = _mk(13, m, k, 1)
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    before = tw.quantize_launches
+    q, s = tw.quantize_rows(xt)
+    torch.cuda.synchronize()
+    assert tw.quantize_launches == before + 1
+    rq, rs = tw.quantize_rows_reference(xt)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 3072, 18432), (1024, 3072, 64), (5, 100, 7), (64, 64, 256),
+                                   (1, 64, 64)])
+def test_cuda_int8_dot_is_exact(cuda, m, k, n):
+    """The padded torch._int_mm product on the card, on K-contiguous
+    weights, at the modulations' M = 1, the final linear's N = 64, shapes
+    that need K and N padding, and K 64; an N-contiguous weight raises."""
+    rng = np.random.default_rng(14)
+    a = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    b = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    w = torch.from_numpy(b).to(cuda)
+    got = tl.int8_dot(torch.from_numpy(a).to(cuda), w.t().contiguous().t())
+    np.testing.assert_array_equal(got.cpu().numpy(), a.astype(np.int64) @ b.astype(np.int64))
+    if k > 1 and n > 1:
+        with pytest.raises(ValueError, match="K-contiguous"):
+            tl.int8_dot(torch.from_numpy(a).to(cuda), w)
