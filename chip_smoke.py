@@ -5,13 +5,21 @@
 
 Phases, each of which fails the run on error:
   1. device         — the card's name and power limit; no CUDA device is an error.
-  2. build          — compile the six CUDA sources (kernels A-H) from csrc/
-                      with nvcc, all at once, with the ptxas report of each.
+  2. build          — compile the seven CUDA sources (kernels A-H and the
+                      decode-chain probe) from csrc/ with nvcc, all at once,
+                      with the ptxas report of each.
   3. kernels        — flash attention (A) and the int4 matmul (B) against their
                       plain PyTorch versions at the shapes of the Flux-schnell
                       512² path, with times of both.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
                       plain versions at MusicGen-medium shapes, with times.
+     kernels-musicgen-f8 — D's e4m3 cache tier against its plain version at
+                      MusicGen-medium shapes (B 2 W 2500, B 8 W 2048, bf16
+                      weights B 2 W 500), timed in turns with the bf16 tier.
+     kernels-chain  — the decode-chain probe (#11) against its plain version
+                      at 48 layers, M 8, timed in turns with D (bf16 cache,
+                      B 2, W 500) on the same weights; then the probe's entry
+                      point (scripts/prof_decode_chain.run).
   5. kernels-train  — the flash backward, dQ (E) and dK/dV (F), through the
                       autograd function against the plain backward in f32 at
                       the Flux-dev and Flux-schnell training shapes, a padded
@@ -36,6 +44,12 @@ Phases, each of which fails the run on error:
                       and T5-base int8 per channel, EnCodec f32), three
                       500-step requests through MusicGenPipeline.generate;
                       checks the waveforms, the codes and the launch counts.
+     main-musicgen-serve — the same pipeline serving four users at once
+                      through generate_requests (250/500/1000/1500 steps,
+                      seeds 1-4), on bf16 and on e4m3 caches; then at top_k 1
+                      each request's codes coalesced against its solo run.
+     main-musicgen-long — one 2500-step request on bf16 and e4m3 caches in
+                      turns, with the device ms a step at its start and end.
  10. main-train     — DreamBooth LoRA training of Flux-dev at full width on
                       random weights through training.dreambooth.train: 3
                       optimizer steps of 4 micro-steps on two seeded images;
@@ -125,6 +139,21 @@ MG_PROMPTS = [
     (12, "an upbeat electronic track with a driving bassline"),
     (13, "slow piano ballad in a minor key"),
 ]
+# the served MusicGen path: four users' requests in one loop (the JAX
+# server's music endpoint coalesces at most 4), prompts of different lengths
+SERVE_TEXTS = [t for _, t in MG_PROMPTS] + [
+    "a calm acoustic guitar melody over soft rain, recorded in a small wooden room"]
+SERVE_STEPS = (250, 500, 1000, 1500)
+SERVE_EQUAL_STEPS = (64, 96, 128, 160)  # the top_k 1 coalesced-against-solo check
+LONG_STEPS = 2500  # the JAX package's longest request (about 50 s of audio)
+# D's e4m3 tier against its plain version, of max|y|: the bf16 tier's bound,
+# the same arithmetic in another summation order. Layer 0's new rows, whose
+# inputs are equal, are held to the plain version's bytes: equal or one e4m3
+# step apart (a bf16 row one ulp apart may round either way). Against the
+# bf16 tier run on the widened caches (the same kernel arithmetic) y and the
+# encoded new rows of every layer are held byte for byte.
+DECODE_F8_REL_TOL = 1e-2
+CHAIN_REL_TOL = 1e-2  # the decode-chain probe, of max|y|, as D
 
 
 def log(*args):
@@ -147,12 +176,12 @@ def bound_ms_parts(parts, nbytes: float):
 
 def unported_bounds():
     """Bounds of the TPU kernels not ported yet, at the shapes they would
-    take on the card: the two decode-chain probes' 48 × 14 (1536, 1536) int8
-    weight stream, and one (1024, 128) · (128, 1024) bf16 step of the bare
-    dot probe."""
+    take on the card: the chain bisect's 48 × 14 (1536, 1536) int8 weight
+    stream, and one (1024, 128) · (128, 1024) bf16 step of the bare dot
+    probe."""
     chain = 48 * 14 * 1536 * 1536
     return {
-        "decode_chain_probes": bound_ms(2 * chain, chain),
+        "chain_bisect_probe": bound_ms(2 * chain, chain),
         "bare_dot_probe_step": bound_ms(2 * 1024 * 128 * 1024, 2 * 2 * 1024 * 128 + 2 * 1024 * 1024),
     }
 
@@ -214,6 +243,7 @@ def phase_device():
 
 def phase_build():
     from flux_generator_tpu_torch.ops.kernels import _build
+    from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
     from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
@@ -222,7 +252,7 @@ def phase_build():
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
     mods = {"flash_attention": fa, "int4_matmul": im, "lstm": lk, "decode_step": ds,
-            "flash_attention_bwd": fb, "w8a8_matmul": wm}
+            "flash_attention_bwd": fb, "w8a8_matmul": wm, "decode_chain": dc}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
         futures = {name: pool.submit(_build.load, name, mod._SIGNATURES) for name, mod in mods.items()}
@@ -733,17 +763,7 @@ def phase_kernels_musicgen():
     results["lstm"] = lstm_cases
 
     L, H, heads, s_text = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_attention_heads, 16
-    n = L * ds.CPL
-    ln = torch.stack([1 + 0.1 * torch.randn((L, H), generator=g, device=dev),
-                      0.1 * torch.randn((L, H), generator=g, device=dev)], dim=1).repeat(1, 4, 1)
-    ln = ln.to(torch.bfloat16).contiguous()
-    packs = {
-        "int8": {"w": torch.randint(-127, 128, (n, H, H), generator=g, device=dev, dtype=torch.int8),
-                 "s": ((0.5 + torch.rand((n, 1, H), generator=g, device=dev)) / (127 * H ** 0.5)
-                       ).to(torch.bfloat16), "ln": ln},
-        "bf16": {"w": (torch.randn((n, H, H), generator=g, device=dev) / H ** 0.5).to(torch.bfloat16),
-                 "s": torch.ones((n, 1, H), dtype=torch.bfloat16, device=dev), "ln": ln},
-    }
+    packs = _decode_packs(g, L, H)
     decode_cases = []
     for label, wkey, b, w, offset, masked in (
             ("int8_B2_W8_off5", "int8", 2, 8, 5, False),
@@ -776,9 +796,10 @@ def phase_kernels_musicgen():
         ms = time_ms(lambda: ds.fused_decode_step(packed, x, ck, cv, offset, k1, v1, cl, n_heads=heads))
         plain_ms = time_ms(lambda: ds.fused_decode_step_plain(packed, x, ck, cv, offset, k2, v2, cl,
                                                               n_heads=heads), iters=3, warmup=1)
-        # bytes the step must read: weights, scales, LN, cross K/V, live cache rows
+        # bytes the step must read: weights, scales, LN, the live text rows of
+        # cross K/V (cond_len of each row), live cache rows
         nbytes = (packed["w"].numel() * packed["w"].element_size() + packed["s"].numel() * 2
-                  + ln.numel() * 2 + 2 * ck.numel() * 2 + 2 * L * b * offset * H * 2)
+                  + packed["ln"].numel() * 2 + 2 * L * int(cl.sum().item()) * H * 2 + 2 * L * b * offset * H * 2)
         log(f"[kernels] decode {label}: max|Δ| {err:.3e} (tol {tol:.3e}), new rows {row_err:.3e} "
             f"(tol {row_tol:.3e}), other rows untouched {untouched} | kernel {ms:.4f} ms "
             f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e9:.3f} GB) | plain {plain_ms:.4f} ms")
@@ -797,10 +818,306 @@ def phase_kernels_musicgen():
     return results
 
 
+def _e4m3_steps(a, b) -> int:
+    """The largest distance in e4m3 codes between two e4m3 tensors (0: the
+    same bytes; ±0 are one code)."""
+    import torch
+
+    def code(t):
+        u = t.view(torch.uint8).to(torch.int32)
+        return torch.where(u >= 128, -(u & 0x7F), u)
+
+    return int((code(a) - code(b)).abs().max().item())
+
+
+def _decode_packs(g, n_layers: int, h: int):
+    """Kernel D's packed weights at full width, int8 per channel and bf16,
+    with unit-scale outputs, and LN params near 1 / 0."""
+    import torch
+
+    dev = torch.device("cuda")
+    n = n_layers * 14
+    ln = torch.stack([1 + 0.1 * torch.randn((n_layers, h), generator=g, device=dev),
+                      0.1 * torch.randn((n_layers, h), generator=g, device=dev)], dim=1).repeat(1, 4, 1)
+    ln = ln.to(torch.bfloat16).contiguous()
+    return {
+        "int8": {"w": torch.randint(-127, 128, (n, h, h), generator=g, device=dev, dtype=torch.int8),
+                 "s": ((0.5 + torch.rand((n, 1, h), generator=g, device=dev)) / (127 * h ** 0.5)
+                       ).to(torch.bfloat16), "ln": ln},
+        "bf16": {"w": (torch.randn((n, h, h), generator=g, device=dev) / h ** 0.5).to(torch.bfloat16),
+                 "s": torch.ones((n, 1, h), dtype=torch.bfloat16, device=dev), "ln": ln},
+    }
+
+
+def phase_kernels_musicgen_f8():
+    """Kernel D's e4m3 cache tier against its plain version at MusicGen-medium
+    shapes (48 layers, H 1536, 24 heads), on e4m3 copies of bf16 caches: one
+    long request's last step (B 2, W 2500, offset 2499), four coalesced
+    requests (B 8, W 2048, offset 1900) and bf16 weights (B 2, W 500, offset
+    250). y is held to the plain version, and layer 0's new rows (whose
+    inputs do not depend on the cache) to within one e4m3 step of its rows.
+    The e4m3 tier widens the cache exactly and sums in the bf16 tier's order,
+    so the bf16 tier on the widened caches must give the same y bit for bit,
+    and its new rows at every layer, encoded by store_kv_rows, the e4m3
+    tier's bytes. The bf16 tier on the original bf16 caches is timed in
+    turns with the e4m3 tier, and y's rel-L2 between the two is logged."""
+    import torch
+
+    from flux_generator_tpu_torch.io.registry import MUSICGEN_MEDIUM_CONFIG as cfg
+    from flux_generator_tpu_torch.ops.kernels import decode_step as ds
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5678)
+    L, H, heads, s_text = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_attention_heads, 16
+    packs = _decode_packs(g, L, H)
+    e4m3 = torch.float8_e4m3fn
+    cases, failures = [], []
+    for label, wkey, b, w, offset in (("int8_B2_W2500_off2499", "int8", 2, 2500, 2499),
+                                      ("int8_B8_W2048_off1900", "int8", 8, 2048, 1900),
+                                      ("bf16_B2_W500_off250", "bf16", 2, 500, 250)):
+        packed = packs[wkey]
+        x = torch.randn((b, H), generator=g, device=dev).to(torch.bfloat16)
+        ck = torch.randn((L, b, s_text, H), generator=g, device=dev).to(torch.bfloat16)
+        cv = torch.randn((L, b, s_text, H), generator=g, device=dev).to(torch.bfloat16)
+        cl = torch.full((b,), s_text, dtype=torch.int32, device=dev)
+        cl[1::2] = 5
+        kc16 = torch.randn((L, b, w, H), generator=g, device=dev).to(torch.bfloat16)
+        vc16 = torch.randn((L, b, w, H), generator=g, device=dev).to(torch.bfloat16)
+        kc8, vc8 = kc16.to(e4m3), vc16.to(e4m3)  # |v| < 448: no overflow
+        k1, v1, k2, v2 = kc8.clone(), vc8.clone(), kc8.clone(), vc8.clone()
+        y, k1, v1 = ds.fused_decode_step(packed, x, ck, cv, offset, k1, v1, cl, n_heads=heads)
+        ref, k2, v2 = ds.fused_decode_step_plain(packed, x, ck, cv, offset, k2, v2, cl, n_heads=heads)
+        yw, kw, vw = ds.fused_decode_step(packed, x, ck, cv, offset, kc8.to(torch.bfloat16),
+                                          vc8.to(torch.bfloat16), cl, n_heads=heads)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = DECODE_F8_REL_TOL * ref.float().abs().max().item()
+        row_steps = max(_e4m3_steps(a[0, :, offset], c[0, :, offset]) for a, c in ((k1, k2), (v1, v2)))
+        y_bitwise = torch.equal(y.view(torch.int16), yw.view(torch.int16))
+        rows_bitwise = all(torch.equal(a[:, :, offset].view(torch.uint8),
+                                       ds.store_kv_rows(r[:, :, offset], e4m3).view(torch.uint8))
+                           for a, r in ((k1, kw), (v1, vw)))
+        untouched = all(torch.equal(torch.cat([a[:, :, :offset], a[:, :, offset + 1:]], 2).view(torch.uint8),
+                                    torch.cat([c[:, :, :offset], c[:, :, offset + 1:]], 2).view(torch.uint8))
+                        for a, c in ((k1, kc8), (v1, vc8)))
+        del yw, kw, vw
+        y16, k16, v16 = ds.fused_decode_step(packed, x, ck, cv, offset, kc16.clone(), vc16.clone(), cl,
+                                             n_heads=heads)
+        rel_bf16 = ((y.float() - y16.float()).norm() / y16.float().norm()).item()
+        step8 = lambda: ds.fused_decode_step(packed, x, ck, cv, offset, k1, v1, cl, n_heads=heads)  # noqa: E731
+        step16 = lambda: ds.fused_decode_step(packed, x, ck, cv, offset, k16, v16, cl, n_heads=heads)  # noqa: E731
+        t8a, t16a, t16b, t8b = time_ms(step8), time_ms(step16), time_ms(step16), time_ms(step8)
+        ms, ms_bf16 = (t8a + t8b) / 2, (t16a + t16b) / 2
+        plain_ms = time_ms(lambda: ds.fused_decode_step_plain(packed, x, ck, cv, offset, k2, v2, cl,
+                                                              n_heads=heads), iters=3, warmup=1)
+        # bytes the step must read (weights, scales, LN, the live text rows of
+        # cross K/V, the live cache rows) and write (y, the new rows), cache
+        # elements 1 or 2 bytes
+        fixed = (packed["w"].numel() * packed["w"].element_size() + packed["s"].numel() * 2
+                 + packed["ln"].numel() * 2 + 2 * L * int(cl.sum().item()) * H * 2 + 2 * b * H * 2)
+        bound = bound_ms(2 * b * packed["w"].numel(), fixed + 2 * L * b * (offset + 1) * H)
+        bound16 = bound_ms(2 * b * packed["w"].numel(), fixed + 2 * L * b * (offset + 1) * H * 2)
+        log(f"[kernels-musicgen-f8] decode {label}: max|Δy| {err:.3e} (tol {tol:.3e}), layer 0's new rows "
+            f"{row_steps} e4m3 steps apart (tol 1) | bf16 tier on the widened caches: y bitwise {y_bitwise}, "
+            f"new rows of all {L} layers encoded bitwise {rows_bitwise} | other rows untouched {untouched} | "
+            f"e4m3 {ms:.4f} ms (bound {bound[0]:.4f}, {bound[1]}) | bf16 cache {ms_bf16:.4f} ms (bound "
+            f"{bound16[0]:.4f}) | plain {plain_ms:.4f} ms | y rel-L2 e4m3 vs bf16 caches {rel_bf16:.3e} "
+            f"(no bound)")
+        if not (err <= tol and row_steps <= 1 and y_bitwise and rows_bitwise and untouched
+                and torch.isfinite(y).all()):
+            failures.append(f"decode_f8 {label}: y {err} (tol {tol}), layer 0 rows {row_steps} steps, against "
+                            f"the bf16 tier y {y_bitwise} rows {rows_bitwise}, untouched {untouched}")
+        cases.append(dict(case=label, max_abs_err=err, rel_err=err / tol * DECODE_F8_REL_TOL,
+                          layer0_row_e4m3_steps=row_steps, y_equals_bf16_tier_on_widened=y_bitwise,
+                          rows_equal_bf16_tier_on_widened=rows_bitwise, ms=ms, ms_bf16_cache=ms_bf16,
+                          plain_ms=plain_ms, library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+                          bound_bf16_cache_ms=bound16[0], y_rel_l2_vs_bf16_cache=rel_bf16))
+        del kc16, vc16, kc8, vc8, k1, v1, k2, v2, k16, v16
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("D's e4m3 tier disagrees with its plain version: " + "; ".join(failures))
+    return {"decode_step_f8": cases}
+
+
+def phase_kernels_chain():
+    """The decode-chain probe (#11) against its plain version at 48 layers,
+    M 8 and M 2 (D's two live rows), on the probe's own inputs; its times in
+    turns with kernel D (int8 weights, bf16 cache, B 2, W 500, offset 250) on
+    the same weights, the floor beside the step; then one run of the probe's
+    entry point, whose launches are the line's."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
+    from flux_generator_tpu_torch.ops.kernels import decode_step as ds
+    from flux_generator_tpu_torch.scripts import prof_decode_chain as probe
+
+    dev = torch.device("cuda")
+    L, H, heads = 48, probe.H, 24
+    w, s, x = probe.make_inputs(L, dev)
+    y = dc.decode_chain(w, s, x)
+    ref = dc.decode_chain_plain(w, s, x)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = CHAIN_REL_TOL * ref.float().abs().max().item()
+    g = torch.Generator(device=dev).manual_seed(91)
+    packed = {"w": w, "s": s, "ln": (1 + 0.1 * torch.randn((L, 8, H), generator=g, device=dev)
+                                     ).to(torch.bfloat16)}
+    xd = torch.randn((2, H), generator=g, device=dev).to(torch.bfloat16)
+    ck = torch.randn((L, 2, 16, H), generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn((L, 2, 500, H), generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn((L, 2, 500, H), generator=g, device=dev).to(torch.bfloat16)
+    x2 = x[:2].contiguous()  # the two live CFG rows, as D runs them
+    err2 = (dc.decode_chain(w, s, x2).float() - dc.decode_chain_plain(w, s, x2).float()).abs().max().item()
+    chain = lambda: dc.decode_chain(w, s, x)  # noqa: E731
+    chain2 = lambda: dc.decode_chain(w, s, x2)  # noqa: E731
+    step = lambda: ds.fused_decode_step(packed, xd, ck, ck, 250, kc, vc, n_heads=heads)  # noqa: E731
+    t = [time_ms(f) for f in (chain, chain2, step, step, chain2, chain)]
+    ms, ms2, d_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+    plain_ms = time_ms(lambda: dc.decode_chain_plain(w, s, x), iters=2, warmup=1)
+    nbytes = w.numel() + 2 * s.numel() + 2 * 2 * x.numel()
+    bound = bound_ms(2 * x.shape[0] * w.numel(), nbytes)
+    log(f"[kernels-chain] decode chain L48 M8: max|Δ| {err:.3e} (tol {tol:.3e}), M2 {err2:.3e} | kernel "
+        f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), at M 2 {ms2:.4f} ms | plain {plain_ms:.4f} ms | bound "
+        f"{bound[0]:.4f} ms ({bound[1]}) | D (int8, bf16 cache, B 2, W 500, off 250) {d_ms:.4f} ms in turns: "
+        f"the weight stream of its 2 rows alone is {ms2 / d_ms:.1%} of D's step")
+    err = max(err, err2)
+    del packed, xd, ck, kc, vc, w, s, x, x2, y, ref
+    if not err <= tol:
+        raise AssertionError(f"the decode chain disagrees with its plain version: {err} > {tol}")
+    dc.launches = 0
+    run = probe.run(layers=L, steps=50)
+    launches = dc.launches
+    log(f"[kernels-chain] probe entry point (48 layers, 50 steps): rel err {run['rel_err']:.3e}, kernel "
+        f"{run['ms']:.4f} ms/step, plain {run['plain_ms']:.4f} ms/step, bound {run['bound_ms']:.4f} ms, "
+        f"{launches} launches")
+    if not (run["rel_err"] <= CHAIN_REL_TOL and run["finite"] and launches > 0):
+        raise AssertionError(f"the probe's run failed: {run}, {launches} launches")
+    return {"decode_chain": [dict(case="L48_M8", max_abs_err=err, ms=ms, m2_ms=ms2, plain_ms=plain_ms,
+                                  library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+                                  decode_step_ms_in_turns=d_ms, probe=run, launches=launches)]}
+
+
+def _serve_requests(steps):
+    return [{"text": t, "max_steps": n, "seed": i + 1} for i, (t, n) in enumerate(zip(SERVE_TEXTS, steps))]
+
+
+def phase_main_musicgen_serve(pipe):
+    """The served MusicGen path on main-musicgen's pipeline: four users'
+    requests (SERVE_TEXTS, 250/500/1000/1500 steps, seeds 1-4, top_k 250,
+    guidance 3) in one generate_requests loop, on bf16 and then e4m3 caches;
+    then at top_k 1 (64/96/128/160 steps) each request's codes coalesced
+    against its solo run, on both cache types."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import decode_step as ds
+    from flux_generator_tpu_torch.ops.kernels import lstm as lk
+
+    cfg, codec = pipe.cfg, pipe.audio_decoder.cfg
+    k, n_lstm = cfg.num_codebooks, codec.num_lstm_layers
+    runs = []
+    for kv in ("bf16", "f8"):
+        pipe.kv_dtype = kv
+        pipe.generate_requests(_serve_requests((16,) * 4), top_k=MG_TOP_K)  # warm-up
+        torch.cuda.synchronize()
+        ds.launches = ds.e4m3_launches = lk.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trace = {}
+        t0 = time.perf_counter()
+        waves = pipe.generate_requests(_serve_requests(SERVE_STEPS), top_k=MG_TOP_K, guidance_coef=3.0,
+                                       trace=trace, step_times=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dec_n, f8_n, lstm_n = ds.launches, ds.e4m3_launches, lk.launches
+        want = [((st - k + 1) * codec.hop_length, codec.audio_channels) for st in SERVE_STEPS]
+        shapes = [tuple(wv.shape) for wv in waves]
+        finite = all(bool(torch.isfinite(wv).all()) for wv in waves)
+        audio_s = sum(sh[0] for sh in want) / pipe.sampling_rate
+        rec = dict(kv_dtype=kv, wall_s=wall, conditioning_s=trace["conditioning_s"], ar_s=trace["ar_s"],
+                   decode_s=trace["decode_s"], ms_per_step=trace["ar_s"] * 1e3 / max(SERVE_STEPS),
+                   device_ms_per_step=statistics.mean(trace["step_ms"]), audio_s=audio_s,
+                   audio_s_per_s=audio_s / wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   decode_step_launches=dec_n, decode_step_e4m3_launches=f8_n, lstm_launches=lstm_n,
+                   shapes=[list(sh) for sh in shapes], finite=finite)
+        log(f"[main-musicgen-serve] {kv} caches, 4 requests {SERVE_STEPS} steps: {wall:.4f} s (conditioning "
+            f"{rec['conditioning_s']:.4f} + AR {rec['ar_s']:.4f} + decode {rec['decode_s']:.4f}) | "
+            f"{rec['ms_per_step']:.3f} ms/step (device {rec['device_ms_per_step']:.3f}) | "
+            f"{rec['audio_s_per_s']:.2f} audio-s/s aggregate ({audio_s:.2f} s of audio) | peak "
+            f"{rec['peak_gib']:.2f} GiB | launches decode {dec_n} (e4m3 {f8_n}) lstm {lstm_n} | finite {finite}")
+        if shapes != want or not finite:
+            raise AssertionError(f"waveforms {shapes} (want {want}), finite {finite}")
+        if dec_n != max(SERVE_STEPS) or f8_n != (dec_n if kv == "f8" else 0) or lstm_n != 4 * n_lstm:
+            raise AssertionError(f"launch counts decode {dec_n} (e4m3 {f8_n}), lstm {lstm_n}; want "
+                                 f"{max(SERVE_STEPS)} a loop and {n_lstm} a request")
+        runs.append(rec)
+    equal = {}
+    for kv in ("bf16", "f8"):
+        pipe.kv_dtype = kv
+        requests = _serve_requests(SERVE_EQUAL_STEPS)
+        both = {}
+        pipe.generate_requests(requests, top_k=1, trace=both)
+        for i, r in enumerate(requests):
+            solo = {}
+            pipe.generate_requests([r], top_k=1, trace=solo)
+            equal[f"{kv}_{i}"] = torch.equal(both["codes"][i], solo["codes"][0])
+    pipe.kv_dtype = "bf16"
+    log(f"[main-musicgen-serve] top_k 1, {SERVE_EQUAL_STEPS} steps: coalesced codes equal solo codes "
+        f"{equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"coalesced codes differ from solo codes: {equal}")
+    return dict(runs=runs, coalesced_equals_solo=equal,
+                launches={"decode_step_f8": sum(r["decode_step_e4m3_launches"] for r in runs)})
+
+
+def phase_main_musicgen_long(pipe):
+    """One 2500-step request (about 50 s of audio) on bf16 and e4m3 caches
+    in turns (bf16, e4m3, e4m3, bf16), with the device ms a step over its
+    first and last 250 steps."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import decode_step as ds
+
+    codec = pipe.audio_decoder.cfg
+    want = ((LONG_STEPS - pipe.cfg.num_codebooks + 1) * codec.hop_length, codec.audio_channels)
+    audio_s = want[0] / pipe.sampling_rate
+    runs, f8_launches = [], 0
+    for kv in ("bf16", "f8", "f8", "bf16"):
+        pipe.kv_dtype = kv
+        torch.cuda.reset_peak_memory_stats()
+        ds.launches = ds.e4m3_launches = 0
+        trace = {}
+        t0 = time.perf_counter()
+        audio = pipe.generate(SERVE_TEXTS[-1], max_steps=LONG_STEPS, top_k=MG_TOP_K, seed=7, trace=trace,
+                              step_times=True)
+        torch.cuda.synchronize()
+        latency = time.perf_counter() - t0
+        dec_n, f8_n = ds.launches, ds.e4m3_launches
+        f8_launches += f8_n
+        steps = trace["step_ms"]
+        finite = bool(torch.isfinite(audio).all())
+        rec = dict(kv_dtype=kv, latency_s=latency, conditioning_s=trace["conditioning_s"], ar_s=trace["ar_s"],
+                   decode_s=trace["decode_s"], ms_per_step=trace["ar_s"] * 1e3 / LONG_STEPS,
+                   first_250_ms_per_step=statistics.mean(steps[:250]),
+                   last_250_ms_per_step=statistics.mean(steps[-250:]), audio_s=audio_s,
+                   audio_s_per_s=audio_s / latency, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   decode_step_launches=dec_n, shape=list(audio.shape), finite=finite)
+        log(f"[main-musicgen-long] {kv} caches, {LONG_STEPS} steps: {latency:.4f} s (AR {rec['ar_s']:.4f}, "
+            f"decode {rec['decode_s']:.4f}) | device ms/step first 250 {rec['first_250_ms_per_step']:.4f}, "
+            f"last 250 {rec['last_250_ms_per_step']:.4f} | {rec['audio_s_per_s']:.2f} audio-s/s | peak "
+            f"{rec['peak_gib']:.2f} GiB | launches decode {dec_n} | finite {finite}")
+        if tuple(audio.shape) != want or not finite or dec_n != LONG_STEPS \
+                or f8_n != (LONG_STEPS if kv == "f8" else 0):
+            raise AssertionError(f"long request: waveform {tuple(audio.shape)} (want {want}), finite "
+                                 f"{finite}, launches {dec_n} (e4m3 {f8_n})")
+        runs.append(rec)
+    pipe.kv_dtype = "bf16"
+    return dict(runs=runs, launches={"decode_step_f8": f8_launches})
+
+
 def phase_main_musicgen():
     """MusicGen-medium at full width: T5-base and decoder int8 per channel,
     EnCodec f32, as the JAX loader quantizes them; one warm-up and three
-    500-step requests with different seeds."""
+    500-step requests with different seeds. Returns the record and the
+    pipeline (main-musicgen-serve and main-musicgen-long run on it)."""
     import torch
 
     from flux_generator_tpu_torch.io.tokenizers import load_t5_tokenizer
@@ -872,7 +1189,7 @@ def phase_main_musicgen():
     if any(torch.equal(codes[0], other) for other in codes[1:]):
         raise AssertionError("requests with different seeds gave identical codes")
     return dict(init_s=init_s, quantize_s=quant_s, setup_peak_gib=setup_peak, resident_gib=resident,
-                requests=requests, launches={"lstm": lk.launches, "decode_step": ds.launches})
+                requests=requests, launches={"lstm": lk.launches, "decode_step": ds.launches}), pipe
 
 
 def phase_small_musicgen():
@@ -1426,6 +1743,7 @@ def main() -> int:
 
     import torch
 
+    from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
     from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
@@ -1442,12 +1760,19 @@ def main() -> int:
     phase_build()
     kernels = run(phase_kernels)
     kernels.update(run(phase_kernels_musicgen))
+    kernels.update(run(phase_kernels_musicgen_f8))
+    kernels.update(run(phase_kernels_chain))
     kernels.update(run(phase_kernels_train))
     kernels.update(run(phase_kernels_w8a8))
     main_run, pipe, latents = phase_main()
     main_w8a8 = run(lambda: phase_main_w8a8(pipe, latents))
     del pipe, latents
-    main_music = run(phase_main_musicgen)
+    main_music, pipe = phase_main_musicgen()
+    main_serve = run(lambda: phase_main_musicgen_serve(pipe))
+    main_long = run(lambda: phase_main_musicgen_long(pipe))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     main_train = run(phase_main_train)
     small = run(phase_small)
     small_w8a8 = run(phase_small_w8a8)
@@ -1488,11 +1813,23 @@ def main() -> int:
                             max_abs_err=max(c["max_abs_err"] for c in kernels[key]),
                             ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
                             bound_by=case["bound_by"], library_ms=case["library_ms"]))
+    for key, source, replaces, launches in (
+            ("decode_step_f8", ds.SOURCE, ds.REPLACES_E4M3,
+             main_serve["launches"]["decode_step_f8"] + main_long["launches"]["decode_step_f8"]),
+            ("decode_chain", dc.SOURCE, dc.REPLACES, kernels["decode_chain"][0]["launches"])):
+        # decode_step_f8: the four coalesced requests' shape (B 8, W 2048,
+        # offset 1900); decode_chain: its launches are the probe entry point's
+        case = kernels[key][1] if key == "decode_step_f8" else kernels[key][0]
+        entries.append(dict(name=key, route="cuda", source=source, replaces=replaces, launches=launches,
+                            max_abs_err=max(c["max_abs_err"] for c in kernels[key]),
+                            ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                            bound_by=case["bound_by"], library_ms=case["library_ms"]))
     bounds = unported_bounds()
     log("[bounds] kernels still to port: " + " | ".join(
         f"{key} {ms:.4f} ms ({by})" for key, (ms, by) in bounds.items()))
     record = dict(device=smi, kernels=kernels, main=main_run, main_w8a8=main_w8a8,
-                  main_musicgen=main_music, main_train=main_train, small=small, small_w8a8=small_w8a8,
+                  main_musicgen=main_music, main_musicgen_serve=main_serve, main_musicgen_long=main_long,
+                  main_train=main_train, small=small, small_w8a8=small_w8a8,
                   small_musicgen=small_music, small_train=small_train, unported_bounds=bounds)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

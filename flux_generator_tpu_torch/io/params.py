@@ -5,7 +5,8 @@ heterogeneous VAE levels) of tensors, dense kernels stored (in, out), convs
 HWIO, homogeneous transformer stacks stacked on a leading layer axis, and
 quantized dense leaves under `kernel_q` (int8), `kernel_q4` (uint8, two int4
 nibbles per byte, split layout) and `kernel_scale` (f32, (…, out) per channel
-or (…, groups, out) per input group), and LoRA adapters under `lora_a` /
+or (…, groups, out) per input group; unpacked int4 `kernel_q` is held as
+int8 with `kernel_int4` beside it), and LoRA adapters under `lora_a` /
 `lora_b`. So one converter serves trees built by the JAX package (tests),
 optimizer states included, and, later, checkpoints mapped by the jax-free
 `flux_generator_tpu.io.sanitize`.
@@ -18,7 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..ops.quant import to_k_major
+from ..ops.quant import INT4_MARK, int4_mark, to_k_major
 
 
 def tree_map(fn: Callable, tree):
@@ -81,11 +82,27 @@ def _np_to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _mark_int4(src, out):
+    """Torch has no int4 tensors, so unpacked int4 `kernel_q` leaves widen to
+    int8; keep the fact beside them (ops.quant.INT4_MARK), so that `dense`
+    keeps them weight-only as the JAX package does."""
+    if isinstance(src, dict):
+        q = src.get("kernel_q")
+        if q is not None and np.asarray(q).dtype.name == "int4":
+            out[INT4_MARK] = int4_mark(out["kernel_q"])
+        for k, v in src.items():
+            _mark_int4(v, out[k])
+    elif isinstance(src, (list, tuple)):
+        for s, o in zip(src, out):
+            _mark_int4(s, o)
+
+
 def to_torch(tree, device=None, dtype=None):
     """numpy (or array-like) leaf tree → torch tensors on `device`. `dtype`,
     when given, casts floating leaves only; integer (quantized) leaves keep
     their type and values, int8 per-channel kernels stored K-contiguous, the
-    port's layout for them (ops.quant)."""
+    port's layout for them (ops.quant), and unpacked int4 ones widened to
+    int8 with INT4_MARK beside them."""
 
     def conv(a):
         if isinstance(a, (int, float, bool)) or a is None:
@@ -95,7 +112,9 @@ def to_torch(tree, device=None, dtype=None):
             t = t.to(dtype)
         return t.to(device) if device is not None else t
 
-    return to_k_major(tree_map(conv, tree))
+    out = tree_map(conv, tree)
+    _mark_int4(tree, out)
+    return to_k_major(out)
 
 
 def _torch_to_np(t: torch.Tensor) -> np.ndarray:

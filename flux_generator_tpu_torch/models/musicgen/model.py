@@ -19,6 +19,14 @@ XLA's static shapes, and the steps past `max_steps` never reach the first
 Sampling uses an explicit `torch.Generator` (Gumbel-max over the top-k
 logits), which cannot replay `jax.random.categorical` streams: the two agree
 at top_k = 1, where sampling is an argmax.
+
+The self-attention KV cache is held in the activation dtype ("bf16") or in
+float8_e4m3fn ("f8", the JAX package's FGT_MG_KV=f8, an argument here),
+which halves the bytes of the window a step reads. The two routes store new
+rows as the JAX package's do: the plain loop writes each row into the cache
+first and attends to it as stored (`_kv_store`, no clamp: past ±464 a value
+becomes the NaN byte), the fused step attends to the row in the compute
+dtype and stores it clamped to ±448 (ops/kernels/decode_step.store_kv_rows).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch.nn.functional as F
 from ...io.params import stack_layers, take_layer
 from ...ops.attention import dot_product_attention
 from ...ops.embeddings import sinusoidal_positions
-from ...ops.kernels.decode_step import fused_decode_step, pack_decode_weights, packable
+from ...ops.kernels.decode_step import fused_decode_step, pack_decode_weights, packable, to_e4m3
 from ...ops.linear import _dequant, dense, init_dense, rand_normal
 from ...ops.norms import layer_norm
 
@@ -142,7 +150,34 @@ def precompute_cross_kv(params, cfg: MusicGenConfig, conditioning):
     return torch.stack(ks), torch.stack(vs)
 
 
+KV_DTYPES = ("bf16", "f8")
+
+
+def kv_cache_dtype(kv_dtype: str, activation_dtype):
+    """Storage dtype of the self-attention KV cache: the activation dtype for
+    "bf16", float8_e4m3fn for "f8" (the JAX package holds the same bytes in
+    int8 buffers, models/musicgen/model.py:146-160)."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
+    return torch.float8_e4m3fn if kv_dtype == "f8" else activation_dtype
+
+
+def _kv_load(x, dtype):
+    """Widen a cache slice to the compute dtype (exact from e4m3)."""
+    return x.to(dtype)
+
+
+def _kv_store(x, cache_dtype):
+    """Round new K/V rows to the cache's storage type; e4m3 as the JAX
+    `_kv_store` does it, with no clamp (ops/kernels/decode_step.to_e4m3)."""
+    if cache_dtype == torch.float8_e4m3fn:
+        return to_e4m3(x)
+    return x.to(cache_dtype)
+
+
 def init_kv_cache(cfg: MusicGenConfig, batch: int, max_steps: int, dtype, device=None):
+    """Zeroed (L, B, max_steps, heads, head_dim) K and V caches in `dtype`
+    (kv_cache_dtype: the activation dtype or float8_e4m3fn)."""
     shape = (cfg.num_hidden_layers, batch, max_steps, cfg.num_attention_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
@@ -185,10 +220,10 @@ def decode_step(params, cfg: MusicGenConfig, tokens, cross_kv, k_cache, v_cache,
         y = layer_norm(x, p["norm1"])
         qkv = dense(p["self_attn"]["qkv"], y)
         q = _heads(qkv[..., :hid], nh)
-        k_cache[li, :, offset] = _heads(qkv[..., hid:2 * hid], nh)[:, 0].to(k_cache.dtype)
-        v_cache[li, :, offset] = _heads(qkv[..., 2 * hid:], nh)[:, 0].to(v_cache.dtype)
-        kc = k_cache[li, :, :offset + 1].to(dtype)
-        vc = v_cache[li, :, :offset + 1].to(dtype)
+        k_cache[li, :, offset] = _kv_store(_heads(qkv[..., hid:2 * hid], nh)[:, 0], k_cache.dtype)
+        v_cache[li, :, offset] = _kv_store(_heads(qkv[..., 2 * hid:], nh)[:, 0], v_cache.dtype)
+        kc = _kv_load(k_cache[li, :, :offset + 1], dtype)
+        vc = _kv_load(v_cache[li, :, :offset + 1], dtype)
         attn = dot_product_attention(q, kc, vc)
         x = x + dense(p["self_attn"]["o"], attn.reshape(b, 1, -1))
 
@@ -233,7 +268,8 @@ def top_k_sample(generator, logits, top_k: int, temperature: float):
 def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, top_k: int = 250,
              temperature: float = 1.0, guidance_coef: float = 3.0,
              generator: Optional[torch.Generator] = None, live_steps=None, cond_len=None,
-             generators: Optional[Sequence[torch.Generator]] = None):
+             generators: Optional[Sequence[torch.Generator]] = None, kv_dtype: str = "bf16",
+             step_events: Optional[list] = None):
     """Delay-pattern codes for conditioning (n, S, H), n samples in one
     batched loop of exactly `max_steps` steps. Returns codes (n, K,
     max_steps - K + 1), delay undone.
@@ -243,7 +279,11 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
     cond_len: optional (n,) conditioning lengths; cross-attention masks text
     positions ≥ cond_len[i] for sample i and its unconditional twin.
     generators: optional n generators, one sampling stream per sample (the
-    JAX package's per-sample `keys`); they replace `generator`."""
+    JAX package's per-sample `keys`); they replace `generator`.
+    kv_dtype: "bf16" (the activation dtype) or "f8" (e4m3 caches, the JAX
+    package's FGT_MG_KV=f8), on either route.
+    step_events: optional list (CUDA only) that receives a timing event
+    recorded before the loop and one after each step."""
     device = conditioning.device
     K = cfg.num_codebooks
     n = conditioning.shape[0]
@@ -254,6 +294,7 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
     elif generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dtype = conditioning.dtype
+    kv_dt = kv_cache_dtype(kv_dtype, dtype)
     if live_steps is None:
         live_steps = max_steps
     live_n = torch.as_tensor(live_steps, device=device).reshape(-1).expand(n)
@@ -270,13 +311,20 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
     if fused:
         packed = pack_decode_weights(params["layers"], H, cfg.ffn_dim)
         ckv = tuple(a.reshape(L, B2, a.shape[2], H) for a in cross_kv)
-        k_cache = torch.zeros((L, B2, max_steps, H), dtype=dtype, device=device)
+        k_cache = torch.zeros((L, B2, max_steps, H), dtype=kv_dt, device=device)
         v_cache = torch.zeros_like(k_cache)
     else:
-        k_cache, v_cache = init_kv_cache(cfg, B2, max_steps, dtype, device)
+        k_cache, v_cache = init_kv_cache(cfg, B2, max_steps, kv_dt, device)
 
     seq = torch.full((n, max_steps + 1, K), cfg.bos_token_id, dtype=torch.int64, device=device)
     ks = torch.arange(K, device=device)
+
+    def mark():
+        if step_events is not None:
+            step_events.append(torch.cuda.Event(enable_timing=True))
+            step_events[-1].record()
+
+    mark()
     for offset in range(max_steps):
         tok = seq[:, offset:offset + 1]
         tok2 = torch.cat([tok, tok], dim=0)
@@ -291,6 +339,7 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
         sampled = top_k_sample(generator, mixed, top_k, temperature)  # (n, K)
         live = (offset >= ks[None]) & (offset <= live_n[:, None] - K + ks[None])
         seq[:, offset + 1] = torch.where(live, sampled, cfg.bos_token_id)
+        mark()
 
     t_out = max_steps - K + 1  # undo the delay: codebook k shifted back by k
     return torch.stack([seq[:, k + 1:k + 1 + t_out, k] for k in range(K)], dim=1)

@@ -23,6 +23,15 @@ softmax divided at the end, P rounded to bf16 for P·V; the residual stream
 in f32. `fused_decode_step` dispatches on the tensors' device only: CPU
 tensors go to `fused_decode_step_plain`, CUDA tensors to the kernel, which
 raises for inputs it does not take.
+
+The caches are bf16 (f32 on the plain side too), or `torch.float8_e4m3fn`:
+the e4m3 tier of the JAX package's FGT_MG_KV=f8, whose int8 buffers hold the
+same bytes (decode_layer.py:80-117, `_f8_decode` and `store_kv_rows`). Cache
+rows widen exactly on load. The new rows leave the layer stack in the
+compute dtype: the current token's attention is seeded with them as they
+are, and only then are they stored, e4m3 rows clamped to ±448 and rounded
+to nearest even (`store_kv_rows`), as the JAX wrappers insert them after
+their kernels (decode_layer.py:1229-1232).
 """
 
 from __future__ import annotations
@@ -34,11 +43,15 @@ import torch
 from . import _build
 
 # Launches of the CUDA kernel since the last reset (the plain version on CPU
-# tensors does not count).
+# tensors does not count), and those of them on e4m3 caches.
 launches = 0
+e4m3_launches = 0
 
 SOURCE = "flux_generator_tpu_torch/csrc/decode_step.cu"
 REPLACES = "flux_generator_tpu/ops/pallas/decode_layer.py:1083"  # v2; v1 :1180, v3 :984
+# the e4m3 tier: v1, the kernel the JAX package routes e4m3 caches to
+# (runtime/config.py:302-307), with its decode `_f8_decode` (l.80)
+REPLACES_E4M3 = "flux_generator_tpu/ops/pallas/decode_layer.py:1180"
 
 CPL = 14  # weight chunks per layer: q k v | o | cross q | cross o | up ×4 | down ×4
 NEG = -1e30
@@ -50,8 +63,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # w, s, ln, x, ck, cv, kc, vc, cond_len, y, scratch,
-    # L, B, H, S, W, offset, n_heads, w_is_int8, stream
-    "fgt_decode_step": [_P] * 11 + [_I] * 8 + [_P],
+    # L, B, H, S, W, offset, n_heads, w_is_int8, kv_is_e4m3, stream
+    "fgt_decode_step": [_P] * 11 + [_I] * 9 + [_P],
     # B, H, w_is_int8 → f32 scratch the kernel needs (0: shape not taken)
     "fgt_decode_step_scratch_floats": [_I, _I, _I],
 }
@@ -122,11 +135,31 @@ def packable(layers: dict) -> bool:
     return True
 
 
+CACHE_DTYPES = (torch.bfloat16, torch.float32, torch.float8_e4m3fn)
+E4M3_MAX = 448.0
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """x → float8_e4m3fn with the bytes of JAX's `astype(float8_e4m3fn)`:
+    round to nearest even, and the NaN byte of x's sign past the format's
+    range (|x| > 464, which would round beyond ±448) or for NaN. PyTorch's
+    own conversion saturates there instead."""
+    x = x.float()
+    nan = (x.abs() > 464.0) | x.isnan()
+    y = x.clamp(-E4M3_MAX, E4M3_MAX).to(torch.float8_e4m3fn).view(torch.uint8)
+    nan_byte = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
+    return torch.where(nan, nan_byte, y).view(torch.float8_e4m3fn)
+
+
 def store_kv_rows(rows: torch.Tensor, cache_dtype) -> torch.Tensor:
-    """New K/V rows in the cache's storage type. The f8 (e4m3-byte) cache of
-    the JAX package is not ported; its caches are bf16 or f32."""
-    if cache_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"KV cache type {cache_dtype} is not supported (bf16 or f32)")
+    """New K/V rows in the cache's storage type: bf16 or f32 as they are,
+    e4m3 saturated at ±448 and rounded to nearest even — the JAX
+    `store_kv_rows` (decode_layer.py:103-117), which clamps so that no row
+    becomes the NaN byte."""
+    if cache_dtype not in CACHE_DTYPES:
+        raise ValueError(f"KV cache type {cache_dtype} is not supported (bf16, f32 or e4m3)")
+    if cache_dtype == torch.float8_e4m3fn:
+        return to_e4m3(rows.float().clamp(-E4M3_MAX, E4M3_MAX))
     return rows.to(cache_dtype)
 
 
@@ -159,7 +192,8 @@ def fused_decode_step_plain(packed, x, cross_k, cross_v, offset: int, k_cache, v
                             cond_len=None, *, n_heads: int):
     """Plain PyTorch version of kernel D, one layer at a time (see the
     module docstring for the contract and numerics). The caches are written
-    in place at row `offset`."""
+    in place at row `offset`; the current token attends to its rows in x's
+    dtype, before they are stored in the cache's."""
     w, s, ln = packed["w"], packed["s"], packed["ln"]
     n_layers = w.shape[0] // CPL
     b, h = x.shape
@@ -182,15 +216,15 @@ def fused_decode_step_plain(packed, x, cross_k, cross_v, offset: int, k_cache, v
         lnp = ln[li]
         y = _ln_f32(xs, lnp[0], lnp[1])
         q = _bf(dot(y, c0) * scale).reshape(b, n_heads, dh)
-        k_row = store_kv_rows(dot(y, c0 + 1), k_cache.dtype)
-        v_row = store_kv_rows(dot(y, c0 + 2), v_cache.dtype)
+        k_row = dot(y, c0 + 1).to(x.dtype)
+        v_row = dot(y, c0 + 2).to(x.dtype)
         # cache rows < offset, then the current token's own row
         keys = _bf(torch.cat([k_cache[li, :, :offset].float(), k_row[:, None].float()], dim=1))
         values = torch.cat([_bf(v_cache[li, :, :offset].float()), v_row[:, None].float()], dim=1)
         att = _attend(q, keys.reshape(b, offset + 1, n_heads, dh),
                       values.reshape(b, offset + 1, n_heads, dh), live_self)
-        k_cache[li, :, offset] = k_row
-        v_cache[li, :, offset] = v_row
+        k_cache[li, :, offset] = store_kv_rows(k_row, k_cache.dtype)
+        v_cache[li, :, offset] = store_kv_rows(v_row, v_cache.dtype)
         xs = xs + dot(att.reshape(b, h), c0 + 3)
 
         y = _ln_f32(xs, lnp[2], lnp[3])
@@ -217,10 +251,12 @@ def _check_cuda_args(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond
         raise ValueError(f"decode-step kernel takes int8 or bf16 packed weights, got {w.dtype}")
     if s.dtype != torch.bfloat16 or ln.dtype != torch.bfloat16:
         raise ValueError("decode-step kernel takes bf16 scales and LN params")
-    for name, t in (("x", x), ("cross_k", cross_k), ("cross_v", cross_v),
-                    ("k_cache", k_cache), ("v_cache", v_cache)):
+    for name, t in (("x", x), ("cross_k", cross_k), ("cross_v", cross_v)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"decode-step kernel takes bf16 {name}, got {t.dtype}")
+    if k_cache.dtype not in (torch.bfloat16, torch.float8_e4m3fn) or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"decode-step kernel takes bf16 or e4m3 caches of one type, got "
+                         f"{k_cache.dtype}/{v_cache.dtype}")
     if x.dim() != 2:
         raise ValueError(f"x must be (B, H), got {tuple(x.shape)}")
     b, h = x.shape
@@ -253,10 +289,12 @@ def _check_cuda_args(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond
         raise ValueError("decode-step kernel takes contiguous tensors")
     if any(t.device != x.device for t in tensors):
         raise ValueError("all decode-step operands must lie on one device")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode-step kernel takes caches aligned to 16 bytes")
 
 
 def _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads):
-    global launches
+    global launches, e4m3_launches
     _check_cuda_args(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads)
     b, h = x.shape
     n_layers = packed["w"].shape[0] // CPL
@@ -273,10 +311,11 @@ def _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cach
             cross_k.data_ptr(), cross_v.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             None if cond_len is None else cond_len.data_ptr(), y.data_ptr(), scratch.data_ptr(),
             n_layers, b, h, cross_k.shape[2], k_cache.shape[2], int(offset), n_heads, w_is_int8,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            int(k_cache.dtype == torch.float8_e4m3fn), torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check("fgt_decode_step", err)
     launches += 1
+    e4m3_launches += int(k_cache.dtype == torch.float8_e4m3fn)
     return y, k_cache, v_cache
 
 

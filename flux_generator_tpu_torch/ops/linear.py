@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from .kernels import w8a8_matmul as w8a8_kernels
 from .kernels.int4_matmul import int4_matmul
-from .quant import is_k_major
+from .quant import INT4_MARK, is_k_major
 
 
 def _rand_uniform(shape, bound, dtype, device, generator):
@@ -142,15 +142,15 @@ def dense(p: dict, x: torch.Tensor, w8a8: Optional[str] = None) -> torch.Tensor:
 
     `w8a8` ("ops", "rows" or "fused"; see `_w8a8`) sends an int8 kernel with
     per-channel scales through int8 activations; grouped scales and int4
-    keep their weight-only paths, as in the JAX package. (The bridge widens
-    unpacked int4 trees to int8, so those take the W8A8 branch here.)"""
+    keep their weight-only paths, as in the JAX package (unpacked int4, held
+    as int8, is told by the INT4_MARK leaf beside it)."""
     if w8a8 not in W8A8_ROUTES:
         raise ValueError(f"w8a8 must be one of {W8A8_ROUTES}, got {w8a8!r}")
     if "kernel_q4" in p:
         y = int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
     elif "kernel_q" in p:
         grouped = p["kernel_scale"].dim() == p["kernel_q"].dim()
-        if w8a8 and not grouped and p["kernel_q"].dtype == torch.int8:
+        if w8a8 and not grouped and p["kernel_q"].dtype == torch.int8 and INT4_MARK not in p:
             y = _w8a8(p, x, w8a8)
         else:
             y = x @ _dequant(p["kernel_q"], p["kernel_scale"], x.dtype)

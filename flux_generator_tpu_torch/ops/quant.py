@@ -18,6 +18,17 @@ from __future__ import annotations
 import torch
 
 
+# Unpacked int4 weights are held as int8 `kernel_q` (torch has no int4
+# tensors) with this leaf beside them: a bool tensor of the kernel's leading
+# (layer) dims, so that it slices with the stack. `dense` keeps such a kernel
+# weight-only under every W8A8 route, as the JAX package keeps its int4 dtype.
+INT4_MARK = "kernel_int4"
+
+
+def int4_mark(q: torch.Tensor) -> torch.Tensor:
+    return torch.ones(q.shape[:-2], dtype=torch.bool, device=q.device)
+
+
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
     """(…, in, out) ints in [-8, 7] → (…, in/2, out) uint8, split layout."""
     q = q.to(torch.int32) + 8
@@ -85,6 +96,8 @@ def quantize_dense(p: dict, bits: int = 8, group_size: int = None,
     out = {k: v for k, v in p.items() if k != "kernel"}
     out["kernel_q4" if pack else "kernel_q"] = q_out.reshape(*lead, q_rows, d_out)
     out["kernel_scale"] = s_out.reshape(*lead, *s_shape[1:])
+    if bits == 4 and not pack:
+        out[INT4_MARK] = int4_mark(out["kernel_q"])
     return out
 
 
@@ -129,7 +142,7 @@ def to_k_major(tree):
     Returns the tree."""
     if isinstance(tree, dict):
         q, scale = tree.get("kernel_q"), tree.get("kernel_scale")
-        if (q is not None and q.dtype == torch.int8 and scale is not None
+        if (q is not None and q.dtype == torch.int8 and INT4_MARK not in tree and scale is not None
                 and scale.dim() == q.dim() - 1 and not is_k_major(q)):
             tree["kernel_q"] = q.transpose(-1, -2).contiguous().transpose(-1, -2)
             del q

@@ -162,6 +162,39 @@ def test_grouped_scales_keep_the_weight_only_path(monkeypatch, route):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_unpacked_int4_keeps_the_weight_only_path(monkeypatch, route):
+    """Unpacked int4 per channel — the JAX int4 dtype, held as int8 across the
+    bridge with its INT4_MARK, and the port's own quantize_tree(bits=4) —
+    takes no W8A8 branch: every route equals the JAX `dense` under
+    set_w8a8(True), which keeps int4 weight-only (`linear.py:145`).
+    Tolerance as the grouped case: f32 dequant on both sides."""
+    import jax
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.quant import quantize_tree as jax_quantize_tree
+    from flux_generator_tpu_torch.io.params import take_layer, to_torch
+    from flux_generator_tpu_torch.ops.quant import INT4_MARK, quantize_tree
+
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((32, 512)).astype(np.float32)
+    w = rng.standard_normal((2, 512, 128)).astype(np.float32)  # a stack of two layers
+    pj = jax_quantize_tree({"kernel": jnp.asarray(w)}, predicate=lambda p: True, bits=4)
+    assert pj["kernel_q"].dtype == jnp.int4
+    stack = to_torch(jax.tree.map(np.asarray, pj))
+    own = quantize_tree({"kernel": torch.from_numpy(w)}, lambda p: True, bits=4)
+    assert stack["kernel_q"].dtype == own["kernel_q"].dtype == torch.int8
+    assert stack[INT4_MARK].shape == own[INT4_MARK].shape == (2,)
+    xt = torch.from_numpy(x)
+    for layer in range(2):
+        pjl = jax.tree.map(lambda a, i=layer: a[i], pj)
+        want = np.asarray(_jax_dense(monkeypatch, ROUTES[route], pjl, jnp.asarray(x)))
+        for pt in (take_layer(stack, layer), take_layer(own, layer)):
+            got = tl.dense(pt, xt, w8a8=route)
+            assert torch.equal(got, tl.dense(pt, xt))
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("route", ["rows", "fused"])
 def test_few_rows_and_odd_k_take_the_ops_formulation(monkeypatch, route):
     """Fewer than 16 activation rows (the modulations' M = 1), and for
