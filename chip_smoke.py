@@ -5,12 +5,14 @@
 
 Phases, each of which fails the run on error:
   1. device         — the card's name and power limit; no CUDA device is an error.
-  2. build          — compile the seven CUDA sources (kernels A-H and the
-                      decode-chain probe) from csrc/ with nvcc, all at once,
-                      with the ptxas report of each.
+  2. build          — compile the eight CUDA sources (kernels A-H, the
+                      decode-chain probe #11 and the bare-dot probe #13) from
+                      csrc/ with nvcc, all at once, with the ptxas report of
+                      each.
   3. kernels        — flash attention (A) and the int4 matmul (B) against their
                       plain PyTorch versions at the shapes of the Flux-schnell
-                      512² path, with times of both.
+                      512² path, with times of both; B also at one row, 17
+                      rows, a ragged N and with f32 activations.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
                       plain versions at MusicGen-medium shapes, with times.
      kernels-musicgen-f8 — D's e4m3 cache tier against its plain version at
@@ -29,6 +31,15 @@ Phases, each of which fails the run on error:
                       row quantizer (H) and A's int8 tiers ("qk", "full")
                       against their plain versions, with times, bounds and
                       torch._int_mm on the quantized operands as G's yardstick.
+     kernels-bare-dot — the bare-dot probe #13 in its three modes (bf16, int8,
+                      int8 quantized inside) at 64 steps of (1024, 128)·(128,
+                      1024), with torch.bmm as the bf16 yardstick.
+     kernels-flash-streamed — A through flash_attention_streamed at L 16640
+                      (the 2048² sequence): "", "qk" and "full" in groups of
+                      1024 keys, held to their plain versions two heads at a
+                      time, SDPA's forward for scale; the streamed "full" at
+                      L 1280 in groups of 64 and 1024; then the probe's entry
+                      point, scripts/prof_attn_int8.run (8 steps).
   7. main           — Flux-schnell at full width on random weights (flow int8
                       per channel, T5-XXL int4 g=128), three 512², 4-step
                       requests through FluxPipeline.generate_images; checks the
@@ -40,6 +51,14 @@ Phases, each of which fails the run on error:
                       rel-L2 against the weight-only latent of its seed;
                       weight-only and "fused" requests in turns; one of each
                       under torch.profiler.
+     main-2048      — the same pipeline (weight-only) through the server's
+                      generator protocol at 2048²: generate_latents + decode_u8
+                      (4 steps, tiled decode), then img2img on that image
+                      (generate_latents_from_image, strength 0.5, tiled
+                      encode): phase split, peak memory, exact launch counts,
+                      the request under torch.profiler; at 512²
+                      generate_images_fused equal to generate_images byte for
+                      byte, with no host synchronisation inside it.
   9. main-musicgen  — MusicGen-medium at full width on random weights (decoder
                       and T5-base int8 per channel, EnCodec f32), three
                       500-step requests through MusicGenPipeline.generate;
@@ -56,6 +75,9 @@ Phases, each of which fails the run on error:
                       checks losses, the adapters and the launch counts.
  11. small          — a small Flux config run on the card (bf16, kernels) and on
                       the CPU (f32, plain versions) from the same weights and noise.
+     small-tiled    — the same config past the untiled sizes: a tiled decode
+                      (latent 136²) and an img2img with a tiled encode, card
+                      against CPU.
  12. small-w8a8     — the same small config with an int8 flow in the W8A8
                       configuration ("fused" + "qk", "rows" + "full") on the
                       card and on the CPU.
@@ -76,6 +98,7 @@ chiprun_out/profile_train.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -99,12 +122,20 @@ FLASH_TOL = 2e-2  # bf16 P·V and bf16 output against the f32 plain version
 # tier's: a rotated q value that rounds the other way moves its row's logits
 # by one int8 level of q.
 INT8_ATTN_TOL = {"qk": (4.5e-3, FLASH_TOL), "full": (7e-3, FLASH_TOL)}
+# A's bf16 tier at the 2048² geometry (L 16640) against its plain version:
+# (out rel-L2, lse max|Δ|). bf16 P and O rounding, f32 sums in another order
+# (measured 2.4e-3 and 1.9e-6 on an H100 80GB HBM3 at 700 W). Two controls
+# must fail it: the "qk" tier's output, and the plain function with the last
+# 256 keys (the partial 1024-key block) dropped, which moves lse by about
+# log(16640/16384) ≈ 1.6e-2.
+FLASH_LONG_TOL = (4e-3, 1e-4)
 # flash backward, of max|ref|: P and dS rounded to bf16 before their products,
 # bf16 outputs, against the f32 plain backward
 FLASH_BWD_REL_TOL = 2e-2
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 and int8 tensor
 # cores, HBM
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES_S = 989e12, 1979e12, 3.35e12
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 TRAIN_ARGS = ["--model", "dev", "--quantize-base", "--lora-rank", "8", "--resolution", "512x512",
               "--batch-size", "1", "--grad-accumulate", "4", "--num-augmentations", "2",
               "--warmup-steps", "1", "--progress-every", "0", "--checkpoint-every", "3",
@@ -177,13 +208,9 @@ def bound_ms_parts(parts, nbytes: float):
 def unported_bounds():
     """Bounds of the TPU kernels not ported yet, at the shapes they would
     take on the card: the chain bisect's 48 × 14 (1536, 1536) int8 weight
-    stream, and one (1024, 128) · (128, 1024) bf16 step of the bare dot
-    probe."""
+    stream."""
     chain = 48 * 14 * 1536 * 1536
-    return {
-        "chain_bisect_probe": bound_ms(2 * chain, chain),
-        "bare_dot_probe_step": bound_ms(2 * 1024 * 128 * 1024, 2 * 2 * 1024 * 128 + 2 * 1024 * 1024),
-    }
+    return {"chain_bisect_probe": bound_ms(2 * chain, chain)}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -243,6 +270,7 @@ def phase_device():
 
 def phase_build():
     from flux_generator_tpu_torch.ops.kernels import _build
+    from flux_generator_tpu_torch.ops.kernels import bare_dot as bd
     from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
@@ -252,7 +280,7 @@ def phase_build():
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
     mods = {"flash_attention": fa, "int4_matmul": im, "lstm": lk, "decode_step": ds,
-            "flash_attention_bwd": fb, "w8a8_matmul": wm, "decode_chain": dc}
+            "flash_attention_bwd": fb, "w8a8_matmul": wm, "decode_chain": dc, "bare_dot": bd}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
         futures = {name: pool.submit(_build.load, name, mod._SIGNATURES) for name, mod in mods.items()}
@@ -380,17 +408,245 @@ def phase_kernels():
         int4.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          library_max_abs_err=lib_err, bound_ms=bound[0], bound_by=bound[1]))
         del lw, ltable, lib_out
+    # what the TPU wrapper also takes (it pads M and N): one row, 17 rows, a
+    # ragged N; and f32 activations (CUDA-core f32 FMAs, no TF32), held to
+    # 1e-5 of max|ref|
+    for label, m, k_dim, n_dim, dtype in (("M1_4096x4096_g128", 1, 4096, 4096, torch.bfloat16),
+                                          ("M17_4096x4096_g128", 17, 4096, 4096, torch.bfloat16),
+                                          ("M256_4096xN200_g128", 256, 4096, 200, torch.bfloat16),
+                                          ("f32_M256_4096x4096_g128", 256, 4096, 4096, torch.float32)):
+        w = torch.randn((k_dim, n_dim), generator=g, device=dev) / k_dim ** 0.5
+        p = quantize_dense({"kernel": w}, bits=4, group_size=128, pack=True)
+        x = torch.randn((m, k_dim), generator=g, device=dev).to(dtype)
+        out = im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
+        ref = im.int4_matmul_reference(x.float(), p["kernel_q4"], p["kernel_scale"])
+        err = (out.float() - ref).abs().max().item()
+        tol = (INT4_REL_TOL if dtype == torch.bfloat16 else 1e-5) * ref.abs().max().item()
+        ms = time_ms(lambda: im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"]))
+        plain_ms = time_ms(lambda: im.int4_matmul_reference(x, p["kernel_q4"], p["kernel_scale"]))
+        gflop = 2 * m * k_dim * n_dim / 1e9
+        xb = x.element_size()
+        bound = bound_ms(gflop * 1e9 if dtype == torch.bfloat16 else 0,
+                         xb * m * (k_dim + n_dim) + p["kernel_q4"].numel() + p["kernel_scale"].numel() * 4)
+        if dtype == torch.float32:  # f32 FMAs on the CUDA cores: 67 TFLOP/s
+            bound = max(bound, (gflop * 1e9 / PEAK_F32_FLOPS * 1e3, "operations"))
+        log(f"[kernels] int4 {label}: {tuple(out.shape)} {out.dtype}, max|Δ| {err:.3e} (tol {tol:.3e}) | "
+            f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]})")
+        if not (err <= tol and out.dtype == dtype and out.shape == (m, n_dim)):
+            raise AssertionError(f"int4 {label} disagrees with its plain version: {err} > {tol}")
+        int4.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound[0], bound_by=bound[1]))
     results["int4_matmul"] = int4
     torch.cuda.synchronize()
     return results
 
 
-class _FixedClipTokens:
-    """Stand-in CLIP tokenizer where `regex` is missing: the fixed (1, 77)
-    array the JAX bench feeds (bench.py:398-399)."""
+def phase_kernels_bare_dot():
+    """The bare-dot probe #13 in its three modes at the probe's shapes (64
+    steps of (1024, 128)·(128, 1024)) against its plain version: the int8
+    modes bit for bit, bf16 within one bf16 step of max|out|. The yardstick
+    for "bf16" is torch.bmm on the same blocks; no PyTorch call computes the
+    int8 modes (torch._int_mm has no batched form, and none quantizes
+    inside)."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import bare_dot as bd
+    from flux_generator_tpu_torch.scripts.prof_attn_int8 import BM, BN, K, dot_inputs
+
+    dev = torch.device("cuda")
+    steps = 64
+    cases = {}
+    for mode in bd.MODES:
+        a, b = dot_inputs(mode, steps, dev, seed=13)
+        out = bd.bare_dot(a, b, mode)
+        ref = bd.bare_dot_reference(a, b, mode)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 0.0 if mode != "bf16" else 2.0 ** -8 * ref.float().abs().max().item()
+        ms = time_ms(lambda: bd.bare_dot(a, b, mode))
+        plain_ms = time_ms(lambda: bd.bare_dot_reference(a, b, mode), iters=5, warmup=1)
+        library_ms = None
+        if mode == "bf16":
+            a3, b3 = a.view(steps, BM, K), b.view(K, steps, BN).permute(1, 0, 2)
+            lib_err = (torch.bmm(a3, b3).reshape(steps * BM, BN).float() - ref.float()).abs().max().item()
+            library_ms = device_ms(lambda: torch.bmm(a3, b3))
+        flop = 2 * BM * K * BN * steps
+        # a and b once, out (bf16) once
+        nbytes = a.numel() * a.element_size() + b.numel() * b.element_size() + 2 * steps * BM * BN
+        bound = bound_ms(flop, nbytes, PEAK_BF16_FLOPS if mode != "int8" else PEAK_INT8_OPS)
+        log(f"[kernels-bare-dot] {mode} steps={steps}: max|Δ| {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms "
+            f"({flop / ms / 1e9:.1f} TFLOP/s-eff, {nbytes / ms / 1e6:.1f} GB/s) | plain {plain_ms:.4f} ms | "
+            + (f"torch.bmm {library_ms:.4f} ms (max|Δ| {lib_err:.3e})" if library_ms else "library none")
+            + f" | bound {bound[0]:.4f} ms ({bound[1]})")
+        if not err <= tol:
+            raise AssertionError(f"bare dot {mode} disagrees with its plain version: {err} > {tol}")
+        cases[mode] = dict(case=f"{mode}_steps{steps}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1])
+        del a, b, out, ref
+    return {"bare_dot": cases}
+
+
+def _plain_by_heads(fn, q, k, v, cos, sin, chunk: int = 2):
+    """fn's (out, lse) over the heads `chunk` at a time: the plain attention
+    versions hold (B, H, L, L) logits, 2.2 GB a head in f64 at L 16640."""
+    import torch
+
+    b, l, h, d = q.shape
+    outs, lses = [], []
+    for h0 in range(0, h, chunk):
+        o, ls = fn(q[:, :, h0:h0 + chunk], k[:, :, h0:h0 + chunk], v[:, :, h0:h0 + chunk], cos, sin)
+        outs.append(o)
+        lses.append(ls.reshape(b, -1, l))
+    return torch.cat(outs, 2), torch.cat(lses, 1).reshape(b * h, l)
+
+
+def phase_kernels_flash_streamed():
+    """Kernel A as `flash_attention_streamed` runs it (the JAX streamed path,
+    its int8 tiers at any length): "", "qk" and "full" in groups of 1024
+    keys at the 2048² geometry (L 16640, 24 heads of 128, RoPE of 16640
+    positions), each timed and held to its plain version (run two heads at a
+    time); the streamed "full" also at L 1280 in groups of 64 and 1024; the
+    one-shot "full" as the control it must tell apart; SDPA's bf16 forward at
+    L 16640 for scale. Then the probe's entry point, prof_attn_int8.run
+    (8 steps), whose launches are this slice's probe path."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import bare_dot as bd
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.scripts import prof_attn_int8 as probe
+
+    dev = torch.device("cuda")
+    failures, cases = [], {}
+    q, k, v, cos, sin = probe.flash_inputs(dev, seed=16)
+    b, l, h, d = q.shape
+    half = 2 * l * l * d * h
+    io_bytes = 4 * q.numel() * 2 + 2 * cos.numel() * 2 + l * h * 4
+    plain = {"": lambda *a: fa.flash_attention_reference(*a),
+             "qk": lambda *a: fa.flash_attention_reference(*a, int8="qk"),
+             "full": lambda *a: fa.streamed_full_reference(*a, blk_k=1024)}
+    for tier in ("", "qk", "full"):
+        name = {"": "bf16", "qk": "qk", "full": "full_streamed"}[tier]
+        out, lse = fa.flash_attention_streamed(q, k, v, cos, sin, int8=tier, blk_k=1024)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, ref_lse = _plain_by_heads(plain[tier], q, k, v, cos, sin)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        err = (out.float() - ref.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        ms = time_ms(lambda: fa.flash_attention_streamed(q, k, v, cos, sin, int8=tier, blk_k=1024),
+                     iters=3, warmup=1)
+        # the function's work: the kernel's second Q·Kᵀ sweep in "full" is its
+        # design's, not the function's, and stays out of the bound
+        parts = {"": [(2 * half, PEAK_BF16_FLOPS)], "qk": [(half, PEAK_INT8_OPS), (half, PEAK_BF16_FLOPS)],
+                 "full": [(2 * half, PEAK_INT8_OPS)]}[tier]
+        bound = bound_ms_parts(parts, io_bytes)
+        rec = dict(case=f"L{l}_h{h}_rope_blk1024", max_abs_err=err, out_rel_l2=rel, lse_max_abs_err=err_lse,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        if tier == "full":
+            tol_out, tol_lse = INT8_ATTN_TOL["full"]
+            ctrl, ctrl_lse = _plain_by_heads(lambda *a: fa.flash_attention_reference(*a, int8="full"),
+                                             q[:, :, :2], k[:, :, :2], v[:, :, :2], cos, sin)
+            ref2 = ref[:, :, :2].float()
+            rec["control_one_shot_out_rel_l2"] = ((ctrl.float() - ref2).norm() / ref2.norm()).item()
+            ok = rel <= tol_out and err_lse <= tol_lse and rec["control_one_shot_out_rel_l2"] > tol_out
+            note = (f"out rel-L2 {rel:.3e} (tol {tol_out}), lse max|Δ| {err_lse:.3e} (tol {tol_lse}), "
+                    f"one-shot control {rec['control_one_shot_out_rel_l2']:.3e} (must exceed {tol_out})")
+        elif tier == "qk":
+            tol_out, tol_lse = INT8_ATTN_TOL["qk"]
+            ok = rel <= tol_out and err_lse <= tol_lse
+            note = f"out rel-L2 {rel:.3e} (tol {tol_out}), lse max|Δ| {err_lse:.3e} (tol {tol_lse})"
+        else:
+            # held below, once the "qk" control exists
+            tol_out, tol_lse = FLASH_LONG_TOL
+            ok = rel <= tol_out and err_lse <= tol_lse
+            note = f"out rel-L2 {rel:.3e} (tol {tol_out}), lse max|Δ| {err_lse:.3e} (tol {tol_lse})"
+            bf16_ref2, bf16_lse2 = ref[:, :, :2].float(), ref_lse.reshape(b, h, l)[:, :2].reshape(-1, l)
+        if tier == "qk":
+            qk_out2, qk_lse2 = out[:, :, :2].float(), lse.reshape(b, h, l)[:, :2].reshape(-1, l)
+        log(f"[kernels-flash-streamed] {name} L={l} H={h}: {note} | kernel {ms:.4f} ms "
+            f"({2 * half / ms / 1e9:.1f} TFLOP/s-eff) | plain (2 heads at a time) {plain_ms:.1f} ms | "
+            f"bound {bound[0]:.4f} ms ({bound[1]})")
+        if not ok:
+            failures.append(f"{name} L {l}: {note}")
+        cases[name] = rec
+        del out, lse, ref, ref_lse
+    # the bf16 tier's controls, on its two checked heads: each must fail the
+    # check that the kernel passed
+    qr = fa._rope_f32(q[:, :, :2], cos, sin).to(q.dtype)
+    kr = fa._rope_f32(k[:, :, :2], cos, sin).to(q.dtype)
+    keep = l // 1024 * 1024
+    dropped, dropped_lse = fa.flash_attention_reference(qr, kr[:, :keep], v[:, :keep, :2])
+    del qr, kr
+    tol_out, tol_lse = FLASH_LONG_TOL
+    controls = {"qk_tier_output": (qk_out2, qk_lse2), f"last_{l - keep}_keys_dropped": (dropped.float(), dropped_lse)}
+    for cname, (c_out, c_lse) in controls.items():
+        c_rel = ((c_out - bf16_ref2).norm() / bf16_ref2.norm()).item()
+        c_lse_err = (c_lse - bf16_lse2).abs().max().item()
+        cases["bf16"][f"control_{cname}"] = dict(out_rel_l2=c_rel, lse_max_abs_err=c_lse_err)
+        log(f"[kernels-flash-streamed] bf16 L={l} control {cname}: out rel-L2 {c_rel:.3e}, lse max|Δ| "
+            f"{c_lse_err:.3e} (must exceed {tol_out} or {tol_lse})")
+        if c_rel <= tol_out and c_lse_err <= tol_lse:
+            failures.append(f"bf16 L {l}: the control {cname} passes ({c_rel}, {c_lse_err})")
+    del controls, dropped, dropped_lse, qk_out2, qk_lse2, bf16_ref2, bf16_lse2
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (
+        fa._rope_f32(q, cos, sin).to(q.dtype), fa._rope_f32(k, cos, sin).to(q.dtype), v))
+    # a call of some ms: CUDA events around each call, the median of five
+    sdpa_ms = probe.median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs), reps=5)
+    log(f"[kernels-flash-streamed] SDPA bf16 forward L={l} H={h} (yardstick, for scale; CUDA events, median "
+        f"of 5): {sdpa_ms:.4f} ms ({2 * half / sdpa_ms / 1e9:.1f} TFLOP/s)")
+    for name in cases:
+        cases[name]["sdpa_bf16_ms"] = sdpa_ms
+    del q, k, v, qs, ks, vs
+
+    short = []
+    for length, blk in ((1280, 64), (1280, 1024)):
+        g = torch.Generator(device=dev).manual_seed(17)
+        q, k, v = (torch.randn((1, length, 24, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        cos, sin = _flux_rope_tables(length)
+        out, lse = fa.flash_attention_streamed(q, k, v, cos, sin, int8="full", blk_k=blk)
+        ref, ref_lse = fa.streamed_full_reference(q, k, v, cos, sin, blk_k=blk)
+        ctrl, _ = fa.flash_attention_reference(q, k, v, cos, sin, int8="full")
+        rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        ctrl_rel = ((ctrl.float() - ref.float()).norm() / ref.float().norm()).item()
+        ms = time_ms(lambda: fa.flash_attention_streamed(q, k, v, cos, sin, int8="full", blk_k=blk))
+        tol_out, tol_lse = INT8_ATTN_TOL["full"]
+        log(f"[kernels-flash-streamed] full_streamed L={length} blk_k={blk}: out rel-L2 {rel:.3e} "
+            f"(tol {tol_out}), lse max|Δ| {err_lse:.3e} | one-shot control {ctrl_rel:.3e} | kernel {ms:.4f} ms")
+        if not (rel <= tol_out and err_lse <= tol_lse):
+            failures.append(f"full_streamed L {length} blk {blk}: rel {rel}, lse {err_lse}")
+        if not ctrl_rel > tol_out:
+            failures.append(f"full_streamed L {length} blk {blk}: the one-shot control passes ({ctrl_rel})")
+        short.append(dict(case=f"L{length}_blk{blk}", out_rel_l2=rel, lse_max_abs_err=err_lse,
+                          control_one_shot_out_rel_l2=ctrl_rel, ms=ms))
+    cases["full_streamed_short"] = short
+
+    # the probe's entry point: the path that runs #13 and A's streamed "full"
+    bd.launches.update({m: 0 for m in bd.MODES})
+    fa.int8_launches["full_streamed"] = 0
+    t0 = time.perf_counter()
+    run = probe.run(steps=8)
+    launches = {"bare_dot": dict(bd.launches), "flash_attention_int8_full_streamed":
+                fa.int8_launches["full_streamed"]}
+    log(f"[kernels-flash-streamed] prof_attn_int8.run(steps=8): {time.perf_counter() - t0:.2f} s | launches "
+        f"{launches} | dots ok {[m for m, r in run['dots'].items() if r['ok']]}")
+    if not all(r["ok"] for r in run["dots"].values()):
+        failures.append(f"prof_attn_int8 bare dots: {run['dots']}")
+    if failures:
+        raise AssertionError("streamed flash kernels: " + "; ".join(failures))
+    return {"flash_attention_streamed": cases, "prof_attn_int8": dict(run=run, launches=launches)}
+
+
+
+class _FixedTokens:
+    """A tokenizer that returns one fixed (1, n) token list."""
+
+    def __init__(self, tokens):
+        self.tokens = tokens
 
     def encode(self, text):
-        return [[1] * 77]
+        return self.tokens
 
 
 def _tokenizers():
@@ -403,7 +659,8 @@ def _tokenizers():
         clip = load_clip_tokenizer(ROOT / "tests/assets/clip_tokenizer/vocab.json",
                                    ROOT / "tests/assets/clip_tokenizer/merges.txt")
     except ImportError:
-        return t5, _FixedClipTokens(), "fixed (1, 77) token array (no regex module)"
+        # the fixed (1, 77) array the JAX bench feeds (bench.py:398-399)
+        return t5, _FixedTokens([[1] * 77]), "fixed (1, 77) token array (no regex module)"
     return t5, clip, "CLIP BPE test asset (tests/assets/clip_tokenizer)"
 
 
@@ -503,7 +760,7 @@ def _reset_launch_counts():
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
     fa.launches = im.launches = wm.launches = wm.quantize_launches = 0
-    fa.int8_launches.update(qk=0, full=0)
+    fa.int8_launches.update(qk=0, full=0, full_streamed=0)
 
 
 def _flux_request(pipe, seed: int, prompt: str):
@@ -612,6 +869,151 @@ def phase_main_w8a8(pipe, weight_only_latents):
                 g_or_h_per_request=denses, attention_per_request=attn)
 
 
+def _timed_request_2048(pipe, generator_steps, latent_hw, first_key: str):
+    """Drive one request through a generator method and decode_u8: the
+    first yield (its conditioning, and for img2img the encode before it),
+    the denoise steps and the uint8 decode, each ended by a synchronize →
+    (uint8 image, final latent, phase seconds)."""
+    import torch
+
+    split = {}
+    t0 = time.perf_counter()
+    cond = next(generator_steps)
+    torch.cuda.synchronize()
+    split[first_key] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    x_t = cond[0]
+    for x_t in generator_steps:
+        pass
+    torch.cuda.synchronize()
+    split["denoise_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    img = pipe.decode_u8(x_t, latent_hw)
+    torch.cuda.synchronize()
+    split["decode_s"] = time.perf_counter() - t1
+    split["wall_s"] = time.perf_counter() - t0
+    return img, x_t, split
+
+
+def phase_main_2048(pipe):
+    """The server's generator protocol at 2048² on main's full-width
+    pipeline (weight-only: int8 flow, int4 T5-XXL): one 4-step text-to-image
+    request through generate_latents then decode_u8 (latent 256², L 16640,
+    tiled decode in 9 tiles), then img2img through
+    generate_latents_from_image on that image at strength 0.5 (tiled encode
+    in 9 tiles, steps 2 and 3 of 4). Per request: the phase split, peak
+    memory, exact launch counts (228 A + 168 B; 114 A + 168 B), the final
+    latent and the float decode finite; the encode alone timed once; the
+    text-to-image request again under torch.profiler (busy share, kernel
+    groups). Then at 512² generate_images_fused against generate_images(...,
+    as_uint8=True), byte for byte, with no host synchronisation inside the
+    fused call (torch.cuda sync debug mode)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+
+    pipe.w8a8, pipe.attn_int8 = None, ""
+    size, latent = 2048, (256, 256)
+    blocks = pipe.flow_cfg.depth + pipe.flow_cfg.depth_single_blocks
+    seed, prompt = 21, "an aerial photograph of a harbour town at golden hour"
+    failures, requests = [], {}
+
+    def check(tag, img, x_t, split, want_a):
+        n = {"flash_attention": fa.launches, "int4_matmul": im.launches}
+        finite = bool(torch.isfinite(x_t).all())
+        pixels = pipe.decode(x_t, latent)  # untimed float decode: every pixel finite
+        pixels_finite = bool(torch.isfinite(pixels).all())
+        same_u8 = torch.equal((torch.clamp(pixels, 0, 1).float() * 255).to(torch.uint8), img)
+        del pixels
+        rec = dict(split, peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=n,
+                   shape=list(img.shape), dtype=str(img.dtype), latent_finite=finite,
+                   pixels_finite=pixels_finite, u8_matches_float_decode=same_u8)
+        log(f"[main-2048] {tag}: wall {split['wall_s']:.4f} s ("
+            + " + ".join(f"{k[:-2]} {v:.4f}" for k, v in split.items() if k != "wall_s")
+            + f") | peak {rec['peak_gib']:.2f} GiB | launches A {n['flash_attention']} B {n['int4_matmul']} "
+            f"(want {want_a}, 168) | {tuple(img.shape)} {img.dtype} | latent finite {finite}, float pixels "
+            f"finite {pixels_finite}, uint8 = float decode quantized {same_u8}")
+        if tuple(img.shape) != (1, size, size, 3) or img.dtype != torch.uint8:
+            failures.append(f"{tag}: image {tuple(img.shape)} {img.dtype}")
+        if not (finite and pixels_finite and same_u8):
+            failures.append(f"{tag}: latent finite {finite}, pixels finite {pixels_finite}, u8 {same_u8}")
+        if n != {"flash_attention": want_a, "int4_matmul": 24 * 7}:
+            failures.append(f"{tag}: launches {n}, want A {want_a} B 168")
+        requests[tag] = rec
+
+    fa.launches = im.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    img, x_t, split = _timed_request_2048(
+        pipe, pipe.generate_latents(prompt, num_steps=STEPS, latent_size=latent, seed=seed), latent,
+        "conditioning_s")
+    check("txt2img 2048² 4 steps", img, x_t, split, blocks * STEPS)
+
+    image = img.float() / 127.5 - 1  # the request's image in [-1, 1]
+    strength = 0.5
+    start = min(int(round((1 - strength) * STEPS)), STEPS - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe._encode_image(image.to(pipe.dtype))
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    fa.launches = im.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    img2, x_t2, split2 = _timed_request_2048(
+        pipe, pipe.generate_latents_from_image(image, prompt, strength=strength, num_steps=STEPS, seed=seed + 1),
+        latent, "encode_conditioning_s")
+    split2["encode_alone_s"] = encode_s
+    check(f"img2img 2048² strength {strength} (steps {start}..{STEPS - 1})", img2, x_t2, split2,
+          blocks * (STEPS - start))
+    if torch.equal(img, img2):
+        failures.append("img2img returned its input image")
+    del image, img2, x_t2
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, psplit = _timed_request_2048(
+            pipe, pipe.generate_latents(prompt, num_steps=STEPS, latent_size=latent, seed=seed), latent,
+            "conditioning_s")
+    profile_rec = _profile_record(prof, 1, psplit["wall_s"] * 1e3, "main-2048 profile", "request",
+                                  "2048², 4 steps, txt2img")
+    del prof
+
+    # the one-call request against generate_images, at 512²
+    latent512 = (SIZE // 8, SIZE // 8)
+    want = pipe.generate_images(PROMPTS[0][1], num_steps=STEPS, latent_size=latent512, seed=PROMPTS[0][0],
+                                as_uint8=True)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            got = pipe.generate_images_fused(PROMPTS[0][1], num_steps=STEPS, latent_size=latent512,
+                                             seed=PROMPTS[0][0])
+            enqueue_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    # the sync debug mode's warning for each synchronizing call (not its
+    # notice that it is a prototype)
+    syncs = [str(w.message)[:160] for w in caught if "called a synchronizing" in str(w.message)]
+    equal = torch.equal(got, want)
+    log(f"[main-2048] generate_images_fused 512² seed {PROMPTS[0][0]}: equal to generate_images(as_uint8) "
+        f"byte for byte {equal} | host synchronisations inside the call {len(syncs)} | enqueued in "
+        f"{enqueue_s:.4f} s, done at {fused_s:.4f} s")
+    if not equal:
+        failures.append("generate_images_fused differs from generate_images")
+    if syncs:
+        failures.append(f"generate_images_fused synchronised the host {len(syncs)} times: {syncs[:3]}")
+    if failures:
+        raise AssertionError("main-2048: " + "; ".join(failures))
+    return dict(requests=requests, profile=profile_rec,
+                fused=dict(equal=equal, host_syncs=len(syncs), enqueue_s=enqueue_s, wall_s=fused_s),
+                launches={"flash_attention": blocks * STEPS, "int4_matmul": 24 * 7})
+
+
+
 def _to_device(tree, device, dtype):
     """Move a param tree; floating leaves take `dtype` except the f32
     quantization scales."""
@@ -623,13 +1025,11 @@ def _to_device(tree, device, dtype):
     return tree.to(device, dtype) if tree.is_floating_point() else tree.to(device)
 
 
-def _small_flux(tag: str, w8a8=None, attn_int8=""):
+def _small_pipelines(w8a8=None, attn_int8=""):
     """A small Flux config (head dim 128, T5 width 256, every flow dense int8
-    per channel, T5 int4 g128) on the card in bf16 with the kernels, against
-    the CPU in f32 with the plain versions, from the same weights, tokens
-    and noise, in the given W8A8 configuration. Returns the latent's and
-    the image's rel-L2 and the card's launch counts."""
-    import numpy as np
+    per channel, T5 int4 g128, the tiny VAE) → (CPU pipeline in f32, card
+    pipeline in bf16) from the same weights, in the given W8A8
+    configuration."""
     import torch
 
     from flux_generator_tpu_torch.models.clip.text import init_clip_text, tiny_clip_config
@@ -637,7 +1037,7 @@ def _small_flux(tag: str, w8a8=None, attn_int8=""):
     from flux_generator_tpu_torch.models.flux.model import FluxConfig, init_flux
     from flux_generator_tpu_torch.models.t5.t5 import T5Config, init_t5_encoder
     from flux_generator_tpu_torch.ops.quant import quantize_tree
-    from flux_generator_tpu_torch.pipelines.flux import FluxPipeline, latent_ids, pack_latents
+    from flux_generator_tpu_torch.pipelines.flux import FluxPipeline
 
     flow_cfg = FluxConfig(in_channels=64, vec_in_dim=64, context_in_dim=256, hidden_size=256,
                           mlp_ratio=2.0, num_heads=2, depth=1, depth_single_blocks=1)
@@ -653,6 +1053,24 @@ def _small_flux(tag: str, w8a8=None, attn_int8=""):
                        w8a8=w8a8, attn_int8=attn_int8)
     gpu = FluxPipeline("flux-schnell", _to_device(params, "cuda", torch.bfloat16), flow_cfg, ae_cfg,
                        clip_cfg, t5_cfg, dtype=torch.bfloat16, w8a8=w8a8, attn_int8=attn_int8)
+    return cpu, gpu
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _small_flux(tag: str, w8a8=None, attn_int8=""):
+    """The small config on the card in bf16 with the kernels, against the
+    CPU in f32 with the plain versions, from the same weights, tokens and
+    noise, in the given W8A8 configuration. Returns the latent's and the
+    image's rel-L2 and the card's launch counts."""
+    import numpy as np
+    import torch
+
+    from flux_generator_tpu_torch.pipelines.flux import latent_ids, pack_latents
+
+    cpu, gpu = _small_pipelines(w8a8, attn_int8)
 
     rng = np.random.default_rng(6)
     t5_tok = torch.from_numpy(rng.integers(1, 64, (1, 64)))
@@ -668,11 +1086,8 @@ def _small_flux(tag: str, w8a8=None, attn_int8=""):
         outs[name] = (lat.float().cpu(), pipe.decode(lat, (16, 16)).float().cpu())
         counts = {key: v - c0[key] for key, v in _launch_counts().items()}
 
-    def rel(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
-    lat_err = rel(outs["gpu"][0], outs["cpu"][0])
-    img_err = rel(outs["gpu"][1], outs["cpu"][1])
+    lat_err = _rel(outs["gpu"][0], outs["cpu"][0])
+    img_err = _rel(outs["gpu"][1], outs["cpu"][1])
     log(f"[{tag}] latent rel-L2 {lat_err:.3e}, image rel-L2 {img_err:.3e} (tol {SMALL_REL_TOL}) | "
         f"launches on the card {counts}")
     if not (lat_err <= SMALL_REL_TOL and img_err <= SMALL_REL_TOL):
@@ -685,6 +1100,74 @@ def phase_small():
     if out["launches"]["flash_attention"] != 2 * STEPS or out["launches"]["int4_matmul"] != 2 * 7:
         raise AssertionError("small config did not run the kernels on the card")
     return out
+
+
+@contextlib.contextmanager
+def _numpy_noise(seed: int):
+    """Every sample_prior draw of the port is standard-normal noise from
+    numpy (`seed`), moved to the generator's device: the CPU's and the
+    card's generators give different streams, and a card-against-CPU check
+    needs the same noise on both."""
+    import numpy as np
+    import torch
+
+    from flux_generator_tpu_torch.models.flux import sampler
+
+    real = sampler.sample_prior
+
+    def draw(generator, shape, dtype, device=None):
+        arr = np.random.default_rng(seed).standard_normal(tuple(shape)).astype(np.float32)
+        return torch.from_numpy(arr).to(generator.device if device is None else device, dtype)
+
+    sampler.sample_prior = draw
+    try:
+        yield
+    finally:
+        sampler.sample_prior = real
+
+
+def phase_small_tiled():
+    """The small config past the untiled sizes, on the card against the
+    CPU: a decode of a 136² latent (tiled: 4 tiles of 96² latents) and an
+    img2img request on a 1040 x 32 image (a tiled encode: 2 tiles of 768
+    rows) at strength 0.5, 4 steps, with the same noise on both sides."""
+    import numpy as np
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+
+    cpu, gpu = _small_pipelines()
+    rng = np.random.default_rng(31)
+    h = w = 136
+    z = torch.from_numpy(rng.standard_normal((1, h * w // 4, 4 * cpu.ae_cfg.z_channels)).astype(np.float32))
+    imgs = {name: pipe.decode(z.to(pipe.device, pipe.dtype), (h, w)).float().cpu()
+            for name, pipe in (("cpu", cpu), ("gpu", gpu))}
+    dec_err = _rel(imgs["gpu"], imgs["cpu"])
+    log(f"[small-tiled] decode of a {h}x{w} latent (tiled) {tuple(imgs['gpu'].shape)}: rel-L2 {dec_err:.3e} "
+        f"(tol {SMALL_REL_TOL})")
+
+    image = np.tanh(rng.standard_normal((1, 1040, 32, 3))).astype(np.float32)
+    t5_tok = rng.integers(1, 64, (1, 64))
+    clip_tok = rng.integers(1, 64, (1, 16))
+    lats, counts = {}, {}
+    for name, pipe in (("cpu", cpu), ("gpu", gpu)):
+        pipe.t5_tokenizer = _FixedTokens(t5_tok.tolist())
+        pipe.clip_tokenizer = _FixedTokens(clip_tok.tolist())
+        fa0, im0 = fa.launches, im.launches
+        with _numpy_noise(32):
+            steps = list(pipe.generate_latents_from_image(image, "x", strength=0.5, num_steps=STEPS, seed=3))
+        lats[name] = steps[-1].float().cpu()
+        counts[name] = (fa.launches - fa0, im.launches - im0, len(steps) - 1)
+    lat_err = _rel(lats["gpu"], lats["cpu"])
+    log(f"[small-tiled] img2img 1040x32 (tiled encode) strength 0.5: {counts['gpu'][2]} steps, latent "
+        f"{tuple(lats['gpu'].shape)} rel-L2 {lat_err:.3e} (tol {SMALL_REL_TOL}) | launches on the card A "
+        f"{counts['gpu'][0]} B {counts['gpu'][1]}")
+    if not (dec_err <= SMALL_REL_TOL and lat_err <= SMALL_REL_TOL):
+        raise AssertionError(f"small-tiled: the card disagrees with the CPU: decode {dec_err}, img2img {lat_err}")
+    if counts["gpu"] != (2 * 2, 2 * 7, 2):
+        raise AssertionError(f"small-tiled img2img: launches A, B and steps {counts['gpu']}, want (4, 14, 2)")
+    return dict(decode_rel_l2=dec_err, img2img_latent_rel_l2=lat_err, launches=counts["gpu"][:2])
 
 
 def phase_small_w8a8():
@@ -1743,6 +2226,7 @@ def main() -> int:
 
     import torch
 
+    from flux_generator_tpu_torch.ops.kernels import bare_dot as bd
     from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
@@ -1764,8 +2248,12 @@ def main() -> int:
     kernels.update(run(phase_kernels_chain))
     kernels.update(run(phase_kernels_train))
     kernels.update(run(phase_kernels_w8a8))
+    kernels.update(run(phase_kernels_bare_dot))
+    streamed = run(phase_kernels_flash_streamed)
+    kernels.update(flash_attention_streamed=streamed["flash_attention_streamed"])
     main_run, pipe, latents = phase_main()
     main_w8a8 = run(lambda: phase_main_w8a8(pipe, latents))
+    main_2048 = run(lambda: phase_main_2048(pipe))
     del pipe, latents
     main_music, pipe = phase_main_musicgen()
     main_serve = run(lambda: phase_main_musicgen_serve(pipe))
@@ -1775,6 +2263,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_train = run(phase_main_train)
     small = run(phase_small)
+    small_tiled = run(phase_small_tiled)
     small_w8a8 = run(phase_small_w8a8)
     small_music = run(phase_small_musicgen)
     small_train = run(phase_small_train)
@@ -1824,12 +2313,26 @@ def main() -> int:
                             max_abs_err=max(c["max_abs_err"] for c in kernels[key]),
                             ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
                             bound_by=case["bound_by"], library_ms=case["library_ms"]))
+    probe_launches = streamed["prof_attn_int8"]["launches"]
+    for mode in bd.MODES:
+        case = kernels["bare_dot"][mode]
+        entries.append(dict(name="bare_dot" if mode == "bf16" else f"bare_dot_{mode}", route="cuda",
+                            source=bd.SOURCE, replaces=bd.REPLACES, launches=probe_launches["bare_dot"][mode],
+                            max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
+                            bound_ms=case["bound_ms"], bound_by=case["bound_by"], library_ms=case["library_ms"]))
+    case = kernels["flash_attention_streamed"]["full_streamed"]
+    entries.append(dict(name="flash_attention_int8_full_streamed", route="cuda", source=fa.SOURCE,
+                        replaces=fa.REPLACES_STREAMED_FULL,
+                        launches=probe_launches["flash_attention_int8_full_streamed"],
+                        max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
+                        bound_ms=case["bound_ms"], bound_by=case["bound_by"], library_ms=case["library_ms"]))
     bounds = unported_bounds()
     log("[bounds] kernels still to port: " + " | ".join(
         f"{key} {ms:.4f} ms ({by})" for key, (ms, by) in bounds.items()))
-    record = dict(device=smi, kernels=kernels, main=main_run, main_w8a8=main_w8a8,
+    record = dict(device=smi, kernels=kernels, prof_attn_int8=streamed["prof_attn_int8"], main=main_run,
+                  main_w8a8=main_w8a8, main_2048=main_2048,
                   main_musicgen=main_music, main_musicgen_serve=main_serve, main_musicgen_long=main_long,
-                  main_train=main_train, small=small, small_w8a8=small_w8a8,
+                  main_train=main_train, small=small, small_tiled=small_tiled, small_w8a8=small_w8a8,
                   small_musicgen=small_music, small_train=small_train, unported_bounds=bounds)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

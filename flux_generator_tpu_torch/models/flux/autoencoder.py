@@ -4,8 +4,8 @@ flux_generator_tpu/models/flux/autoencoder.py).
 ResnetBlocks (GroupNorm32 + SiLU + 3x3 conv, linear nin_shortcut on a
 channel change), a single-head mid attention block, stride-2 downsampling
 after a (0, 1) pad and nearest 2x upsampling, and the scale/shift factors
-applied in `encode` / `decode`. Activations are NHWC and conv kernels HWIO,
-as in the JAX package. The tiled decode is not ported yet.
+applied in `encode` / `decode`, and the overlap-tiled decode for large
+latents. Activations are NHWC and conv kernels HWIO, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ...ops.attention import dot_product_attention
 from ...ops.linear import conv2d, dense, init_conv2d, init_dense
 from ...ops.norms import group_norm
+from ...ops.tiling import tiled_decode_2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,3 +203,15 @@ def decode(params, cfg: AutoEncoderConfig, z):
     """Latent (B, h, w, z) → image (B, 8h, 8w, 3) in about [-1, 1]."""
     z = z / cfg.scale_factor + cfg.shift_factor
     return decoder_forward(params["decoder"], cfg, z)
+
+
+def downsample(cfg: AutoEncoderConfig) -> int:
+    """Spatial factor between image and latent (8 at full size)."""
+    return 2 ** (len(cfg.ch_mult) - 1)
+
+
+def decode_tiled(params, cfg: AutoEncoderConfig, z, tile: int = 96, overlap: int = 16):
+    """Decode a large latent in overlapping tiles with a linear cross-fade
+    (ops/tiling.tiled_decode_2d): the decoder's activations are those of one
+    tile of `tile`² latent pixels, whatever the latent's size."""
+    return tiled_decode_2d(lambda zt: decode(params, cfg, zt), z, tile, overlap, factor=downsample(cfg))

@@ -15,6 +15,12 @@ p (against the row's final max) and V's columns for an int8 P·V. They are an
 inference datapath: like the JAX wrapper, a sequence longer than the one-shot
 path's 6144 drops them, and a gradient through them raises.
 
+`flash_attention_streamed` is the counterpart of the JAX `_flash_attention_jit`
+on its streamed path, where the tiers run at any length: "" and "qk" are A's
+modes above (their function does not depend on how keys are blocked), and
+"full" is A's streamed mode, which quantizes p and V per group of `blk_k`
+keys as the streamed TPU kernel does (`streamed_full_reference`).
+
 Layout: q, k, v (B, L, H, D); cos/sin (B, L, D/2) tables shared by all
 heads, in the working dtype. RoPE rotates interleaved pairs (2i, 2i+1).
 """
@@ -30,15 +36,18 @@ from . import _build
 from .flash_attention_bwd import flash_attention_bwd
 
 # Launches of the CUDA kernel since the last reset, all tiers (the plain
-# version on CPU tensors does not count), and of its int8 tiers alone.
+# version on CPU tensors does not count), and of its int8 tiers alone
+# ("full_streamed": the "full" tier in groups of blk_k keys).
 launches = 0
-int8_launches = {"qk": 0, "full": 0}
+int8_launches = {"qk": 0, "full": 0, "full_streamed": 0}
 
 SOURCE = "flux_generator_tpu_torch/csrc/flash_attention.cu"
 REPLACES = "flux_generator_tpu/ops/pallas/flash_attention.py:258"
+REPLACES_STREAMED_FULL = "flux_generator_tpu/ops/pallas/flash_attention.py:292"
 HEAD_DIMS = (64, 128)
 INT8_TIERS = ("", "qk", "full")
-_MODES = {"": 0, "qk": 1, "full": 2}
+_MODES = {"": 0, "qk": 1, "full": 2, "full_streamed": 3}
+KEY_TILE = 64  # keys per K/V tile of the kernel; a streamed group is whole tiles
 # The JAX wrapper keeps the int8 tiers to its one-shot path: a padded length
 # of at most 6144 (flash_attention.py:544-551).
 INT8_MAX_LEN = 6144
@@ -46,7 +55,8 @@ INT8_MAX_LEN = 6144
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "fgt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P],
+                                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                ctypes.c_int, _P],
 }
 
 
@@ -113,12 +123,14 @@ def flash_attention_reference(q, k, v, cos=None, sin=None, scale: Optional[float
 
 def streamed_full_reference(q, k, v, cos=None, sin=None, scale: Optional[float] = None,
                             blk_k: int = 64):
-    """The "full" tier as the JAX package's *streamed* kernel computes it
-    (`_flash_kernel`, which its public wrapper never runs with a tier): p
-    quantized per key block against the running max and that block's own p
-    max, V per column within each block. Not a semantics of the port: it is
-    the control a check of the "full" kernel must be able to fail → (out,
-    lse) as `flash_attention_reference`."""
+    """Plain version of kernel A's streamed "full" mode: the "full" tier as
+    the JAX package's streamed kernel computes it (`_flash_kernel`, run with
+    its tiers by `_flash_attention_jit`), in groups of `blk_k` keys from key
+    0. Per group: m_new = max(m, the group's max logit), p = exp(s − m_new),
+    p_i = rint(p / s_p) with s_p = max(max p, 1e-20)/127, V per column over
+    the group's rows, acc = acc·α + (f32(Σ p_i·v_i)·s_p)·s_v and l = l·α + Σ p
+    over the unquantized p. The integer dots in f64, which holds them
+    exactly → (out, lse) as `flash_attention_reference`."""
     b, l, h, d = q.shape
     dt = q.dtype
     if scale is None:
@@ -171,24 +183,31 @@ def _check_cuda_args(q, k, v, cos, sin):
             raise ValueError("RoPE tables must lie on q's device")
 
 
-def _flash_attention_cuda(q, k, v, cos, sin, scale, int8=""):
+def _flash_attention_cuda(q, k, v, cos, sin, scale, int8="", group: int = 0):
+    """Kernel A in mode `int8` ("", "qk", "full" or "full_streamed", whose
+    quantization groups are `group` keys)."""
     global launches
     _check_cuda_args(q, k, v, cos, sin)
     b, l, h, d = q.shape
+    if int8 == "full_streamed" and (group <= 0 or group % KEY_TILE):
+        raise ValueError(f"the streamed full tier takes groups of a positive multiple of {KEY_TILE} keys, "
+                         f"got {group}")
     lib = _build.load("flash_attention", _SIGNATURES)
     if cos is not None:  # tables in the working dtype, as the JAX wrapper casts them
         cos = cos.to(q.dtype).contiguous()
         sin = sin.to(q.dtype).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b * h, l), dtype=torch.float32, device=q.device)
-    # V's column amax for the "full" tier, combined with atomicMax from zero
-    vamax = torch.zeros((b * h, d), dtype=torch.int32, device=q.device) if int8 == "full" else None
+    # V's column amax for the "full" tiers (over the head, or per group),
+    # combined with atomicMax from zero
+    groups = {"full": 1, "full_streamed": -(-l // max(group, 1))}.get(int8, 0)
+    vamax = torch.zeros((b * h, groups, d), dtype=torch.int32, device=q.device) if groups else None
     with torch.cuda.device(q.device):
         err = lib.fgt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
             None if vamax is None else vamax.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, l, h, d, float(scale), _MODES[int8],
+            out.data_ptr(), lse.data_ptr(), b, l, h, d, float(scale), _MODES[int8], group,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check("fgt_flash_attention_fwd", err)
@@ -196,6 +215,15 @@ def _flash_attention_cuda(q, k, v, cos, sin, scale, int8=""):
     if int8:
         int8_launches[int8] += 1
     return out, lse
+
+
+def _forward(q, k, v, cos, sin, scale, int8):
+    """Kernel A on CUDA tensors, its plain version on CPU ones → (out, lse)."""
+    if q.device.type == "cuda":
+        return _flash_attention_cuda(q, k, v, cos, sin, scale, int8)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, cos, sin, scale, int8)
+    raise ValueError(f"no flash attention for device {q.device}")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -208,12 +236,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, scale, int8):
-        if q.device.type == "cuda":
-            out, lse = _flash_attention_cuda(q, k, v, cos, sin, scale, int8)
-        elif q.device.type == "cpu":
-            out, lse = flash_attention_reference(q, k, v, cos, sin, scale, int8)
-        else:
-            raise ValueError(f"no flash attention for device {q.device}")
+        out, lse = _forward(q, k, v, cos, sin, scale, int8)
         ctx.save_for_backward(q, k, v, cos, sin, out, lse)
         ctx.scale = scale
         ctx.int8 = int8
@@ -260,3 +283,25 @@ def flash_attention(q, k, v, cos=None, sin=None, scale: Optional[float] = None,
     int8 = effective_int8(q.shape[1], int8)
     out, lse = _FlashAttention.apply(q, k, v, cos, sin, float(scale), int8)
     return (out, lse) if return_lse else out
+
+
+def flash_attention_streamed(q, k, v, cos=None, sin=None, scale: Optional[float] = None, int8: str = "",
+                             blk_k: int = 1024):
+    """The JAX `_flash_attention_jit` on its streamed path, whose int8 tiers
+    run at any length → (out, lse), lse (B·H, L) f32. "" and "qk" are kernel
+    A's modes; "full" is A's streamed mode, quantizing p and V per group of
+    `blk_k` keys (`streamed_full_reference` on CPU tensors). Inference only:
+    no gradient."""
+    _check_tier(int8)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if (cos is None) != (sin is None):
+        raise ValueError("pass both RoPE tables or neither")
+    with torch.no_grad():
+        if int8 != "full":
+            return _forward(q, k, v, cos, sin, float(scale), int8)
+        if q.device.type == "cuda":
+            return _flash_attention_cuda(q, k, v, cos, sin, float(scale), "full_streamed", blk_k)
+        if q.device.type == "cpu":
+            return streamed_full_reference(q, k, v, cos, sin, float(scale), blk_k)
+    raise ValueError(f"no flash attention for device {q.device}")

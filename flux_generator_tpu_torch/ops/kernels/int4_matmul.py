@@ -4,7 +4,11 @@ The kernel (csrc/int4_matmul.cu, sm_90a) replaces the TPU kernel `_kernel`
 of flux_generator_tpu/ops/pallas/int4_matmul.py. `int4_matmul` dispatches on
 the input's device only: CPU tensors go to `int4_matmul_reference`, CUDA
 tensors to the kernel, which raises for shapes, dtypes or layouts it does not
-take. There is no fallback from one to the other.
+take. There is no fallback from one to the other. The kernel takes what the
+TPU wrapper takes: any M, any N (the TPU wrapper pads N with 0x88 bytes, which
+dequantize to 0; the kernel masks them) and bf16 or f32 activations. Which
+shapes reach it is `supported`'s decision, the TPU package's own branch in
+`dense` (ops/linear.py).
 
 Weights are the repo's packed-int4 format (ops/quant.pack_int4): (K/2, N)
 uint8, split layout, with f32 scales per output channel (N,) or per input
@@ -29,8 +33,34 @@ REPLACES = "flux_generator_tpu/ops/pallas/int4_matmul.py:148"
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "fgt_int4_matmul": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, _P],
+                        ctypes.c_int, ctypes.c_int, _P],
 }
+X_DTYPES = (torch.bfloat16, torch.float32)
+_BK_CANDIDATES = (512, 256, 128)  # the TPU kernel's packed rows per step
+
+
+def _pick_bk(kp: int, group_size: int) -> int:
+    """The TPU kernel's K block: the largest candidate that tiles the packed
+    rows and covers whole scale groups; 0 if none fits."""
+    for bk in _BK_CANDIDATES:
+        if kp % bk == 0 and (group_size == 0 or bk % group_size == 0):
+            return bk
+    return 0
+
+
+def supported(k: int, kernel_scale: torch.Tensor) -> bool:
+    """Whether the TPU package runs its int4 kernel for this packed layout
+    (flux_generator_tpu/ops/pallas/int4_matmul.py `supported`): K/2 tiles a
+    block candidate and, grouped, the block covers whole groups. Elsewhere
+    its `dense` takes the two-halves formulation, and so does the port's."""
+    if k % 2:
+        return False
+    if kernel_scale.dim() == 2:
+        g = kernel_scale.shape[0]
+        if g % 2 or k % g:
+            return False
+        return _pick_bk(k // 2, k // g) > 0
+    return _pick_bk(k // 2, 0) > 0
 
 
 def _halves(kernel_q4: torch.Tensor):
@@ -42,9 +72,10 @@ def _halves(kernel_q4: torch.Tensor):
 def int4_matmul_reference(x: torch.Tensor, kernel_q4: torch.Tensor,
                           kernel_scale: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel's function: x (…, K) → (…, N) in
-    x's dtype, accumulated in f32. Grouped weights are dequantized in f32 and
-    rounded to x's dtype before the product; per-channel scales are applied to
-    the f32 result, as the kernel folds them after its K loop."""
+    x's dtype (bf16 or f32), any M and N, accumulated in f32. Grouped weights
+    are dequantized in f32 and rounded to x's dtype before the product;
+    per-channel scales are applied to the f32 result, as the kernel folds
+    them after its K loop."""
     *lead, k = x.shape
     kp, n = kernel_q4.shape
     lo, hi = _halves(kernel_q4)
@@ -63,14 +94,14 @@ def int4_matmul_reference(x: torch.Tensor, kernel_q4: torch.Tensor,
 
 def _check_cuda_args(x2, kernel_q4, kernel_scale):
     m, k = x2.shape
-    if x2.dtype != torch.bfloat16:
-        raise ValueError(f"int4 kernel takes bf16 activations, got {x2.dtype}")
+    if x2.dtype not in X_DTYPES:
+        raise ValueError(f"int4 kernel takes bf16 or f32 activations, got {x2.dtype}")
     if kernel_q4.dtype != torch.uint8 or kernel_q4.dim() != 2 or kernel_q4.shape[0] * 2 != k:
         raise ValueError(f"int4 kernel takes packed (K/2, N) uint8 weights for K={k}, got "
                          f"{kernel_q4.dtype} {tuple(kernel_q4.shape)}")
     n = kernel_q4.shape[1]
-    if k % 64 or n % 16:
-        raise ValueError(f"int4 kernel needs K % 64 == 0 and N % 16 == 0, got K={k}, N={n}")
+    if k % 64:
+        raise ValueError(f"int4 kernel needs K % 64 == 0, got K={k}")
     if kernel_scale.dtype != torch.float32:
         raise ValueError(f"int4 kernel takes f32 scales, got {kernel_scale.dtype}")
     if kernel_scale.dim() == 1:
@@ -85,6 +116,8 @@ def _check_cuda_args(x2, kernel_q4, kernel_scale):
         raise ValueError(f"scales must be (N,) or (groups, N), got {tuple(kernel_scale.shape)}")
     if not (x2.is_contiguous() and kernel_q4.is_contiguous() and kernel_scale.is_contiguous()):
         raise ValueError("int4 kernel takes contiguous operands")
+    if x2.data_ptr() % 16 or kernel_q4.data_ptr() % 16:
+        raise ValueError("int4 kernel takes 16-byte aligned activations and weights")
     if kernel_q4.device != x2.device or kernel_scale.device != x2.device:
         raise ValueError("operands must lie on one device")
 
@@ -101,7 +134,8 @@ def _int4_matmul_cuda(x, kernel_q4, kernel_scale):
     with torch.cuda.device(x.device):
         err = lib.fgt_int4_matmul(
             x2.data_ptr(), kernel_q4.data_ptr(), kernel_scale.data_ptr(), out.data_ptr(),
-            m, n, k, group_size, torch.cuda.current_stream(x.device).cuda_stream,
+            m, n, k, group_size, int(x.dtype == torch.float32),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check("fgt_int4_matmul", err)
     launches += 1

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from .kernels import w8a8_matmul as w8a8_kernels
-from .kernels.int4_matmul import int4_matmul
+from .kernels import int4_matmul as int4_kernels
 from .quant import INT4_MARK, is_k_major
 
 
@@ -62,6 +62,26 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
         w = q.reshape(*q.shape[:-2], g, gs, q.shape[-1]).to(dtype) * scale[..., :, None, :].to(dtype)
         return w.reshape(q.shape)
     return q.to(dtype) * scale.to(dtype)[..., None, :]
+
+
+def _int4(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x @ packed int4 (…, K/2, N), routed as the JAX package's `dense`
+    routes it on the TPU (flux_generator_tpu/ops/linear.py:99-132): kernel B
+    (or its plain version on the CPU) for a 2-D kernel whose layout its TPU
+    kernel takes (`supported`), else the two-halves formulation, each half
+    dequantized in x's dtype with the scales rounded to it, and the two
+    products taken in x's dtype."""
+    if q4.dim() == 2 and int4_kernels.supported(x.shape[-1], scale):
+        return int4_kernels.int4_matmul(x, q4, scale)
+    half = q4.shape[-2]
+    lo = (q4 & 0xF).to(torch.int8) - 8
+    hi = (q4 >> 4).to(torch.int8) - 8
+    if scale.dim() == q4.dim():  # grouped: the first g/2 groups belong to the low half
+        g2 = scale.shape[-2] // 2
+        s_lo, s_hi = scale[..., :g2, :], scale[..., g2:, :]
+    else:
+        s_lo = s_hi = scale
+    return x[..., :half] @ _dequant(lo, s_lo, x.dtype) + x[..., half:] @ _dequant(hi, s_hi, x.dtype)
 
 
 W8A8_ROUTES = (None, "ops", "rows", "fused")
@@ -137,8 +157,9 @@ def _w8a8(p: dict, x: torch.Tensor, route: str) -> torch.Tensor:
 def dense(p: dict, x: torch.Tensor, w8a8: Optional[str] = None) -> torch.Tensor:
     """x (…, in) @ kernel (in, out) [+ (x @ lora_a) @ lora_b] [+ bias], for
     f32/bf16 kernels, int8 weight-only (per channel or grouped) and packed
-    int4. Packed int4 runs the int4 kernel on CUDA tensors and its plain
-    version on CPU ones. The LoRA term (scale 1) applies on every tier.
+    int4. Packed int4 takes the int4 kernel (its plain version on CPU
+    tensors) where the JAX package takes its TPU kernel, and the two-halves
+    formulation elsewhere (`_int4`). The LoRA term (scale 1) applies on every tier.
 
     `w8a8` ("ops", "rows" or "fused"; see `_w8a8`) sends an int8 kernel with
     per-channel scales through int8 activations; grouped scales and int4
@@ -147,7 +168,7 @@ def dense(p: dict, x: torch.Tensor, w8a8: Optional[str] = None) -> torch.Tensor:
     if w8a8 not in W8A8_ROUTES:
         raise ValueError(f"w8a8 must be one of {W8A8_ROUTES}, got {w8a8!r}")
     if "kernel_q4" in p:
-        y = int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
+        y = _int4(x, p["kernel_q4"], p["kernel_scale"])
     elif "kernel_q" in p:
         grouped = p["kernel_scale"].dim() == p["kernel_q"].dim()
         if w8a8 and not grouped and p["kernel_q"].dtype == torch.int8 and INT4_MARK not in p:

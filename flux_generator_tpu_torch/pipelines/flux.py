@@ -1,12 +1,18 @@
 """Flux text-to-image pipeline (counterpart of flux_generator_tpu/pipelines/flux.py).
 
 tokenize → T5 / CLIP conditioning → 2x2 latent patchify with 3-axis
-position ids → flow-matching Euler denoise → unpatchify + VAE decode, plus
-the VAE encode and the flow-matching training loss that DreamBooth LoRA
-training runs. The device is the one the params lie on; noise comes from a
-`torch.Generator` seeded per request. PyTorch runs eagerly, so the JAX
-package's jitted whole-schedule program becomes a plain loop over the
-schedule.
+position ids → flow-matching Euler denoise → unpatchify + VAE decode (tiled
+above 128² latents, one image at a time past one 1024² image), plus the
+conditioning-first generator protocol that the server drives step by step
+(`generate_latents`, `generate_latents_batch`), img2img
+(`generate_latents_from_image`, on the VAE encode, tiled above 1024 px), the
+one-call request `generate_images_fused`, and the flow-matching training
+loss that DreamBooth LoRA training runs. The device is the one the params lie
+on; noise comes from a `torch.Generator` seeded per request. PyTorch runs
+eagerly, so the JAX package's jitted whole-schedule program becomes a plain
+loop over the schedule. Host data (tokens, the schedule) reaches the card
+through pinned memory without waiting for it, so a request queues all its
+device work without a host synchronisation.
 
 `w8a8` and `attn_int8` are the W8A8 serving configuration: the JAX
 package's process-wide `set_w8a8(True)` (with FGT_W8A8_IMPL) and
@@ -30,7 +36,18 @@ from ..models.flux import sampler as sampler_mod
 from ..models.flux.autoencoder import AutoEncoderConfig, tiny_ae_config
 from ..models.flux.model import FluxConfig, flux_forward, init_flux, tiny_flux_config
 from ..models.t5.t5 import T5Config, init_t5_encoder, t5_encode, tiny_t5_config
+from ..ops.tiling import batched_apply, tiled_decode_2d
 from ..runtime.device import as_device, make_generator, synchronize
+
+
+def to_device(data, dtype, device: torch.device) -> torch.Tensor:
+    """Host data (a list, numpy array or CPU tensor) as a `dtype` tensor on
+    `device`. On the card it goes through pinned memory as an asynchronous
+    copy, so the host does not wait for the device's queue to drain."""
+    t = torch.as_tensor(np.asarray(data) if not isinstance(data, torch.Tensor) else data, dtype=dtype)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 # ------------------------------------------------------------ latent packing
 
@@ -119,8 +136,8 @@ class FluxPipeline:
         if self.t5_tokenizer is None or self.clip_tokenizer is None:
             raise RuntimeError("pipeline built without tokenizers; pass token arrays directly")
         device = self.device
-        t5_tokens = torch.tensor(self.t5_tokenizer.encode(text), dtype=torch.long, device=device)
-        clip_tokens = torch.tensor(self.clip_tokenizer.encode(text), dtype=torch.long, device=device)
+        t5_tokens = to_device(self.t5_tokenizer.encode(text), torch.long, device)
+        clip_tokens = to_device(self.clip_tokenizer.encode(text), torch.long, device)
         return t5_tokens, clip_tokens
 
     def prepare_conditioning(self, n_images: int, t5_tokens, clip_tokens):
@@ -151,42 +168,66 @@ class FluxPipeline:
         # t_prev − t is taken in the schedule's dtype, then promoted to x_t's
         return sampler_mod.flux_step(pred, x_t, t, t_prev)
 
-    def denoise_latents(self, x_t, x_ids, txt, txt_ids, vec, num_steps: int, guidance: float):
-        """Euler steps over the whole schedule. The schedule is cast to the
-        working dtype first, so t_prev − t is taken in that dtype, as in the
-        JAX package."""
-        device = x_t.device
-        ts = torch.tensor(self.timesteps(num_steps, x_t.shape[1]), dtype=self.dtype, device=device)
-        g = torch.tensor(guidance, dtype=self.dtype, device=device)
-        for i in range(num_steps):
+    def _schedule(self, num_steps: int, image_seq_len: int, guidance: float, device):
+        """The schedule (num_steps + 1,) and the guidance, in the working
+        dtype on `device`: t_prev − t is taken in that dtype, as in the JAX
+        package."""
+        ts = to_device(self.timesteps(num_steps, image_seq_len), self.dtype, device)
+        return ts, to_device(guidance, self.dtype, device)
+
+    def _denoise_steps(self, x_t, x_ids, txt, txt_ids, vec, ts, g, start: int = 0):
+        """Euler steps start .. len(ts) − 2, yielding each step's latent."""
+        for i in range(start, ts.shape[0] - 1):
             x_t = self._step(x_t, x_ids, txt, txt_ids, vec, ts[i], ts[i + 1], g)
+            yield x_t
+
+    def denoise_latents(self, x_t, x_ids, txt, txt_ids, vec, num_steps: int, guidance: float):
+        """Euler steps over the whole schedule."""
+        ts, g = self._schedule(num_steps, x_t.shape[1], guidance, x_t.device)
+        for x_t in self._denoise_steps(x_t, x_ids, txt, txt_ids, vec, ts, g):
+            pass
         return x_t
 
     # -------------------------------------------------- encoding
 
+    @property
+    def ae_downsample(self) -> int:
+        """Spatial factor of the autoencoder (8 at full size; tiny test
+        configs use fewer levels)."""
+        return ae_mod.downsample(self.ae_cfg)
+
     def _encode_image(self, x: torch.Tensor) -> torch.Tensor:
-        """Images (B, H, W, 3) in about [-1, 1] → latents (B, H/8, W/8, z),
-        one image at a time past one 1024² image's activations."""
-        b, hh, ww = x.shape[:3]
-        if max(hh, ww) > 1024:
-            raise NotImplementedError("images above 1024² need the tiled encode, which is not "
-                                      "ported yet")
-        if b > 1 and b * hh * ww > 1024 * 1024:
-            return torch.cat([ae_mod.encode(self.params["ae"], self.ae_cfg, xi[None]) for xi in x])
-        return ae_mod.encode(self.params["ae"], self.ae_cfg, x)
+        """Images (B, H, W, 3) in about [-1, 1] → latents (B, H/f, W/f, z),
+        one image at a time past one 1024² image's pixels, and in
+        overlapping 768² tiles (overlap 128, latent means blended) for an
+        image above 1024 px on either side."""
+        params, cfg = self.params["ae"], self.ae_cfg
+
+        def encode(xt):
+            return ae_mod.encode(params, cfg, xt)
+
+        def one(xi):
+            if max(xi.shape[1], xi.shape[2]) > 1024:
+                return tiled_decode_2d(encode, xi, tile=768, overlap=128, factor=1 / self.ae_downsample)
+            return encode(xi)
+
+        return batched_apply(one, x, pixel_limit=1024 * 1024)
 
     # -------------------------------------------------- decoding
 
     def _decode(self, x, h: int, w: int, as_uint8: bool):
-        if max(h, w) > 128:
-            raise NotImplementedError("latents above 128² (images above 1024²) need the tiled "
-                                      "decode, which is not ported yet")
+        """Latents → images, one image at a time past one 1024² image's
+        latents, each in overlapping tiles (autoencoder.decode_tiled) above
+        128² latents."""
         z = unpack_latents(x, h, w)
-        if z.shape[0] > 1 and z.shape[0] * h * w > 128 * 128:
-            # one image at a time past one 1024² image's activations
-            img = torch.cat([ae_mod.decode(self.params["ae"], self.ae_cfg, zi[None]) for zi in z])
-        else:
-            img = ae_mod.decode(self.params["ae"], self.ae_cfg, z)
+        params, cfg = self.params["ae"], self.ae_cfg
+
+        def one(zi):
+            if max(h, w) > 128:
+                return ae_mod.decode_tiled(params, cfg, zi)
+            return ae_mod.decode(params, cfg, zi)
+
+        img = batched_apply(one, z, pixel_limit=128 * 128)
         img = torch.clamp(img + 1, 0, 2) * 0.5
         if as_uint8:
             img = (torch.clamp(img, 0, 1).float() * 255).to(torch.uint8)
@@ -235,6 +276,89 @@ class FluxPipeline:
         if trace is not None:
             trace["latent"] = x_t
         return img
+
+    def _protocol(self, x_t, x_ids, t5_tokens, clip_tokens, ts, g, start: int = 0):
+        """The generator protocol's body: the conditioning tuple (x_t, x_ids,
+        txt, txt_ids, vec), then the latent after each step from `start`."""
+        txt, txt_ids, vec = self.prepare_conditioning(x_t.shape[0], t5_tokens, clip_tokens)
+        yield x_t, x_ids, txt, txt_ids, vec
+        yield from self._denoise_steps(x_t, x_ids, txt, txt_ids, vec, ts, g, start)
+
+    def generate_latents(self, text: str, n_images: int = 1, num_steps: int = 35,
+                         guidance: float = 4.0, latent_size: Tuple[int, int] = (64, 64),
+                         seed: Optional[int] = None):
+        """The generator protocol the server drives: yields the conditioning
+        (x_t, x_ids, txt, txt_ids, vec) first, then the latent after each of
+        the `num_steps` denoise steps."""
+        device = self.device
+        h, w = latent_size
+        x = sampler_mod.sample_prior(make_generator(device, seed), (n_images, h, w, self.ae_cfg.z_channels),
+                                     self.dtype)
+        x_t = pack_latents(x)
+        ts, g = self._schedule(num_steps, x_t.shape[1], guidance, device)
+        yield from self._protocol(x_t, latent_ids(n_images, h, w, device=device), *self.tokenize(text), ts, g)
+
+    def generate_latents_batch(self, texts, seeds, num_steps: int = 2, guidance: float = 4.0,
+                               latent_size: Tuple[int, int] = (64, 64)):
+        """Several prompts, one seed each, denoised as one batch (the server
+        coalesces concurrent users into this): one prior per seed, the token
+        rows concatenated. The same protocol as `generate_latents`."""
+        if len(texts) != len(seeds):
+            raise ValueError(f"{len(texts)} texts but {len(seeds)} seeds")
+        device = self.device
+        h, w = latent_size
+        n = len(texts)
+        rows = [self.tokenize(text) for text in texts]
+        t5_tokens = torch.cat([t5 for t5, _ in rows])
+        clip_tokens = torch.cat([clip for _, clip in rows])
+        priors = [sampler_mod.sample_prior(make_generator(device, None if s is None else int(s)),
+                                           (1, h, w, self.ae_cfg.z_channels), self.dtype) for s in seeds]
+        x_t = pack_latents(torch.cat(priors))
+        ts, g = self._schedule(num_steps, x_t.shape[1], guidance, device)
+        yield from self._protocol(x_t, latent_ids(n, h, w, device=device), t5_tokens, clip_tokens, ts, g)
+
+    def generate_latents_from_image(self, image, text: str, n_images: int = 1, strength: float = 0.8,
+                                    num_steps: Optional[int] = None, guidance: float = 4.0,
+                                    seed: Optional[int] = None):
+        """Flux img2img: encode the image (B|1, H, W, 3) in [-1, 1], put it
+        on the flow-matching schedule at start = min(round((1 − strength) ·
+        num_steps), num_steps − 1) as x_t = (1 − t)·x₀ + t·ε with t =
+        ts[start], and denoise the remaining steps. strength 1 is pure noise;
+        a small strength stays near the input. The same protocol as
+        `generate_latents`."""
+        num_steps = num_steps or (2 if self.schnell else 35)
+        device = self.device
+        img = to_device(image, self.dtype, device)
+        if img.dim() == 3:
+            img = img[None]
+        x0 = self._encode_image(img)
+        h, w = x0.shape[1], x0.shape[2]
+        x0 = pack_latents(x0)
+        x0 = x0.expand(n_images, *x0.shape[1:])
+        ts, g = self._schedule(num_steps, x0.shape[1], guidance, device)
+        start = min(int(round((1 - strength) * num_steps)), num_steps - 1)
+        eps = sampler_mod.sample_prior(make_generator(device, seed), tuple(x0.shape), self.dtype)
+        x_t = sampler_mod.add_noise(x0, ts[start], eps)
+        yield from self._protocol(x_t, latent_ids(n_images, h, w, device=device), *self.tokenize(text), ts, g,
+                                  start)
+
+    def generate_images_fused(self, text: str, num_steps: Optional[int] = None, guidance: float = 4.0,
+                              latent_size: Tuple[int, int] = (64, 64), seed: Optional[int] = None):
+        """The one-call request: tokens → T5 / CLIP → prior → denoise → uint8
+        decode, for the batch of the token rows, with no host
+        synchronisation between the phases (the JAX package's one-program
+        path). The same uint8 images as `generate_images(..., as_uint8=True)`
+        at the same seed."""
+        num_steps = num_steps or (2 if self.schnell else 35)
+        device = self.device
+        h, w = latent_size
+        t5_tokens, clip_tokens = self.tokenize(text)
+        n = t5_tokens.shape[0]
+        txt, txt_ids, vec = self.prepare_conditioning(n, t5_tokens, clip_tokens)
+        x = sampler_mod.sample_prior(make_generator(device, seed), (n, h, w, self.ae_cfg.z_channels), self.dtype)
+        x_t = self.denoise_latents(pack_latents(x), latent_ids(n, h, w, device=device), txt, txt_ids, vec,
+                                   num_steps, guidance)
+        return self._decode(x_t, h, w, as_uint8=True)
 
     # -------------------------------------------------- training
 

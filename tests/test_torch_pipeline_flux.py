@@ -212,3 +212,140 @@ def test_random_init_is_seeded():
     for x, y in zip(jax.tree.leaves(to_numpy(a.params)), jax.tree.leaves(to_numpy(b.params))):
         np.testing.assert_array_equal(x, y)
     assert a.device == torch.device("cpu")
+
+
+# ------------------------------------------------------------ the generator protocol, img2img, fused
+# Noise enters both pipelines from numpy: the JAX package's sample_prior and
+# jax.random.normal, the port's sample_prior, each replaced by a function
+# that hands out the array of the request's seed. Latents against JAX at atol
+# 1e-4 over up to 4 steps, as test_methods_match_jax_pipeline; uint8 images
+# within one level.
+
+
+def _seed_of_key(key):
+    return int(np.asarray(jax.random.key_data(key)).ravel()[-1])
+
+
+@pytest.fixture
+def seeded_noise(monkeypatch):
+    """seed → numpy noise, served to both packages by the shape asked for.
+    Inside a jitted JAX function the key is traced: `noise.traced_seed`
+    names the seed then."""
+    table = {}
+
+    def noise(seed, shape):
+        key = (seed, tuple(shape))
+        if key not in table:
+            table[key] = np.random.default_rng(100 + seed).standard_normal(shape).astype(np.float32)
+        return table[key]
+
+    def jax_prior(key, shape, dtype):
+        seed = noise.traced_seed if isinstance(key, jax.core.Tracer) else _seed_of_key(key)
+        return jnp.asarray(noise(seed, shape), dtype)
+
+    noise.traced_seed = None
+
+    def torch_prior(generator, shape, dtype, device=None):
+        return torch.from_numpy(noise(generator.initial_seed(), shape)).to(dtype)
+
+    monkeypatch.setattr(jflux.sampler_mod, "sample_prior", jax_prior)
+    monkeypatch.setattr(jax.random, "normal", jax_prior)
+    monkeypatch.setattr(tflux.sampler_mod, "sample_prior", torch_prior)
+    return noise
+
+
+@pytest.fixture(scope="module")
+def tokenized_pipelines(quantized_pipelines):
+    pipe_j, pipe_t = quantized_pipelines
+    for pipe in (pipe_j, pipe_t):
+        pipe.t5_tokenizer = _Tokenizer(12, pipe_j.t5_cfg.vocab_size)
+        pipe.clip_tokenizer = _Tokenizer(7, pipe_j.clip_cfg.vocab_size)
+    return pipe_j, pipe_t
+
+
+def _assert_protocol_equal(steps_t, steps_j, n_steps):
+    steps_t, steps_j = list(steps_t), list(steps_j)
+    assert len(steps_t) == len(steps_j) == n_steps + 1
+    for a, b in zip(steps_t[0], steps_j[0]):  # the conditioning tuple
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32), atol=1e-4)
+    for a, b in zip(steps_t[1:], steps_j[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+    return steps_t
+
+
+def test_generate_latents_matches_jax(tokenized_pipelines, seeded_noise):
+    pipe_j, pipe_t = tokenized_pipelines
+    kw = dict(n_images=2, num_steps=3, guidance=4.0, latent_size=(8, 12), seed=7)
+    _assert_protocol_equal(pipe_t.generate_latents("a red fox", **kw),
+                           pipe_j.generate_latents("a red fox", **kw), 3)
+
+
+def test_generate_latents_batch_matches_jax(tokenized_pipelines, seeded_noise):
+    """One prior per seed (None is seed 0), the prompts' token rows
+    concatenated."""
+    pipe_j, pipe_t = tokenized_pipelines
+    texts, seeds = ["a red fox", "an old lighthouse at dusk", "snow"], [3, None, 11]
+    kw = dict(num_steps=2, guidance=4.0, latent_size=(8, 8))
+    steps = _assert_protocol_equal(pipe_t.generate_latents_batch(texts, seeds, **kw),
+                                   pipe_j.generate_latents_batch(texts, seeds, **kw), 2)
+    x_t = steps[0][0]
+    assert x_t.shape[0] == 3
+    np.testing.assert_array_equal(x_t[1].numpy(), tflux.pack_latents(
+        torch.from_numpy(seeded_noise(0, (1, 8, 8, pipe_t.ae_cfg.z_channels))))[0].numpy())
+    with pytest.raises(ValueError):
+        next(pipe_t.generate_latents_batch(texts, seeds[:2]))
+
+
+@pytest.mark.parametrize("strength,hw", [(1.0, (32, 32)), (0.5, (32, 32)), (0.2, (32, 32)), (0.5, (1040, 16))],
+                         ids=["s1.0", "s0.5", "s0.2", "s0.5_tiled_encode"])
+def test_generate_latents_from_image_matches_jax(tokenized_pipelines, seeded_noise, strength, hw):
+    """img2img: the start step, noise at ts[start] in the working dtype, the
+    remaining steps; a 1040 px side takes the tiled encode (768² tiles,
+    overlap 128, in image pixels)."""
+    pipe_j, pipe_t = tokenized_pipelines
+    image = np.tanh(np.random.default_rng(21).standard_normal((1, *hw, 3))).astype(np.float32)
+    kw = dict(n_images=2, strength=strength, num_steps=4, guidance=4.0, seed=5)
+    start = min(int(round((1 - strength) * 4)), 3)
+    steps = _assert_protocol_equal(pipe_t.generate_latents_from_image(image, "a red fox", **kw),
+                                   pipe_j.generate_latents_from_image(image, "a red fox", **kw), 4 - start)
+    f = pipe_t.ae_downsample
+    assert steps[-1].shape == (2, hw[0] // f * hw[1] // f // 4, 4 * pipe_t.ae_cfg.z_channels)
+
+
+def test_tiled_encode_runs_above_1024(tokenized_pipelines, monkeypatch):
+    """A 1040 px side goes through tiled_decode_2d with the JAX package's
+    768 / 128 / 1/f; 1024 px does not."""
+    from flux_generator_tpu_torch.ops import tiling
+
+    _, pipe_t = tokenized_pipelines
+    calls = []
+    real = tiling.tiled_decode_2d
+    monkeypatch.setattr(tflux, "tiled_decode_2d",
+                        lambda fn, x, **kw: calls.append((tuple(x.shape), kw)) or real(fn, x, **kw))
+    pipe_t._encode_image(torch.zeros(1, 1024, 8, 3))
+    assert calls == []
+    pipe_t._encode_image(torch.zeros(1, 1040, 8, 3))
+    assert calls == [((1, 1040, 8, 3), dict(tile=768, overlap=128, factor=1 / pipe_t.ae_downsample))]
+
+
+def test_generate_images_fused_matches_jax_and_generate_images(tokenized_pipelines, seeded_noise):
+    pipe_j, pipe_t = tokenized_pipelines
+    kw = dict(num_steps=2, guidance=4.0, latent_size=(8, 8), seed=9)
+    seeded_noise.traced_seed = 9
+    got = pipe_t.generate_images_fused("a red fox", **kw)
+    want = np.asarray(pipe_j.generate_images_fused("a red fox", **kw))
+    assert got.dtype == torch.uint8 and got.shape == want.shape == (1, 16, 16, 3)
+    assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
+    assert torch.equal(got, pipe_t.generate_images("a red fox", as_uint8=True, **kw))
+
+
+def test_decode_above_128_latents_matches_jax(tokenized_pipelines):
+    """Past 128 latent pixels on a side the decode is tiled (96² tiles,
+    overlap 16) in both packages."""
+    pipe_j, pipe_t = tokenized_pipelines
+    h, w = 136, 8
+    x = np.random.default_rng(22).standard_normal((1, h * w // 4, 4 * pipe_j.ae_cfg.z_channels)).astype(np.float32)
+    want = np.asarray(pipe_j.decode(jnp.asarray(x), (h, w)))
+    got = pipe_t.decode(torch.from_numpy(x), (h, w))
+    assert got.shape == want.shape == (1, 2 * h, 2 * w, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)

@@ -257,8 +257,8 @@ def test_encode_matches_jax(vae):
 
 
 def test_pipeline_encode_image_matches_jax(vae):
-    """The trainer's entry `_encode_image` against the JAX pipeline's; past
-    1024² it raises (the tiled encode is not ported)."""
+    """The trainer's entry `_encode_image` against the JAX pipeline's, also
+    past 1024 px, where both encode in overlapping 768² tiles."""
     cfg_j, params_j, cfg_t, params_t = vae
     flow_cfg = tiny_flux_config(guidance_embed=True)
     pipe_j = jflux.FluxPipeline("flux-dev", {"ae": params_j}, flow_cfg, cfg_j, None, None,
@@ -268,8 +268,11 @@ def test_pipeline_encode_image_matches_jax(vae):
     x = np.random.default_rng(9).uniform(-1, 1, (1, 16, 16, 3)).astype(np.float32)
     want = np.asarray(pipe_j._encode_image(pipe_j.params, jnp.asarray(x)))
     np.testing.assert_allclose(pipe_t._encode_image(torch.from_numpy(x)).numpy(), want, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        pipe_t._encode_image(torch.zeros((1, 1032, 8, 3)))
+    big = np.random.default_rng(10).uniform(-1, 1, (1, 1040, 16, 3)).astype(np.float32)
+    want = np.asarray(pipe_j._encode_image(pipe_j.params, jnp.asarray(big)))
+    got = pipe_t._encode_image(torch.from_numpy(big))
+    assert got.shape == want.shape == (1, 260, 4, cfg_t.z_channels)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
 def test_sampler_noise_and_timesteps():
