@@ -5,10 +5,10 @@
 
 Phases, each of which fails the run on error:
   1. device         — the card's name and power limit; no CUDA device is an error.
-  2. build          — compile the eight CUDA sources (kernels A-H, the
-                      decode-chain probe #11 and the bare-dot probe #13) from
-                      csrc/ with nvcc, all at once, with the ptxas report of
-                      each.
+  2. build          — compile the nine CUDA sources (kernels A-H, the
+                      decode-chain probe #11, the chain-bisect probe #12 and
+                      the bare-dot probe #13) from csrc/ with nvcc, all at
+                      once, with the ptxas report of each.
   3. kernels        — flash attention (A) and the int4 matmul (B) against their
                       plain PyTorch versions at the shapes of the Flux-schnell
                       512² path, with times of both; B also at one row, 17
@@ -22,6 +22,15 @@ Phases, each of which fails the run on error:
                       at 48 layers, M 8, timed in turns with D (bf16 cache,
                       B 2, W 500) on the same weights; then the probe's entry
                       point (scripts/prof_decode_chain.run).
+     kernels-chain-bisect — the chain-bisect probe (#12) against its plain
+                      version at 48 layers, M 8 and M 2, for its eight
+                      cumulative rungs (no extras, then smem, ln, cross, hbm,
+                      bufs, outs, dma added in turn), each timed in turns with
+                      #11 on the same weights; a control that must miss the
+                      tolerance; each rung's cost over the one before beside
+                      D − #11; then the probe's entry point
+                      (scripts/prof_chain_bisect.run: the script's ladder,
+                      then every extra).
   5. kernels-train  — the flash backward, dQ (E) and dK/dV (F), through the
                       autograd function against the plain backward in f32 at
                       the Flux-dev and Flux-schnell training shapes, a padded
@@ -184,7 +193,8 @@ LONG_STEPS = 2500  # the JAX package's longest request (about 50 s of audio)
 # bf16 tier run on the widened caches (the same kernel arithmetic) y and the
 # encoded new rows of every layer are held byte for byte.
 DECODE_F8_REL_TOL = 1e-2
-CHAIN_REL_TOL = 1e-2  # the decode-chain probe, of max|y|, as D
+# the chain probes (#11, #12), of max|y| (and #12's max|kn|, max|vn|), as D
+CHAIN_REL_TOL = 1e-2
 
 
 def log(*args):
@@ -203,14 +213,6 @@ def bound_ms_parts(parts, nbytes: float):
     t_ops = sum(ops / peak for ops, peak in parts) * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def unported_bounds():
-    """Bounds of the TPU kernels not ported yet, at the shapes they would
-    take on the card: the chain bisect's 48 × 14 (1536, 1536) int8 weight
-    stream."""
-    chain = 48 * 14 * 1536 * 1536
-    return {"chain_bisect_probe": bound_ms(2 * chain, chain)}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -271,6 +273,7 @@ def phase_device():
 def phase_build():
     from flux_generator_tpu_torch.ops.kernels import _build
     from flux_generator_tpu_torch.ops.kernels import bare_dot as bd
+    from flux_generator_tpu_torch.ops.kernels import chain_bisect as cb
     from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
@@ -280,7 +283,8 @@ def phase_build():
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
     mods = {"flash_attention": fa, "int4_matmul": im, "lstm": lk, "decode_step": ds,
-            "flash_attention_bwd": fb, "w8a8_matmul": wm, "decode_chain": dc, "bare_dot": bd}
+            "flash_attention_bwd": fb, "w8a8_matmul": wm, "decode_chain": dc, "bare_dot": bd,
+            "chain_bisect": cb}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
         futures = {name: pool.submit(_build.load, name, mod._SIGNATURES) for name, mod in mods.items()}
@@ -1480,6 +1484,96 @@ def phase_kernels_chain():
                                   decode_step_ms_in_turns=d_ms, probe=run, launches=launches)]}
 
 
+def phase_kernels_chain_bisect(chain):
+    """The chain-bisect probe (#12) against its plain version at 48 layers, M 8
+    and M 2, for each of its eight cumulative rungs, on #11's weights and
+    seeded random LN params, cross K/V and caches (W 512, chunk 512); each
+    rung timed in turns with #11 (#11, rung, rung, #11 twice over) and shown
+    beside D's time from `chain` (kernels-chain's record). A control must miss
+    the tolerance: the no-extras rung's output against the ln rung's plain
+    output. Then the attribution: each rung's cost over #11 less the rung
+    before's (each in its own turns), summed beside D − #11 at 2 rows; and
+    one run of the probe's entry point (the script's ladder, then every
+    extra), whose launches are the line's."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import chain_bisect as cb
+    from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
+    from flux_generator_tpu_torch.scripts import prof_chain_bisect as probe
+    from flux_generator_tpu_torch.scripts import prof_decode_chain as chain_probe
+
+    dev = torch.device("cuda")
+    L, H, window = 48, probe.H, 512
+    d_ms = chain["decode_step_ms_in_turns"]
+    w, s, x8 = chain_probe.make_inputs(L, dev)
+    every = probe.make_extra_operands(cb.RUNGS[-1], L, window, dev)
+    cases, failures = [], []
+    for m in (8, 2):
+        x = x8[:m].contiguous()
+        for spec in cb.RUNGS:
+            ex = cb.parse_extras(spec)
+            ops = {k: v for k, v in every.items() if cb.OPERAND_EXTRA[k] in ex}
+            got = cb.chain_bisect(w, s, x, spec, **ops)
+            ref = cb.chain_bisect_plain(w, s, x, spec, **ops)
+            torch.cuda.synchronize()
+            errs = probe.rel_errors(got, ref)
+            y = got[0] if isinstance(got, tuple) else got
+            yr = ref[0] if isinstance(ref, tuple) else ref
+            abs_err = (y.float() - yr.float()).abs().max().item()
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in (got if isinstance(got, tuple) else (got,)))
+            rung = lambda: cb.chain_bisect(w, s, x, spec, **ops)  # noqa: E731
+            chain11 = lambda: dc.decode_chain(w, s, x)  # noqa: E731
+            t = [time_ms(f, iters=30) for f in (chain11, rung, rung, chain11) * 2]
+            ms, chain_ms = statistics.mean(t[1::4] + t[2::4]), statistics.mean(t[0::4] + t[3::4])
+            plain_ms = time_ms(lambda: cb.chain_bisect_plain(w, s, x, spec, **ops), iters=2, warmup=1)
+            nbytes = probe.step_bytes(spec, L, m, window)
+            bound = bound_ms(2 * m * w.numel(), nbytes)
+            plan = cb.plan(m, H, spec)
+            log(f"[kernels-chain-bisect] M {m} rung {spec or '-'}: max|Δ|/max {errs} (tol {CHAIN_REL_TOL}) | "
+                f"kernel {ms:.4f} ms, #11 in turns {chain_ms:.4f} ms ({ms - chain_ms:+.4f}), D {d_ms:.4f} ms | plain "
+                f"{plain_ms:.4f} ms"
+                f" | bound {bound[0]:.4f} ms ({bound[1]}, {nbytes / 1e9:.4f} GB) | grid {plan['grid']}, "
+                f"{plan['blocks_per_sm']} blocks/SM, {plan['smem_bytes']} B shared a block")
+            if not (max(errs.values()) <= CHAIN_REL_TOL and finite):
+                failures.append(f"M {m} rung {spec!r}: {errs}, finite {finite}")
+            cases.append(dict(case=f"M{m}_{spec or 'none'}", rows=m, extras=spec, max_abs_err=abs_err, rel_errs=errs,
+                              ms=ms, chain_ms_in_turns=chain_ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound[0],
+                              bound_by=bound[1], library_ms=None, **plan))
+    ops = {k: v for k, v in every.items() if cb.OPERAND_EXTRA[k] in ("smem", "ln")}
+    control = probe.rel_errors(cb.chain_bisect(w, s, x8, ""), cb.chain_bisect_plain(w, s, x8, "smem,ln", **ops))["y"]
+    log(f"[kernels-chain-bisect] control: the no-extras kernel against the ln rung's plain version "
+        f"{control:.3e} of max (must miss {CHAIN_REL_TOL})")
+    if not control > CHAIN_REL_TOL:
+        failures.append(f"the control passed the check: {control}")
+    d_minus_chain = d_ms - chain["m2_ms"]
+    attribution = {}
+    for m in (8, 2):
+        rows = [c for c in cases if c["rows"] == m]
+        excess = [c["ms"] - c["chain_ms_in_turns"] for c in rows]
+        deltas = [excess[0]] + [b - a for a, b in zip(excess, excess[1:])]
+        attribution[m] = dict(zip([c["extras"] or "none" for c in rows], deltas))
+        log(f"[kernels-chain-bisect] M {m} attribution, ms over the rung before (the first over #11): " + ", ".join(
+            f"{k} {v:+.4f}" for k, v in attribution[m].items()) + f" | sum {sum(deltas):+.4f} ms" +
+            (f" beside D − #11 at 2 rows {d_minus_chain:.4f} ms (kernels-chain: D {d_ms:.4f},"
+             f" #11 {chain['m2_ms']:.4f})" if m == 2 else ""))
+    del w, s, x8, every, ops
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("the chain bisect disagrees with its plain version: " + "; ".join(failures))
+    cb.launches = 0
+    runs = probe.run(ladder=True, steps=50)["rungs"] + probe.run(cb.RUNGS[-1], steps=50)["rungs"]
+    launches = cb.launches
+    for r in runs:
+        log(f"[kernels-chain-bisect] entry point rung {r['extras'] or '-'}: rel err {r['rel_err']:.3e}, "
+            f"{r['ms']:.4f} ms/step, bound {r['bound_ms']:.4f} ms, {r['blocks_per_sm']} blocks/SM")
+    log(f"[kernels-chain-bisect] entry point (the script's ladder, then every extra; 48 layers, 50 steps): "
+        f"{launches} launches")
+    if not (all(r["rel_err"] <= CHAIN_REL_TOL and r["finite"] for r in runs) and launches > 0):
+        raise AssertionError(f"the probe's run failed: {runs}, {launches} launches")
+    return {"chain_bisect": dict(cases=cases, control_rel_err=control, attribution=attribution,
+                                 d_minus_chain_ms=d_minus_chain, probe=runs, launches=launches)}
+
+
 def _serve_requests(steps):
     return [{"text": t, "max_steps": n, "seed": i + 1} for i, (t, n) in enumerate(zip(SERVE_TEXTS, steps))]
 
@@ -2227,6 +2321,7 @@ def main() -> int:
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import bare_dot as bd
+    from flux_generator_tpu_torch.ops.kernels import chain_bisect as cb
     from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
@@ -2246,6 +2341,7 @@ def main() -> int:
     kernels.update(run(phase_kernels_musicgen))
     kernels.update(run(phase_kernels_musicgen_f8))
     kernels.update(run(phase_kernels_chain))
+    kernels.update(run(lambda: phase_kernels_chain_bisect(kernels["decode_chain"][0])))
     kernels.update(run(phase_kernels_train))
     kernels.update(run(phase_kernels_w8a8))
     kernels.update(run(phase_kernels_bare_dot))
@@ -2326,14 +2422,19 @@ def main() -> int:
                         launches=probe_launches["flash_attention_int8_full_streamed"],
                         max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
                         bound_ms=case["bound_ms"], bound_by=case["bound_by"], library_ms=case["library_ms"]))
-    bounds = unported_bounds()
-    log("[bounds] kernels still to port: " + " | ".join(
-        f"{key} {ms:.4f} ms ({by})" for key, (ms, by) in bounds.items()))
+    bisect = kernels["chain_bisect"]
+    # the full rung (every extra) at the script's 8 rows; its launches are the
+    # probe entry point's
+    case = next(c for c in bisect["cases"] if c["rows"] == 8 and c["extras"] == cb.RUNGS[-1])
+    entries.append(dict(name="chain_bisect", route="cuda", source=cb.SOURCE, replaces=cb.REPLACES,
+                        launches=bisect["launches"], max_abs_err=max(c["max_abs_err"] for c in bisect["cases"]),
+                        ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                        bound_by=case["bound_by"], library_ms=case["library_ms"]))
     record = dict(device=smi, kernels=kernels, prof_attn_int8=streamed["prof_attn_int8"], main=main_run,
                   main_w8a8=main_w8a8, main_2048=main_2048,
                   main_musicgen=main_music, main_musicgen_serve=main_serve, main_musicgen_long=main_long,
                   main_train=main_train, small=small, small_tiled=small_tiled, small_w8a8=small_w8a8,
-                  small_musicgen=small_music, small_train=small_train, unported_bounds=bounds)
+                  small_musicgen=small_music, small_train=small_train)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -1,5 +1,5 @@
 // The weight-streaming machinery of the MusicGen decode step (kernel D,
-// decode_step.cu) and of its chain probe (decode_chain.cu), for Hopper
+// decode_step.cu) and of its probes (decode_chain.cu, chain_bisect.cu), for Hopper
 // (sm_90a): one persistent cooperative launch walks the layers' 14 weight
 // chunks of (H, H) in phases separated by grid syncs.
 //
@@ -63,9 +63,9 @@ constexpr int SM_FLOATS = SM_SEGS + MAXB * (H_MAX / SEG) * 2;
 constexpr size_t SMEM_BYTES = sizeof(float) * SM_FLOATS + W_STAGE;
 
 // where a projection's input rows come from: LN of the residual, the merged
-// attention splits, GELU of the partial sums of the previous projection, or
-// those partial sums as they are
-enum ASrc { A_LN = 0, A_ATT = 1, A_GELU = 2, A_SUM = 3 };
+// attention splits, GELU (exact, or its tanh form) of the partial sums of the
+// previous projection, or those partial sums as they are
+enum ASrc { A_LN = 0, A_ATT = 1, A_GELU = 2, A_SUM = 3, A_GELU_TANH = 4 };
 
 struct Args {
   const void* w;        // (L·14, H, H) int8 or bf16
@@ -219,12 +219,19 @@ __device__ void ln_stats(const Args& a, float* smem) {
   __syncthreads();
 }
 
-// One projection phase: out[slice][b][n] = Σ_{k in slice} A[b][k] · W[k][n].
-// a_slices: the attention splits (A_ATT) or the partial-sum slices of the
-// input (A_GELU, A_SUM), whose rows are src_n floats apart.
-template <bool I8, int MB>
+// A projection's output as it is: the default epilogue.
+struct KeepPartial {
+  __device__ float operator()(int, int, int, float v) const { return v; }
+};
+
+// One projection phase: out[slice][b][n] = epi(slice, b, n, Σ_{k in slice} A[b][k] · W[k][n]).
+// ln_slot: the row pair (scale, bias) of a.ln that an A_LN input takes, or
+// -1 for none. a_slices: the attention splits (A_ATT) or the partial-sum
+// slices of the input (A_GELU, A_GELU_TANH, A_SUM), whose rows are src_n
+// floats apart.
+template <bool I8, int MB, class Epi = KeepPartial>
 __device__ void projection(const Args& a, int layer, Proj pr, ASrc src, int ln_slot, int a_slices,
-                           int src_n, float* out, float* smem) {
+                           int src_n, float* out, float* smem, Epi epi = Epi()) {
   using Word = typename WeightWord<I8>::T;
   const int H = a.H, B = a.B;
   const int N = pr.n_out * H;
@@ -236,7 +243,7 @@ __device__ void projection(const Args& a, int layer, Proj pr, ASrc src, int ln_s
   float* red = smem + SM_RED;
   const float* st = smem + SM_STATS;
   if (src == A_LN) ln_stats(a, smem);
-  const bf16* lnp = a.ln ? a.ln + (size_t(layer) * 8 + ln_slot) * H : nullptr;
+  const bf16* lnp = a.ln && ln_slot >= 0 ? a.ln + (size_t(layer) * 8 + ln_slot) * H : nullptr;
   const Word* wsm = reinterpret_cast<const Word*>(stage_buf(smem)) + lane;
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -269,7 +276,11 @@ __device__ void projection(const Args& a, int layer, Proj pr, ASrc src, int ln_s
       } else {
         float h = 0.f;
         for (int s = 0; s < a_slices; ++s) h += __ldcg(a.pa + (size_t(s) * B + b) * src_n + k);
-        v = bfr(src == A_GELU ? 0.5f * h * (1.f + erff(h * 0.70710678118654752f)) : h);
+        if (src == A_GELU)
+          h = 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+        else if (src == A_GELU_TANH)
+          h = 0.5f * h * (1.f + tanhf(0.7978845608f * (h + 0.044715f * (h * h * h))));
+        v = bfr(h);
       }
       a_s[b * KT + (k - k0)] = v;
     }
@@ -308,15 +319,22 @@ __device__ void projection(const Args& a, int layer, Proj pr, ASrc src, int ln_s
       float v = red[b * TN + c];
 #pragma unroll
       for (int wp = 1; wp < WARPS; ++wp) v += red[(wp * MAXB + b) * TN + c];
-      out[(size_t(slice) * B + b) * N + n0 + c] = v;
+      out[(size_t(slice) * B + b) * N + n0 + c] = epi(slice, b, n0 + c, v);
     }
     __syncthreads();
   }
 }
 
-// x += Σ partial slices (or x = input), then each 256-column segment's mean
-// and M2 for the next LN; the last layer also writes y.
-__device__ void residual(const Args& a, int slices, bool init, bool last, float* smem) {
+// A residual update as it is: the default hook.
+struct KeepResidual {
+  __device__ float operator()(int, int, float v) const { return v; }
+};
+
+// x += Σ partial slices (or x = input), passed through hook(row, column, x),
+// then each 256-column segment's mean and M2 for the next LN; the last layer
+// also writes y.
+template <class Hook = KeepResidual>
+__device__ void residual(const Args& a, int slices, bool init, bool last, float* smem, Hook hook = Hook()) {
   const int H = a.H, B = a.B, nseg = H / SEG;
   float* buf = smem + SM_BUF;
   for (int item = blockIdx.x; item < B * nseg; item += gridDim.x) {
@@ -328,6 +346,7 @@ __device__ void residual(const Args& a, int slices, bool init, bool last, float*
     } else {
       v = __ldcg(a.xs + k);
       for (int s = 0; s < slices; ++s) v += __ldcg(a.pb + size_t(s) * B * H + k);
+      v = hook(b, sg * SEG + threadIdx.x, v);
     }
     a.xs[k] = v;
     if (last) a.y[k] = __float2bfloat16_rn(v);
@@ -345,6 +364,7 @@ __device__ void residual(const Args& a, int slices, bool init, bool last, float*
 
 struct Plan {
   int grid = 0;
+  int per_sm = 0;   // resident blocks an SM the launch uses
   int nominal = 0;  // BLOCKS_PER_SM · SMs: the grid every split is sized for
   int ks_qkv = 0, ks_o = 0, ks_up = 0, ks_dn = 0;
   size_t xs = 0, seg = 0, pa = 0, pb = 0, att = 0, att_ml = 0, total = 0;  // in floats
@@ -368,24 +388,25 @@ inline bool shape_ok(int B, int H) {
   return B >= 1 && B <= MAXB && H >= SEG && H <= H_MAX && H % SEG == 0 && H % TN == 0;
 }
 
-// The grid (co-resident blocks from the occupancy query), the k-slices and
-// the scratch layout of `kern` for B rows of width H. The k-slices follow the
-// nominal grid, not the occupancy of this instantiation, so every
-// instantiation splits its sums alike.
-inline cudaError_t make_plan(const void* kern, bool i8, int B, int H, Plan& p) {
+// The grid (co-resident blocks from the occupancy query at `smem` bytes of
+// dynamic shared memory a block), the k-slices and the scratch layout of
+// `kern` for B rows of width H. The k-slices follow the nominal grid, not the
+// occupancy of this instantiation, so every instantiation splits its sums alike.
+inline cudaError_t make_plan(const void* kern, bool i8, int B, int H, Plan& p, size_t smem = SMEM_BYTES) {
   int dev = 0, n_sm = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop || n_sm <= 0) return cudaErrorNotSupported;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, SMEM_BYTES);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  p.grid = std::min(per_sm, BLOCKS_PER_SM) * n_sm;
+  p.per_sm = std::min(per_sm, BLOCKS_PER_SM);
+  p.grid = p.per_sm * n_sm;
   p.nominal = BLOCKS_PER_SM * n_sm;
   const int nt = H / TN;
   const int kt_max = std::min(KT_MAX, W_STAGE / (TN * (i8 ? 1 : 2)));
