@@ -5,14 +5,18 @@
 
 Phases, each of which fails the run on error:
   1. device         — the card's name and power limit; no CUDA device is an error.
-  2. build          — compile the nine CUDA sources (kernels A-H, the
-                      decode-chain probe #11, the chain-bisect probe #12 and
-                      the bare-dot probe #13) from csrc/ with nvcc, all at
-                      once, with the ptxas report of each.
-  3. kernels        — flash attention (A) and the int4 matmul (B) against their
-                      plain PyTorch versions at the shapes of the Flux-schnell
-                      512² path, with times of both; B also at one row, 17
-                      rows, a ragged N and with f32 activations.
+  2. build          — compile the ten CUDA sources (kernels A-H, A's bf16
+                      mode in its own source, the decode-chain probe #11, the
+                      chain-bisect probe #12 and the bare-dot probe #13) from
+                      csrc/ with nvcc, all at once, with the ptxas report of
+                      each and A's bf16 kernel's registers, local memory,
+                      shared memory and blocks an SM.
+  3. kernels        — flash attention (A: its RoPE pre-pass and its bf16
+                      kernel) and the int4 matmul (B) against their plain
+                      PyTorch versions at the shapes of the Flux-schnell 512²
+                      path, with times of both, A's in turns with SDPA's
+                      forward; B also at one row, 17 rows, a ragged N and
+                      with f32 activations.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
                       plain versions at MusicGen-medium shapes, with times.
      kernels-musicgen-f8 — D's e4m3 cache tier against its plain version at
@@ -46,7 +50,8 @@ Phases, each of which fails the run on error:
      kernels-flash-streamed — A through flash_attention_streamed at L 16640
                       (the 2048² sequence): "", "qk" and "full" in groups of
                       1024 keys, held to their plain versions two heads at a
-                      time, SDPA's forward for scale; the streamed "full" at
+                      time, the bf16 mode in turns with SDPA's forward and
+                      its two stages timed alone; the streamed "full" at
                       L 1280 in groups of 64 and 1024; then the probe's entry
                       point, scripts/prof_attn_int8.run (8 steps).
   7. main           — Flux-schnell at full width on random weights (flow int8
@@ -232,6 +237,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_queued(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls, enqueued
+    behind a sleep kernel of about 10 ms so that the host's cost between
+    calls (a wrapper's checks and launch) does not show: for calls of tens of
+    µs. CUDA events around the calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # cycles: the device waits while the host enqueues
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(fns: dict, iters: int = 20) -> dict:
+    """Each fn of `fns` (two) timed by time_ms_queued in turns a, b, b, a →
+    {name: [ms, ms]}."""
+    (a, fa_), (b, fb) = fns.items()
+    out = {a: [], b: []}
+    for name, fn in ((a, fa_), (b, fb), (b, fb), (a, fa_)):
+        out[name].append(time_ms_queued(fn, iters))
+    return out
+
+
 def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     """Mean device time per fn() call: the sum of its CUDA kernels' times
     under torch.profiler. For library calls whose host-side cost (the
@@ -282,21 +318,30 @@ def phase_build():
     from flux_generator_tpu_torch.ops.kernels import lstm as lk
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
-    mods = {"flash_attention": fa, "int4_matmul": im, "lstm": lk, "decode_step": ds,
-            "flash_attention_bwd": fb, "w8a8_matmul": wm, "decode_chain": dc, "bare_dot": bd,
-            "chain_bisect": cb}
+    sources = dict(fa.BUILDS)  # flash_attention_sm90 (A's bf16 mode) and flash_attention (its int8 tiers)
+    sources.update({name: mod._SIGNATURES for name, mod in (
+        ("int4_matmul", im), ("lstm", lk), ("decode_step", ds), ("flash_attention_bwd", fb),
+        ("w8a8_matmul", wm), ("decode_chain", dc), ("bare_dot", bd), ("chain_bisect", cb))})
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
-        futures = {name: pool.submit(_build.load, name, mod._SIGNATURES) for name, mod in mods.items()}
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        futures = {name: pool.submit(_build.load, name, sigs) for name, sigs in sources.items()}
         for fut in futures.values():
             fut.result()
-    log(f"[build] all kernels: {time.perf_counter() - t0:.2f} s")
-    for name in mods:
+    log(f"[build] all {len(sources)} sources: {time.perf_counter() - t0:.2f} s")
+    for name in sources:
         nvcc_s, report = _build.BUILD_INFO[name]
         log(f"[build] {name}: nvcc {nvcc_s:.2f} s")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "spill", "Compiling entry", "C7512", "arning")):
                 log(f"[build]   {line.strip()}")
+    info = {d: fa.sm90_kernel_info(d) for d in fa.HEAD_DIMS}
+    for d, rec in info.items():
+        log(f"[build] flash_attention_sm90 D {d}: {rec['registers']} registers a thread at launch "
+            f"(setmaxnreg: 40 producer, 232 consumers), {rec['spill_bytes']} bytes of local memory, "
+            f"{rec['smem_bytes']} bytes of shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
+    if any("C7512" in line for line in _build.BUILD_INFO["flash_attention_sm90"][1].splitlines()):
+        log("[build] WARNING: ptxas serialized flash_attention_sm90's wgmma (C7512)")
+    return info
 
 
 def _flux_rope_tables(length: int, text: int = 256, axes_dim=(16, 56, 56)):
@@ -346,7 +391,12 @@ def phase_kernels():
     g = torch.Generator(device=dev).manual_seed(1234)
     results = {}
 
-    flash = []
+    # A's bf16 mode: the RoPE pre-pass, then the attention kernel
+    # (flash_attention_sm90.cu). Each held to its plain version; the route,
+    # the kernel alone and the pre-pass alone timed behind a sleep kernel
+    # (time_ms_queued), and the route in turns with SDPA's forward on the
+    # pre-rotated q/k in (B, H, L, D).
+    flash, rope_rows = [], []
     for label, length, rope in (("L1280_rope", 1280, True), ("L1000_rope_padding", 1000, True),
                                 ("L1280_norope", 1280, False)):
         q, k, v = (torch.randn((1, length, 24, 128), generator=g, device=dev).to(torch.bfloat16)
@@ -356,25 +406,46 @@ def phase_kernels():
         f32 = (lambda t: None if t is None else t.float())
         ref, ref_lse = fa.flash_attention_reference(f32(q), f32(k), f32(v), f32(cos), f32(sin))
         err = max((out.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, cos, sin))
-        plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, cos, sin))
-        # yardstick: SDPA's forward on pre-rotated q/k in (B, H, L, D), device time
-        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (
-            fa._rope_f32(q, cos, sin).to(q.dtype) if rope else q,
-            fa._rope_f32(k, cos, sin).to(q.dtype) if rope else k, v))
-        library_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs))
+        qr, kr = fa.rope_rotate(q, k, cos, sin) if rope else (q, k)
+        route_ms = time_ms_queued(lambda: fa.flash_attention(q, k, v, cos, sin))
+        ms = time_ms_queued(lambda: fa.flash_attention_sm90(qr, kr, v))
+        plain_ms = time_ms(lambda: fa.flash_attention_reference(qr, kr, v))
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qr, kr, v))
+        turns = in_turns({"route": lambda: fa.flash_attention(q, k, v, cos, sin),
+                          "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)})
+        library_ms = statistics.mean(turns["sdpa"])
         gflop = 4 * length * length * 128 * 24 / 1e9
-        # q, k, v, out bf16, the two tables, lse f32
-        bound = bound_ms(gflop * 1e9, 4 * q.numel() * 2 + (2 * cos.numel() * 2 if rope else 0)
-                         + length * 24 * 4)
-        log(f"[kernels] flash {label}: max|Δ| {err:.3e} (tol {FLASH_TOL}) | kernel {ms:.4f} ms "
-            f"({gflop / ms:.1f} TFLOP/s) | plain {plain_ms:.4f} ms | SDPA {library_ms:.4f} ms | "
-            f"bound {bound[0]:.4f} ms ({bound[1]})")
+        # the attention kernel's function: q, k, v, out bf16, lse f32
+        bound = bound_ms(gflop * 1e9, 4 * q.numel() * 2 + length * 24 * 4)
+        row = dict(case=label, max_abs_err=err, ms=ms, route_ms=route_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, turns_ms=turns, bound_ms=bound[0], bound_by=bound[1],
+                   tflops=gflop / ms, bound_share=bound[0] / ms)
+        note = ""
+        if rope:
+            got = fa.rope_rotate(q, k, cos, sin)
+            want = fa.rope_rotate_reference(q, k, cos, sin)
+            rope_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            rope_ms = time_ms_queued(lambda: fa.rope_rotate(q, k, cos, sin))
+            rope_plain_ms = time_ms(lambda: fa.rope_rotate_reference(q, k, cos, sin))
+            # q and k read, their rotations written, the two tables read
+            rope_bound = bound_ms(0, 4 * q.numel() * 2 + 2 * cos.numel() * 2)
+            rope_rows.append(dict(case=label, max_abs_err=rope_err, ms=rope_ms, plain_ms=rope_plain_ms,
+                                  library_ms=None, bound_ms=rope_bound[0], bound_by=rope_bound[1]))
+            row["rope_ms"] = rope_ms
+            note = (f" | pre-pass {rope_ms:.4f} ms (max|Δ| {rope_err:.1e}, must be 0; plain "
+                    f"{rope_plain_ms:.4f} ms; bound {rope_bound[0]:.4f} ms, {rope_bound[1]})")
+            if rope_err != 0:
+                raise AssertionError(f"flash {label}: the RoPE pre-pass differs from its plain version: {rope_err}")
+        log(f"[kernels] flash {label}: max|Δ| {err:.3e} (tol {FLASH_TOL}) | route {route_ms:.4f} ms | kernel "
+            f"{ms:.4f} ms ({gflop / ms:.1f} TFLOP/s, {100 * bound[0] / ms:.1f}% of the bound {bound[0]:.4f} ms, "
+            f"{bound[1]}){note} | plain {plain_ms:.4f} ms | in turns: route "
+            f"{' '.join(f'{t:.4f}' for t in turns['route'])}, SDPA fwd {' '.join(f'{t:.4f}' for t in turns['sdpa'])} ms")
         if not err <= FLASH_TOL:
             raise AssertionError(f"flash {label} disagrees with its plain version: {err}")
-        flash.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1]))
+        flash.append(row)
+        del qs, ks, vs, qr, kr
     results["flash_attention"] = flash
+    results["flash_attention_rope"] = rope_rows
 
     int4 = []
     for label, k_dim, n_dim, gs in (("qkvo_4096x4096_g128", 4096, 4096, 128),
@@ -527,6 +598,9 @@ def phase_kernels_flash_streamed():
     plain = {"": lambda *a: fa.flash_attention_reference(*a),
              "qk": lambda *a: fa.flash_attention_reference(*a, int8="qk"),
              "full": lambda *a: fa.streamed_full_reference(*a, blk_k=1024)}
+    # the bf16 mode's stages, and SDPA's forward on the same rotated q/k
+    q_rot, k_rot = fa.rope_rotate(q, k, cos, sin)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q_rot, k_rot, v))
     for tier in ("", "qk", "full"):
         name = {"": "bf16", "qk": "qk", "full": "full_streamed"}[tier]
         out, lse = fa.flash_attention_streamed(q, k, v, cos, sin, int8=tier, blk_k=1024)
@@ -538,8 +612,16 @@ def phase_kernels_flash_streamed():
         rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
         err = (out.float() - ref.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
-        ms = time_ms(lambda: fa.flash_attention_streamed(q, k, v, cos, sin, int8=tier, blk_k=1024),
-                     iters=3, warmup=1)
+        if tier:
+            ms = time_ms(lambda: fa.flash_attention_streamed(q, k, v, cos, sin, int8=tier, blk_k=1024),
+                         iters=3, warmup=1)
+        else:  # in turns with SDPA's forward; the pre-pass and the kernel alone
+            turns = in_turns({"route": lambda: fa.flash_attention_streamed(q, k, v, cos, sin, blk_k=1024),
+                              "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)},
+                             iters=5)
+            ms = statistics.mean(turns["route"])
+            kernel_ms = time_ms_queued(lambda: fa.flash_attention_sm90(q_rot, k_rot, v), iters=5)
+            rope_ms = time_ms_queued(lambda: fa.rope_rotate(q, k, cos, sin), iters=5)
         # the function's work: the kernel's second Q·Kᵀ sweep in "full" is its
         # design's, not the function's, and stays out of the bound
         parts = {"": [(2 * half, PEAK_BF16_FLOPS)], "qk": [(half, PEAK_INT8_OPS), (half, PEAK_BF16_FLOPS)],
@@ -547,6 +629,11 @@ def phase_kernels_flash_streamed():
         bound = bound_ms_parts(parts, io_bytes)
         rec = dict(case=f"L{l}_h{h}_rope_blk1024", max_abs_err=err, out_rel_l2=rel, lse_max_abs_err=err_lse,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        if not tier:
+            rope_bound = bound_ms(0, 4 * q.numel() * 2 + 2 * cos.numel() * 2)
+            rec.update(turns_ms=turns, library_ms=statistics.mean(turns["sdpa"]), kernel_ms=kernel_ms,
+                       rope_ms=rope_ms, rope_bound_ms=rope_bound[0], tflops=2 * half / kernel_ms / 1e9,
+                       bound_share=bound[0] / kernel_ms)
         if tier == "full":
             tol_out, tol_lse = INT8_ATTN_TOL["full"]
             ctrl, ctrl_lse = _plain_by_heads(lambda *a: fa.flash_attention_reference(*a, int8="full"),
@@ -571,6 +658,11 @@ def phase_kernels_flash_streamed():
         log(f"[kernels-flash-streamed] {name} L={l} H={h}: {note} | kernel {ms:.4f} ms "
             f"({2 * half / ms / 1e9:.1f} TFLOP/s-eff) | plain (2 heads at a time) {plain_ms:.1f} ms | "
             f"bound {bound[0]:.4f} ms ({bound[1]})")
+        if not tier:
+            log(f"[kernels-flash-streamed] bf16 L={l}: route in turns {' '.join(f'{t:.4f}' for t in turns['route'])}"
+                f" ms, SDPA fwd {' '.join(f'{t:.4f}' for t in turns['sdpa'])} ms | attention kernel alone "
+                f"{kernel_ms:.4f} ms ({2 * half / kernel_ms / 1e9:.1f} TFLOP/s, {100 * bound[0] / kernel_ms:.1f}% "
+                f"of the bound) | pre-pass alone {rope_ms:.4f} ms (bound {rope_bound[0]:.4f} ms, bytes)")
         if not ok:
             failures.append(f"{name} L {l}: {note}")
         cases[name] = rec
@@ -593,15 +685,12 @@ def phase_kernels_flash_streamed():
         if c_rel <= tol_out and c_lse_err <= tol_lse:
             failures.append(f"bf16 L {l}: the control {cname} passes ({c_rel}, {c_lse_err})")
     del controls, dropped, dropped_lse, qk_out2, qk_lse2, bf16_ref2, bf16_lse2
-    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (
-        fa._rope_f32(q, cos, sin).to(q.dtype), fa._rope_f32(k, cos, sin).to(q.dtype), v))
-    # a call of some ms: CUDA events around each call, the median of five
-    sdpa_ms = probe.median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs), reps=5)
-    log(f"[kernels-flash-streamed] SDPA bf16 forward L={l} H={h} (yardstick, for scale; CUDA events, median "
-        f"of 5): {sdpa_ms:.4f} ms ({2 * half / sdpa_ms / 1e9:.1f} TFLOP/s)")
+    sdpa_ms = cases["bf16"]["library_ms"]  # the mean of its turns with the bf16 route
+    log(f"[kernels-flash-streamed] SDPA bf16 forward L={l} H={h} (yardstick; CUDA events behind a sleep, in "
+        f"turns with the bf16 route): {sdpa_ms:.4f} ms ({2 * half / sdpa_ms / 1e9:.1f} TFLOP/s)")
     for name in cases:
         cases[name]["sdpa_bf16_ms"] = sdpa_ms
-    del q, k, v, qs, ks, vs
+    del q, k, v, q_rot, k_rot, qs, ks, vs
 
     short = []
     for length, blk in ((1280, 64), (1280, 1024)):
@@ -706,28 +795,28 @@ def phase_main():
     torch.cuda.synchronize()
     log(f"[main] warm-up request {time.perf_counter() - t0:.3f} s (not counted)")
 
-    fa.launches = 0
+    fa.launches = fa.rope_launches = 0
     im.launches = 0
     requests, images, latents = [], [], {}
     for seed, prompt in PROMPTS:
         torch.cuda.reset_peak_memory_stats()
-        fa0, im0 = fa.launches, im.launches
+        fa0, im0, rope0 = fa.launches, im.launches, fa.rope_launches
         trace = {}
         t0 = time.perf_counter()
         img = pipe.generate_images(prompt, num_steps=STEPS, latent_size=latent, seed=seed,
                                    as_uint8=True, trace=trace)
         torch.cuda.synchronize()
         latency = time.perf_counter() - t0
-        flash_n, int4_n = fa.launches - fa0, im.launches - im0
+        flash_n, int4_n, rope_n = fa.launches - fa0, im.launches - im0, fa.rope_launches - rope0
         finite = bool(torch.isfinite(trace["latent"]).all())
         rec = dict(seed=seed, latency_s=latency, conditioning_s=trace["conditioning_s"],
                    denoise_s=trace["denoise_s"], decode_s=trace["decode_s"],
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=flash_n,
-                   int4_launches=int4_n, shape=list(img.shape), dtype=str(img.dtype),
+                   flash_rope_launches=rope_n, int4_launches=int4_n, shape=list(img.shape), dtype=str(img.dtype),
                    latent_finite=finite)
         log(f"[main] request seed={seed}: {latency:.4f} s (conditioning {rec['conditioning_s']:.4f}"
             f" + denoise {rec['denoise_s']:.4f} + decode {rec['decode_s']:.4f}) | peak "
-            f"{rec['peak_gib']:.2f} GiB | launches flash {flash_n} int4 {int4_n} | "
+            f"{rec['peak_gib']:.2f} GiB | launches flash {flash_n} (RoPE pre-pass {rope_n}) int4 {int4_n} | "
             f"{tuple(img.shape)} {img.dtype} | latent finite {finite}")
         if tuple(img.shape) != (1, SIZE, SIZE, 3) or img.dtype != torch.uint8:
             raise AssertionError(f"image {tuple(img.shape)} {img.dtype}")
@@ -736,6 +825,8 @@ def phase_main():
         if flash_n != 57 * STEPS or int4_n != 24 * 7:
             raise AssertionError(f"launch counts flash {flash_n} (want {57 * STEPS}), "
                                  f"int4 {int4_n} (want {24 * 7})")
+        if rope_n != flash_n:  # every attention call of the flow rotates with its tables
+            raise AssertionError(f"RoPE pre-pass launches {rope_n}, want one an attention call ({flash_n})")
         requests.append(rec)
         images.append(img)
         latents[seed] = trace["latent"]
@@ -743,7 +834,8 @@ def phase_main():
         raise AssertionError("requests with different seeds gave identical images")
     record = dict(init_s=init_s, quantize_s=quant_s, setup_peak_gib=setup_peak,
                   resident_gib=resident, clip_tokens=clip_source, requests=requests,
-                  launches={"flash_attention": fa.launches, "int4_matmul": im.launches})
+                  launches={"flash_attention": fa.launches, "flash_attention_rope": fa.rope_launches,
+                            "int4_matmul": im.launches})
     return record, pipe, latents
 
 
@@ -763,7 +855,7 @@ def _reset_launch_counts():
     from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
-    fa.launches = im.launches = wm.launches = wm.quantize_launches = 0
+    fa.launches = im.launches = wm.launches = wm.quantize_launches = fa.rope_launches = 0
     fa.int8_launches.update(qk=0, full=0, full_streamed=0)
 
 
@@ -2190,7 +2282,8 @@ def phase_small_train():
 
 def _kernel_group(name: str) -> str:
     """Coarse group of a CUDA kernel by its name, for the profiles."""
-    for key, group in (("flash_fwd_kernel", "A flash forward"), ("flash_bwd_dq", "E flash dQ"),
+    for key, group in (("flash_fwd_sm90", "A flash forward"), ("rope_rotate", "A RoPE pre-pass"),
+                       ("flash_fwd_kernel", "A int8 flash forward"), ("flash_bwd_dq", "E flash dQ"),
                        ("flash_bwd_dkv", "F flash dK/dV"), ("int4_matmul", "B int4 matmul"),
                        ("w8a8_matmul_kernel", "G W8A8 matmul"), ("quantize_rows_kernel", "H row quantizer"),
                        ("v_col_amax", "A int8 V column pre-pass")):
@@ -2336,7 +2429,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         return out
 
-    phase_build()
+    build_info = phase_build()
     kernels = run(phase_kernels)
     kernels.update(run(phase_kernels_musicgen))
     kernels.update(run(phase_kernels_musicgen_f8))
@@ -2367,6 +2460,7 @@ def main() -> int:
     entries = []
     for mod, key, main_case, path in (
             (fa, "flash_attention", "L1280_rope", main_run),
+            (fa, "flash_attention_rope", "L1280_rope", main_run),
             (im, "int4_matmul", "qkvo_4096x4096_g128", main_run),
             (lk, "lstm", "d1024_T497_bf16", main_music),
             (ds, "decode_step", "int8_B2_W500_off250", main_music)):
@@ -2390,8 +2484,8 @@ def main() -> int:
     for key, source, replaces, main_case in (
             ("w8a8_matmul", wm.SOURCE, wm.REPLACES, "qkv_1024x3072x9216"),
             ("w8a8_quantize_rows", wm.SOURCE, wm.REPLACES_QUANTIZE, "1024x3072"),
-            ("flash_attention_int8_qk", fa.SOURCE, fa.REPLACES, "L1280_rope"),
-            ("flash_attention_int8_full", fa.SOURCE, fa.REPLACES, "L1280_rope")):
+            ("flash_attention_int8_qk", fa.INT8_SOURCE, fa.REPLACES, "L1280_rope"),
+            ("flash_attention_int8_full", fa.INT8_SOURCE, fa.REPLACES, "L1280_rope")):
         case = next(c for c in kernels[key] if c["case"] == main_case)
         entries.append(dict(name=key, route="cuda", source=source, replaces=replaces,
                             launches=main_w8a8["launches"][key],
@@ -2417,7 +2511,7 @@ def main() -> int:
                             max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
                             bound_ms=case["bound_ms"], bound_by=case["bound_by"], library_ms=case["library_ms"]))
     case = kernels["flash_attention_streamed"]["full_streamed"]
-    entries.append(dict(name="flash_attention_int8_full_streamed", route="cuda", source=fa.SOURCE,
+    entries.append(dict(name="flash_attention_int8_full_streamed", route="cuda", source=fa.INT8_SOURCE,
                         replaces=fa.REPLACES_STREAMED_FULL,
                         launches=probe_launches["flash_attention_int8_full_streamed"],
                         max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
@@ -2430,7 +2524,11 @@ def main() -> int:
                         launches=bisect["launches"], max_abs_err=max(c["max_abs_err"] for c in bisect["cases"]),
                         ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
                         bound_by=case["bound_by"], library_ms=case["library_ms"]))
-    record = dict(device=smi, kernels=kernels, prof_attn_int8=streamed["prof_attn_int8"], main=main_run,
+    unlaunched = [e["name"] for e in entries if e["launches"] <= 0]
+    if unlaunched:
+        raise AssertionError(f"kernels that their paths never launched: {unlaunched}")
+    record = dict(device=smi, build=build_info, kernels=kernels, prof_attn_int8=streamed["prof_attn_int8"],
+                  main=main_run,
                   main_w8a8=main_w8a8, main_2048=main_2048,
                   main_musicgen=main_music, main_musicgen_serve=main_serve, main_musicgen_long=main_long,
                   main_train=main_train, small=small, small_tiled=small_tiled, small_w8a8=small_w8a8,

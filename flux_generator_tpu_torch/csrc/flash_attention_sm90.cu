@@ -1,0 +1,591 @@
+// Flash-attention forward in bf16 for Hopper (sm_90a): wgmma, a TMA ring, RoPE
+// applied once. Kernel A's bf16 mode; A's int8 tiers stay in flash_attention.cu.
+//
+// Replaces the bf16 tier of the TPU kernels `_attn_kernel` (one-shot, pallas_call
+// at flux_generator_tpu/ops/pallas/flash_attention.py:258) and `_flash_kernel`
+// (K/V streamed, :292). One kernel with a loop over K/V tiles takes any length.
+//
+// Computes, per (batch, head): O = softmax(q · k^T · scale) · v over (B, L, H, D)
+// bf16 tensors, D in {64, 128}, and the row logsumexp (B·H, L) in f32 that the
+// backward (kernels E and F) reads. Numerics as the plain version: Q·K^T
+// accumulates in f32, the softmax is f32 with the scale folded into exp2, P is
+// rounded to bf16 before P·V, and O is divided by the f32 row sum at the end;
+// lse = m·scale + log l.
+//
+// RoPE: `rope_rotate_kernel` rotates q and k once, before the attention kernel,
+// into scratch the wrapper allocates: interleaved pairs (2i, 2i+1) in f32 with
+// bf16 tables (B, L, D/2) shared by all heads, each product and sum rounded on
+// its own (no contraction into an FMA, as the plain version), then rounded to
+// bf16. It is the JAX wrapper's pre-rotation (flash_attention.py:581-604), which
+// the earlier kernel did inside every query block: at L 16640 each head's K was
+// rotated 130 times. The pre-pass moves 4·B·L·H·D·2 bytes (and the tables): about
+// 0.4 GB at L 16640, 31 MB at L 1280.
+//
+// Bound: tensor-core throughput. One call is 4·L²·D·H operations (Q·K^T and
+// P·V): 3.40 TFLOP at the Flux 2048² shape (L 16640, H 24, D 128), 3.44 ms at the
+// bf16 peak of 989 TFLOP/s, against 409 MB of q/k/v/o traffic (0.12 ms).
+//
+// Design: a block takes 128 query rows of one (batch, head), with three
+// warpgroups. Warpgroup 0 is the producer: it gives up registers (setmaxnreg 40)
+// and one of its threads issues every copy with TMA (cp.async.bulk.tensor, 4-D
+// tensor maps over (D, H, L, B), 128-byte swizzle, boxes of 64 values × 128
+// rows, so a D 128 row is two boxes): Q once, then 128-key K and V tiles, each
+// into its own ring of STAGES stages with a full mbarrier (the copy's bytes) and
+// an empty one (the 256 consumer threads), K_{j+1} before V_j, the order they
+// are consumed. TMA fills rows past L with zeros; keys past L are masked to −inf
+// and query rows past L are not stored. Warpgroups 1 and 2 (setmaxnreg 232)
+// each own 64 query rows: S = Q·K^T is wgmma m64n128k16 with both operands in
+// shared memory (K's rows are D-contiguous, the K-major B operand); the online
+// softmax runs on S in registers (row max and sum across the four lanes of a
+// quad); O += P·V is wgmma m64nDk16 with P from registers (the f32 accumulator
+// layout of two n8 column groups is the A fragment of one k16 step, after
+// rounding to bf16) and V from shared memory as the MN-major (transposed) B
+// operand. Two overlaps keep the tensor cores fed while the softmax runs: a
+// warpgroup issues S_j = Q·K_j^T and P_{j−1}·V_{j−1} together and runs S_j's
+// softmax while P_{j−1}·V_{j−1} is in flight (O is rescaled once it lands),
+// and the two warpgroups take turns to issue (named barriers), so that one's
+// softmax overlaps the other's products. No generic-proxy thread writes shared
+// memory that TMA or wgmma reads (Q, K and V arrive by TMA, P stays in
+// registers, O is stored from registers), so no fence.proxy.async is needed;
+// the empty barriers order each stage's wgmma reads before TMA overwrites it.
+// Shared memory: 160 KB at D 128 (one block an SM), 80 KB at D 64. Not yet
+// done: a persistent tile scheduler, a TMA store of O.
+
+#include <cuda.h>
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+using fgt::bf16;
+
+constexpr int BM = 128;      // query rows a block: two consumer warpgroups of 64
+constexpr int BN = 128;      // keys a K/V tile
+constexpr int STAGES = 2;    // K/V tiles in flight
+constexpr int THREADS = 384; // the producer warpgroup and two consumer warpgroups
+constexpr int BOX = 64;      // bf16 values in one 128-byte swizzled row of a TMA box
+constexpr int ROW_BYTES = BOX * 2;
+constexpr int CONSUMERS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Layout {
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;  // one K or one V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BARS = 1 + 4 * STAGES;  // Q; K full, V full, K empty, V empty [STAGES]
+  // + slack to align the base to the 1024 bytes of a 128-byte swizzle atom
+  static constexpr int ALLOC = BAR_OFF + BARS * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the barrier's phase of this parity has completed. (A poll count
+// with a __trap() after too many polls made ptxas hold the consumers to the
+// launch's 168 registers: spills, and wgmma serialized, warning C7512.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared memory;
+// completion counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (SW128).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Named barriers 1 and 2 order the two consumer warpgroups' products: a
+// warpgroup syncs on its own before it issues and arrives on the other's after.
+__device__ __forceinline__ void turn_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void turn_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+
+// Keeps the compiler from moving reads or writes of wgmma registers across an
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define FGT_D8(b) \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]), "+f"(d[b + 5]), \
+      "+f"(d[b + 6]), "+f"(d[b + 7])
+#define FGT_REGS32                                                                                 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, " \
+  "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define FGT_REGS64                                                                                  \
+  FGT_REGS32                                                                                        \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, " \
+  "%51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (+)= A·B, m64n128k16, A and B K-major in shared memory; d is overwritten
+// when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FGT_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24), FGT_D8(32), FGT_D8(40), FGT_D8(48), FGT_D8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A·B, m64nNk16 with N = 64 or 128: A from registers (the m16n8k16 A
+// fragment of this thread's warp's 16 rows), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FGT_REGS64 "}, {%64, %65, %66, %67}, %68, "
+      "p, 1, 1, 1;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24), FGT_D8(32), FGT_D8(40), FGT_D8(48), FGT_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FGT_REGS32 "}, {%32, %33, %34, %35}, %36, "
+      "p, 1, 1, 1;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef FGT_D8
+#undef FGT_REGS32
+#undef FGT_REGS64
+
+// Rotates one 16-byte chunk (four interleaved pairs) with its tables' four
+// (cos, sin) values; products and sums rounded one at a time.
+__device__ __forceinline__ uint4 rotate_chunk(uint4 x, uint2 cv, uint2 sv) {
+  const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&cv);
+  const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(&sv);
+  __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float e = __low2float(x2[j]);
+    const float o = __high2float(x2[j]);
+    const float c = (j & 1) ? __high2float(c2[j >> 1]) : __low2float(c2[j >> 1]);
+    const float s = (j & 1) ? __high2float(s2[j >> 1]) : __low2float(s2[j >> 1]);
+    x2[j] = __floats2bfloat162_rn(__fsub_rn(__fmul_rn(e, c), __fmul_rn(o, s)),
+                                  __fadd_rn(__fmul_rn(e, s), __fmul_rn(o, c)));
+  }
+  return x;
+}
+
+// The RoPE pre-pass: one 16-byte chunk of q and of k a thread, over (B, L, H, D)
+// with (B, L, D/2) tables.
+template <int D>
+__global__ void __launch_bounds__(256)
+rope_rotate_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ cos,
+                   const bf16* __restrict__ sin, bf16* __restrict__ qr, bf16* __restrict__ kr, int H,
+                   int64_t chunks) {
+  constexpr int CHUNKS = D / 8;  // a row's 16-byte chunks
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= chunks) return;
+  const int c = static_cast<int>(idx % CHUNKS);
+  const int64_t bl = idx / CHUNKS / H;  // b·L + l
+  const int64_t tab = bl * (D / 2) + c * 4;
+  const uint2 cv = *reinterpret_cast<const uint2*>(cos + tab);
+  const uint2 sv = *reinterpret_cast<const uint2*>(sin + tab);
+  reinterpret_cast<uint4*>(qr)[idx] = rotate_chunk(reinterpret_cast<const uint4*>(q)[idx], cv, sv);
+  reinterpret_cast<uint4*>(kr)[idx] = rotate_chunk(reinterpret_cast<const uint4*>(k)[idx], cv, sv);
+}
+
+// Online softmax of one logit tile (raw Q·K^T, keys from k0) in place: masks keys
+// past L, updates this thread's rows' running max and sum, leaves p = exp2((s −
+// m)·scale·log2 e) in sc and returns each row's rescale factor α.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], int k0, int L, int t, float sl2, float& m0,
+                                             float& m1, float& l0, float& l1, float& alpha0, float& alpha1) {
+  if (k0 + 2 * N > L) {  // keys past the real length
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (k0 + (i / 4) * 8 + t * 2 + (i & 1) >= L) sc[i] = -INFINITY;
+    }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  alpha0 = exp2f((m0 - mx0) * sl2);  // 0 at the first tile (m = −inf)
+  alpha1 = exp2f((m1 - mx1) * sl2);
+  m0 = mx0;
+  m1 = mx1;
+  const float mb0 = mx0 * sl2;
+  const float mb1 = mx1 * sl2;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    sc[i] = exp2f(fmaf(sc[i], sl2, -mb0));
+    sc[i + 1] = exp2f(fmaf(sc[i + 1], sl2, -mb0));
+    sc[i + 2] = exp2f(fmaf(sc[i + 2], sl2, -mb1));
+    sc[i + 3] = exp2f(fmaf(sc[i + 3], sl2, -mb1));
+    rs0 += sc[i] + sc[i + 1];
+    rs1 += sc[i + 2] + sc[i + 3];
+  }
+  l0 = l0 * alpha0 + rs0;
+  l1 = l1 * alpha1 + rs1;
+}
+
+// P (this thread's f32 p of a 64 × BN tile) as bf16 A fragments: key columns
+// 16kk..16kk+15 are the A fragment of k16 step kk.
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&sc)[N], uint32_t (&pa)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    pa[kk][0] = fgt::pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);
+    pa[kk][1] = fgt::pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = fgt::pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = fgt::pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse,
+                      int L, int H, float scale) {
+  using Lay = Layout<D>;
+  constexpr int BOXES = D / BOX;  // TMA boxes (and 64-column swizzle atoms) in a row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = base + Lay::K_OFF;
+  const uint32_t sV = base + Lay::V_OFF;
+  const uint32_t bar_q = base + Lay::BAR_OFF;
+  auto full_k = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
+  auto empty_k = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
+  auto empty_v = [&](int s) { return bar_q + 8u * (1 + 3 * STAGES + s); };
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * BM;
+  const int n_tiles = (L + BN - 1) / BN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), CONSUMERS);
+      mbar_init(empty_v(s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: Q, then K_0, then K_{j+1} before V_j, the order the consumers take them
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty, int j) {
+        const int s = j % STAGES;
+        mbar_wait(empty, ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, Lay::KV_BYTES);
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_4d(ring + s * Lay::KV_BYTES + x * BN * ROW_BYTES, map, full, x * BOX, h, j * BN, b);
+        }
+      };
+      mbar_expect_tx(bar_q, Lay::Q_BYTES);
+      for (int x = 0; x < BOXES; ++x) tma_load_4d(sQ + x * BM * ROW_BYTES, &tm_q, bar_q, x * BOX, h, q0, b);
+      load(&tm_k, sK, full_k(0), empty_k(0), 0);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j + 1 < n_tiles) {
+          const int s = (j + 1) % STAGES;
+          load(&tm_k, sK, full_k(s), empty_k(s), j + 1);
+        }
+        load(&tm_v, sV, full_v(j % STAGES), empty_v(j % STAGES), j);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows [cw·64, cw·64 + 64) of the block.
+  // Iteration j issues S_j = Q·K_j^T and O += P_{j−1}·V_{j−1} together, then
+  // runs the softmax of S_j while P_{j−1}·V_{j−1} is in flight; the two
+  // warpgroups take turns to issue, so one's softmax overlaps the other's
+  // products.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int my_turn = 1 + cw;
+  const int other_turn = 2 - cw;
+
+  float acc[D / 2];  // O: column group n holds acc[4n..4n+3] (rows g, g + 8; columns 8n + 2t, + 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8 (unscaled logits)
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of their running sums
+  float alpha0, alpha1;
+  const float sl2 = scale * LOG2E;       // logits → exp2 domain
+  const uint32_t q_rows = sQ + cw * 64 * ROW_BYTES;
+
+  // S = Q·K_j^T: D/16 k16 steps, 32 bytes along a swizzled 128-byte row each
+  auto issue_s = [&](float (&sc)[BN / 2], int j) {
+    const uint32_t k_tile = sK + (j % STAGES) * Lay::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = desc_sw128(q_rows + (kk / 4) * BM * ROW_BYTES + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = desc_sw128(k_tile + (kk / 4) * BN * ROW_BYTES + (kk % 4) * 32, 16, 1024);
+      wgmma_ss_n128(sc, da, db, kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P·V_j: 16 keys a k16 step = two 8-row groups (SBO); the next 64
+  // columns of D are the next box (LBO)
+  auto issue_pv = [&](const uint32_t (&pa)[BN / 16][4], int j) {
+    const uint32_t v_tile = sV + (j % STAGES) * Lay::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      wgmma_rs(acc, pa[kk], desc_sw128(v_tile + kk * 16 * ROW_BYTES, BN * ROW_BYTES, 1024));
+    }
+    wgmma_commit();
+  };
+
+  if (cw == 1) turn_arrive(1);  // warpgroup 1 lets warpgroup 0 issue first
+  mbar_wait(bar_q, 0);
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];
+
+  mbar_wait(full_k(0), 0);
+  turn_sync(my_turn);
+  wgmma_fence();
+  issue_s(sc, 0);
+  turn_arrive(other_turn);
+  wgmma_wait0();
+  fence_regs(sc);
+  mbar_arrive(empty_k(0));
+  softmax_tile(sc, 0, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
+  pack_p(sc, pa);
+
+  for (int j = 1; j < n_tiles; ++j) {
+    mbar_wait(full_k(j % STAGES), (j / STAGES) & 1);
+    mbar_wait(full_v((j - 1) % STAGES), ((j - 1) / STAGES) & 1);
+    turn_sync(my_turn);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_s(sc, j);
+    issue_pv(pa, j - 1);
+    turn_arrive(other_turn);
+    wgmma_wait1();  // S_j
+    fence_regs(sc);
+    mbar_arrive(empty_k(j % STAGES));
+    softmax_tile(sc, j * BN, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
+    wgmma_wait0();  // P_{j−1}·V_{j−1}
+    fence_regs(acc);
+    fence_regs(sc);  // P_j's fragments only once P_{j−1}'s are read
+    mbar_arrive(empty_v((j - 1) % STAGES));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+    pack_p(sc, pa);
+  }
+
+  const int last = n_tiles - 1;
+  mbar_wait(full_v(last % STAGES), (last / STAGES) & 1);
+  turn_sync(my_turn);
+  fence_regs(acc);
+  wgmma_fence();
+  issue_pv(pa, last);
+  if (cw == 0) turn_arrive(other_turn);  // warpgroup 0's last turn; warpgroup 1 has none left to give
+  wgmma_wait0();
+  fence_regs(acc);
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int r0 = q0 + cw * 64 + warp * 16 + g;
+  const int r1 = r0 + 8;
+  const int64_t row_stride = static_cast<int64_t>(H) * D;
+  bf16* ob = o + (static_cast<int64_t>(b) * L * H + h) * D;
+  if (r0 < L) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * row_stride + n * 8 + t * 2) =
+          __floats2bfloat162_rn(acc[4 * n] / l0, acc[4 * n + 1] / l0);
+    }
+    if (t == 0) lse[static_cast<int64_t>(bh) * L + r0] = m0 * scale + logf(l0);
+  }
+  if (r1 < L) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * row_stride + n * 8 + t * 2) =
+          __floats2bfloat162_rn(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
+    }
+    if (t == 0) lse[static_cast<int64_t>(bh) * L + r1] = m1 * scale + logf(l1);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library
+// needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A (B, L, H, D) contiguous bf16 tensor as a 4-D map (D, H, L, B) with boxes of
+// 64 values × `rows` rows of one (batch, head), 128-byte swizzle, zero fill.
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(H) * D * 2,
+                                 static_cast<cuuint64_t>(L) * H * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(BOX), 1u, static_cast<cuuint32_t>(rows), 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// setmaxnreg moves registers inside the block's allocation: the consumers'
+// 232 and the producer's 40 must fit in what the block got at launch, or the
+// consumers' setmaxnreg.inc would wait forever.
+constexpr int REG_POOL = 128 * 40 + CONSUMERS * 232;
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, bf16* o, float* lse, int B, int L, int H,
+                   float scale, cudaStream_t stream) {
+  static bool regs_checked = false;
+  if (!regs_checked) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_sm90_kernel<D>);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * THREADS < REG_POOL) return cudaErrorInvalidConfiguration;
+    regs_checked = true;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::ALLOC);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, B, L, H, D, BM) || !encode_map(&tk, k, B, L, H, D, BN) ||
+      !encode_map(&tv, v, B, L, H, D, BN)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((L + BM - 1) / BM, B * H);
+  flash_fwd_sm90_kernel<D><<<grid, THREADS, Layout<D>::ALLOC, stream>>>(tq, tk, tv, o, lse, L, H, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t info(int* regs, int* spill_bytes, int* smem_bytes, int* blocks_per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Layout<D>::ALLOC);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, flash_fwd_sm90_kernel<D>);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *spill_bytes = static_cast<int>(attr.localSizeBytes);
+  *smem_bytes = Layout<D>::ALLOC + static_cast<int>(attr.sharedSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_fwd_sm90_kernel<D>, THREADS,
+                                                       Layout<D>::ALLOC);
+}
+
+}  // namespace
+
+// q, k, v, o: (B, L, H, D) contiguous bf16, q, k and v 16-byte aligned (TMA);
+// lse: (B·H, L) f32. Attention without RoPE (rotate q and k first with
+// fgt_rope_rotate). Returns a cudaError_t: cudaErrorInvalidValue also when a
+// tensor map cannot be encoded.
+extern "C" int fgt_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
+                                  int H, int D, float scale, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  bf16* ob = static_cast<bf16*>(o);
+  float* lb = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128) return static_cast<int>(launch<128>(q, k, v, ob, lb, B, L, H, scale, st));
+  if (D == 64) return static_cast<int>(launch<64>(q, k, v, ob, lb, B, L, H, scale, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The RoPE pre-pass: qr, kr = rope(q), rope(k) over (B, L, H, D) contiguous bf16
+// (16-byte aligned) with (B, L, D/2) contiguous bf16 tables (8-byte aligned).
+extern "C" int fgt_rope_rotate(const void* q, const void* k, const void* cos, const void* sin, void* qr, void* kr,
+                               int B, int L, int H, int D, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || (D != 64 && D != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t chunks = static_cast<int64_t>(B) * L * H * (D / 8);
+  const dim3 grid(static_cast<unsigned>((chunks + 255) / 256));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* cb = static_cast<const bf16*>(cos);
+  const bf16* sb = static_cast<const bf16*>(sin);
+  bf16* qo = static_cast<bf16*>(qr);
+  bf16* ko = static_cast<bf16*>(kr);
+  if (D == 128) {
+    rope_rotate_kernel<128><<<grid, 256, 0, st>>>(qb, kb, cb, sb, qo, ko, H, chunks);
+  } else {
+    rope_rotate_kernel<64><<<grid, 256, 0, st>>>(qb, kb, cb, sb, qo, ko, H, chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The attention kernel's registers a thread at launch (before setmaxnreg), local
+// memory (spills) a thread, shared memory a block and blocks an SM, for head dim D.
+extern "C" int fgt_flash_fwd_sm90_info(int D, int* regs, int* spill_bytes, int* smem_bytes, int* blocks_per_sm) {
+  if (D == 128) return static_cast<int>(info<128>(regs, spill_bytes, smem_bytes, blocks_per_sm));
+  if (D == 64) return static_cast<int>(info<64>(regs, spill_bytes, smem_bytes, blocks_per_sm));
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,13 +1,19 @@
-"""Flash attention with fused RoPE: CUDA kernel (forward) and plain version,
+"""Flash attention with RoPE: CUDA kernels (forward) and plain version,
 differentiable through kernels E and F (flash_attention_bwd.py).
 
-The forward kernel (csrc/flash_attention.cu, sm_90a) replaces the TPU
-kernels `_attn_kernel` / `_flash_kernel` of flux_generator_tpu/ops/pallas/
-flash_attention.py. `flash_attention` dispatches on the tensors' device
-only: CPU tensors go to `flash_attention_reference`, CUDA tensors to the
-kernel, which raises for shapes, dtypes or layouts it does not take. There is
-no fallback from one to the other. Its gradient is `_FlashAttention`, the
-counterpart of the JAX package's `_flash_core` custom VJP.
+The forward kernels replace the TPU kernels `_attn_kernel` / `_flash_kernel`
+of flux_generator_tpu/ops/pallas/flash_attention.py. `flash_attention`
+dispatches on the tensors' device only: CPU tensors go to
+`flash_attention_reference`, CUDA tensors to a kernel, which raises for
+shapes, dtypes or layouts it does not take. There is no fallback from one to
+the other. Its gradient is `_FlashAttention`, the counterpart of the JAX
+package's `_flash_core` custom VJP.
+
+The bf16 mode (`int8=""`) is `bf16_forward`: the RoPE pre-pass
+(`rope_rotate`) rotates q and k once, as the JAX wrapper pre-rotates them
+past 6144 tokens, and `flash_attention_sm90` (csrc/flash_attention_sm90.cu:
+wgmma, a TMA ring) attends over the rotated tensors. The int8 tiers run the
+fused-RoPE kernel of csrc/flash_attention.cu.
 
 `int8` selects the int8 tiers of the TPU kernel (`int8_mxu`, the one-shot
 path's semantics): "qk" quantizes q and k rows for an int8 Q·Kᵀ, "full" also
@@ -35,29 +41,38 @@ import torch
 from . import _build
 from .flash_attention_bwd import flash_attention_bwd
 
-# Launches of the CUDA kernel since the last reset, all tiers (the plain
-# version on CPU tensors does not count), and of its int8 tiers alone
-# ("full_streamed": the "full" tier in groups of blk_k keys).
+# Launches of kernel A since the last reset, one a call in every mode (the
+# plain version on CPU tensors does not count); of its int8 tiers alone
+# ("full_streamed": the "full" tier in groups of blk_k keys); and of the
+# bf16 mode's RoPE pre-pass.
 launches = 0
 int8_launches = {"qk": 0, "full": 0, "full_streamed": 0}
+rope_launches = 0
 
-SOURCE = "flux_generator_tpu_torch/csrc/flash_attention.cu"
+SOURCE = "flux_generator_tpu_torch/csrc/flash_attention_sm90.cu"  # the bf16 mode and its pre-pass
+INT8_SOURCE = "flux_generator_tpu_torch/csrc/flash_attention.cu"
 REPLACES = "flux_generator_tpu/ops/pallas/flash_attention.py:258"
 REPLACES_STREAMED_FULL = "flux_generator_tpu/ops/pallas/flash_attention.py:292"
 HEAD_DIMS = (64, 128)
 INT8_TIERS = ("", "qk", "full")
-_MODES = {"": 0, "qk": 1, "full": 2, "full_streamed": 3}
+_MODES = {"qk": 1, "full": 2, "full_streamed": 3}
 KEY_TILE = 64  # keys per K/V tile of the kernel; a streamed group is whole tiles
 # The JAX wrapper keeps the int8 tiers to its one-shot path: a padded length
 # of at most 6144 (flash_attention.py:544-551).
 INT8_MAX_LEN = 6144
 
 _P = ctypes.c_void_p
-_SIGNATURES = {
-    "fgt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                                ctypes.c_int, _P],
+_I = ctypes.c_int
+_INT8_SIGNATURES = {
+    "fgt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
 }
+_SIGNATURES = {
+    "fgt_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    "fgt_rope_rotate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fgt_flash_fwd_sm90_info": [_I, _P, _P, _P, _P],
+}
+# the two sources, each built into its own library
+BUILDS = {"flash_attention_sm90": _SIGNATURES, "flash_attention": _INT8_SIGNATURES}
 
 
 def _rope_f32(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -183,16 +198,103 @@ def _check_cuda_args(q, k, v, cos, sin):
             raise ValueError("RoPE tables must lie on q's device")
 
 
-def _flash_attention_cuda(q, k, v, cos, sin, scale, int8="", group: int = 0):
-    """Kernel A in mode `int8` ("", "qk", "full" or "full_streamed", whose
-    quantization groups are `group` keys)."""
+def _check_aligned(*tensors, align: int = 16):
+    """TMA (and the pre-pass's vector loads) take base addresses and strides
+    in multiples of `align` bytes: raise for a tensor that has another."""
+    for t in tensors:
+        if t.data_ptr() % align:
+            raise ValueError(f"flash kernel takes {align}-byte aligned tensors, got a base address "
+                             f"{t.data_ptr():#x} ({t.data_ptr() % align} past {align})")
+        if any(st * t.element_size() % align for st in t.stride()[:-1]):
+            raise ValueError(f"flash kernel takes strides of {align}-byte multiples, got {t.stride()} "
+                             f"elements of {t.element_size()} bytes")
+
+
+def rope_rotate_reference(q, k, cos, sin):
+    """Plain version of the RoPE pre-pass: q and k rotated in f32 with the
+    tables rounded to the working dtype, rounded back to it."""
+    dt = q.dtype
+    cos, sin = cos.to(dt), sin.to(dt)
+    return _rope_f32(q, cos, sin).to(dt), _rope_f32(k, cos, sin).to(dt)
+
+
+def rope_rotate(q, k, cos, sin):
+    """The bf16 mode's RoPE pre-pass → (rope(q), rope(k)): its kernel on CUDA
+    tensors (new tensors), its plain version on CPU ones."""
+    global rope_launches
+    if q.device.type == "cpu":
+        return rope_rotate_reference(q, k, cos, sin)
+    _check_cuda_args(q, k, q, cos, sin)
+    b, l, h, d = q.shape
+    cos = cos.to(q.dtype).contiguous()
+    sin = sin.to(q.dtype).contiguous()
+    _check_aligned(q, k)
+    _check_aligned(cos, sin, align=8)
+    lib = _build.load("flash_attention_sm90", _SIGNATURES)
+    qr, kr = torch.empty_like(q), torch.empty_like(k)
+    with torch.cuda.device(q.device):
+        err = lib.fgt_rope_rotate(q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), qr.data_ptr(),
+                                  kr.data_ptr(), b, l, h, d, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("fgt_rope_rotate", err)
+    rope_launches += 1
+    return qr, kr
+
+
+def flash_attention_sm90(q, k, v, scale: Optional[float] = None):
+    """Attention without RoPE in bf16 → (out, lse): the kernel of
+    csrc/flash_attention_sm90.cu on CUDA tensors, the plain version on CPU
+    ones."""
+    global launches
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale=scale)
+    _check_cuda_args(q, k, v, None, None)
+    _check_aligned(q, k, v)
+    b, l, h, d = q.shape
+    lib = _build.load("flash_attention_sm90", _SIGNATURES)
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, l), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.fgt_flash_fwd_sm90(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                                     b, l, h, d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("fgt_flash_fwd_sm90", err)
+    launches += 1
+    return out, lse
+
+
+def sm90_kernel_info(d: int = 128) -> dict:
+    """The attention kernel's registers a thread at launch, spilled bytes a
+    thread, shared memory a block and blocks an SM at head dim d (on the
+    current CUDA device)."""
+    lib = _build.load("flash_attention_sm90", _SIGNATURES)
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    _build.check("fgt_flash_fwd_sm90_info", lib.fgt_flash_fwd_sm90_info(d, *(ctypes.byref(x) for x in vals)))
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
+
+
+def bf16_forward(q, k, v, cos, sin, scale):
+    """Kernel A's bf16 mode → (out, lse): the RoPE pre-pass when tables are
+    given, then attention over the rotated q and k."""
+    if (cos is None) != (sin is None):
+        raise ValueError("pass both RoPE tables or neither")
+    if cos is not None:
+        q, k = rope_rotate(q, k, cos, sin)
+    return flash_attention_sm90(q, k, v, scale)
+
+
+def _flash_attention_cuda(q, k, v, cos, sin, scale, int8, group: int = 0):
+    """Kernel A's int8 tier `int8` ("qk", "full" or "full_streamed", whose
+    quantization groups are `group` keys), fused RoPE."""
     global launches
     _check_cuda_args(q, k, v, cos, sin)
     b, l, h, d = q.shape
+    if int8 not in _MODES:
+        raise ValueError(f"the int8 kernel's modes are {tuple(_MODES)}, got {int8!r}")
     if int8 == "full_streamed" and (group <= 0 or group % KEY_TILE):
         raise ValueError(f"the streamed full tier takes groups of a positive multiple of {KEY_TILE} keys, "
                          f"got {group}")
-    lib = _build.load("flash_attention", _SIGNATURES)
+    lib = _build.load("flash_attention", _INT8_SIGNATURES)
     if cos is not None:  # tables in the working dtype, as the JAX wrapper casts them
         cos = cos.to(q.dtype).contiguous()
         sin = sin.to(q.dtype).contiguous()
@@ -212,14 +314,15 @@ def _flash_attention_cuda(q, k, v, cos, sin, scale, int8="", group: int = 0):
         )
     _build.check("fgt_flash_attention_fwd", err)
     launches += 1
-    if int8:
-        int8_launches[int8] += 1
+    int8_launches[int8] += 1
     return out, lse
 
 
 def _forward(q, k, v, cos, sin, scale, int8):
     """Kernel A on CUDA tensors, its plain version on CPU ones → (out, lse)."""
     if q.device.type == "cuda":
+        if not int8:
+            return bf16_forward(q, k, v, cos, sin, scale)
         return _flash_attention_cuda(q, k, v, cos, sin, scale, int8)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, cos, sin, scale, int8)
@@ -288,8 +391,8 @@ def flash_attention(q, k, v, cos=None, sin=None, scale: Optional[float] = None,
 def flash_attention_streamed(q, k, v, cos=None, sin=None, scale: Optional[float] = None, int8: str = "",
                              blk_k: int = 1024):
     """The JAX `_flash_attention_jit` on its streamed path, whose int8 tiers
-    run at any length → (out, lse), lse (B·H, L) f32. "" and "qk" are kernel
-    A's modes; "full" is A's streamed mode, quantizing p and V per group of
+    run at any length → (out, lse), lse (B·H, L) f32. "" (`bf16_forward`) and
+    "qk" are kernel A's modes; "full" is A's streamed mode, quantizing p and V per group of
     `blk_k` keys (`streamed_full_reference` on CPU tensors). Inference only:
     no gradient."""
     _check_tier(int8)

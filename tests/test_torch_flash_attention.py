@@ -108,24 +108,97 @@ def test_kernel_argument_checks_raise(bad):
         fa._check_cuda_args(q, k, v, cos, sin)
 
 
+def test_rope_pre_pass_plain_version_is_rope_f32_rounded():
+    """The bf16 mode's pre-pass rotates q and k as the fused plain version
+    does: `_rope_f32` with the tables rounded to bf16, then rounded to bf16."""
+    q, k, _, cos, sin = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(7, 2, 33, 3, 64, True))
+    qr, kr = fa.rope_rotate_reference(q, k, cos.float(), sin.float())
+    assert qr.dtype == kr.dtype == torch.bfloat16
+    assert torch.equal(qr, fa._rope_f32(q, cos, sin).to(torch.bfloat16))
+    assert torch.equal(kr, fa._rope_f32(k, cos, sin).to(torch.bfloat16))
+    before = fa.rope_launches
+    assert all(torch.equal(a, b) for a, b in zip(fa.rope_rotate(q, k, cos, sin), (qr, kr)))
+    assert fa.rope_launches == before
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_bf16_route_matches_jax_prerotated_path(rope):
+    """The bf16 mode's route (pre-rotate, then attention without tables)
+    against the JAX wrapper's own pre-rotated path, forced as its tests force
+    it: a one-shot limit of 128 at L 300 pads to 384 and pre-rotates q and k
+    in HBM. f32 on both sides, atol 3e-5 as test_pallas_flash.py."""
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
+    from flux_generator_tpu.runtime.config import set_flash_attention
+
+    q, k, v, cos, sin = _inputs(8, 1, 300, 2, 64, rope)
+    jargs = [jnp.asarray(a) if a is not None else None for a in (q, k, v, cos, sin)]
+    set_flash_attention(one_shot_max=128, blk_q=128, blk_k=128)
+    try:
+        want = jax_flash(*jargs[:3], cos=jargs[3], sin=jargs[4], interpret=True)
+    finally:
+        set_flash_attention()
+    targs = [torch.from_numpy(a) if a is not None else None for a in (q, k, v, cos, sin)]
+    got, lse = fa.bf16_forward(*targs, scale=64 ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+    _, ref_lse = fa.flash_attention_reference(*targs)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["base_address", "row_stride", "table_base_address"])
+def test_tma_alignment_checks_raise(bad):
+    """TMA takes 16-byte aligned base addresses and strides (the pre-pass's
+    table loads 8-byte aligned ones): the wrapper raises, there is no
+    fallback."""
+    flat = torch.zeros(1 + 8 * 2 * 128, dtype=torch.bfloat16)
+    q = flat[:-1].view(1, 8, 2, 128)
+    fa._check_aligned(q)
+    if bad == "base_address":
+        with pytest.raises(ValueError, match="aligned"):
+            fa._check_aligned(flat[1:].view(1, 8, 2, 128))
+    elif bad == "row_stride":
+        wide = torch.zeros(1, 8, 2, 132, dtype=torch.bfloat16)[..., :4]  # rows of 264 bytes
+        with pytest.raises(ValueError, match="strides"):
+            fa._check_aligned(wide)
+    else:
+        table = torch.zeros(1 + 8 * 64, dtype=torch.bfloat16)[1:].view(1, 8, 64)
+        with pytest.raises(ValueError, match="aligned"):
+            fa._check_aligned(table, align=8)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,h,d,rope", [(1, 1280, 24, 128, True), (1, 1000, 4, 128, True),
                                           (2, 300, 3, 64, False), (1, 77, 2, 128, False),
-                                          (2, 65, 3, 64, True), (3, 1, 2, 128, True)])
+                                          (2, 65, 3, 64, True), (3, 1, 2, 128, True),
+                                          (1, 512, 3, 128, False), (2, 384, 2, 128, True)])
 def test_cuda_kernel_matches_plain_version(b, l, h, d, rope):
-    """bf16 kernel against the plain version run in f32 on the same bf16
-    inputs; atol 2e-2 because P is rounded to bf16 before P·V and O is stored
-    in bf16."""
+    """bf16 kernel (after the RoPE pre-pass when tables are given) against the
+    plain version run in f32 on the same bf16 inputs; atol 2e-2 because P is
+    rounded to bf16 before P·V and O is stored in bf16. L 512 and 384 are
+    whole 128-row tiles; B 2 with RoPE has a table of its own a batch row."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     q, k, v, cos, sin = (torch.from_numpy(a).to(dev, torch.bfloat16) if a is not None else None
                          for a in _inputs(6, b, l, h, d, rope))
-    before = fa.launches
+    before = (fa.launches, fa.rope_launches)
     out, lse = fa.flash_attention(q, k, v, cos, sin, return_lse=True)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert (fa.launches, fa.rope_launches) == (before[0] + 1, before[1] + int(rope))
     f32 = (lambda t: None if t is None else t.float())
     ref, ref_lse = fa.flash_attention_reference(f32(q), f32(k), f32(v), f32(cos), f32(sin))
     assert (out.float() - ref).abs().max().item() < 2e-2
     assert (lse - ref_lse).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_rope_pre_pass_matches_plain_version_bit_for_bit():
+    """The pre-pass rounds each product and sum as the plain version does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    q, k, _, cos, sin = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in _inputs(9, 2, 300, 3, 128, True))
+    got = fa.rope_rotate(q, k, cos, sin)
+    want = fa.rope_rotate_reference(q, k, cos, sin)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
