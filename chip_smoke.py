@@ -9,8 +9,9 @@ Phases, each of which fails the run on error:
                       mode in its own source, the decode-chain probe #11, the
                       chain-bisect probe #12 and the bare-dot probe #13) from
                       csrc/ with nvcc, all at once, with the ptxas report of
-                      each and A's bf16 kernel's registers, local memory,
-                      shared memory and blocks an SM.
+                      each and the registers, local memory, shared memory and
+                      blocks an SM of A's bf16 kernel and of E and F, which
+                      must not spill nor have their wgmma serialized (C7512).
   3. kernels        — flash attention (A: its RoPE pre-pass and its bf16
                       kernel) and the int4 matmul (B) against their plain
                       PyTorch versions at the shapes of the Flux-schnell 512²
@@ -39,7 +40,10 @@ Phases, each of which fails the run on error:
                       autograd function against the plain backward in f32 at
                       the Flux-dev and Flux-schnell training shapes, a padded
                       length and head dim 64, with times of E, F, the plain
-                      backward and SDPA's backward as a yardstick.
+                      backward, and the pair and the whole backward route in
+                      turns with SDPA's backward as a yardstick; at L 1536
+                      the tail (the last wave whole, F after E's end, 22
+                      heads).
   6. kernels-w8a8   — the fused W8A8 matmul (G) at the Flux 512² shapes, the
                       row quantizer (H) and A's int8 tiers ("qk", "full")
                       against their plain versions, with times, bounds and
@@ -86,7 +90,8 @@ Phases, each of which fails the run on error:
  10. main-train     — DreamBooth LoRA training of Flux-dev at full width on
                       random weights through training.dreambooth.train: 3
                       optimizer steps of 4 micro-steps on two seeded images;
-                      checks losses, the adapters and the launch counts.
+                      checks losses, the adapters and the launch counts (A,
+                      its RoPE pre-pass, E, F and B).
  11. small          — a small Flux config run on the card (bf16, kernels) and on
                       the CPU (f32, plain versions) from the same weights and noise.
      small-tiled    — the same config past the untiled sizes: a tiled decode
@@ -259,11 +264,11 @@ def time_ms_queued(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def in_turns(fns: dict, iters: int = 20) -> dict:
-    """Each fn of `fns` (two) timed by time_ms_queued in turns a, b, b, a →
-    {name: [ms, ms]}."""
-    (a, fa_), (b, fb) = fns.items()
-    out = {a: [], b: []}
-    for name, fn in ((a, fa_), (b, fb), (b, fb), (a, fa_)):
+    """Each fn of `fns` timed by time_ms_queued in turns, in order and then in
+    reverse (a, b, b, a for two) → {name: [ms, ms]}."""
+    items = list(fns.items())
+    out = {name: [] for name, _ in items}
+    for name, fn in items + items[::-1]:
         out[name].append(time_ms_queued(fn, iters))
     return out
 
@@ -341,7 +346,20 @@ def phase_build():
             f"{rec['smem_bytes']} bytes of shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
     if any("C7512" in line for line in _build.BUILD_INFO["flash_attention_sm90"][1].splitlines()):
         log("[build] WARNING: ptxas serialized flash_attention_sm90's wgmma (C7512)")
-    return info
+    bwd_info = {d: fb.kernel_info(d) for d in fb.HEAD_DIMS}
+    for d, recs in bwd_info.items():
+        for which, rec in recs.items():
+            log(f"[build] flash_attention_bwd {'E' if which == 'dq' else 'F'} ({which}) D {d}: "
+                f"{rec['registers']} registers a thread at launch (setmaxnreg: 40 producer, 232 consumers), "
+                f"{rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} bytes of shared memory a "
+                f"block, {rec['blocks_per_sm']} block(s) an SM")
+    # E and F keep their products asynchronous and in registers
+    serialized = [line.strip() for line in _build.BUILD_INFO["flash_attention_bwd"][1].splitlines()
+                  if "C7512" in line]
+    spills = {(d, w): r["spill_bytes"] for d, recs in bwd_info.items() for w, r in recs.items() if r["spill_bytes"]}
+    if serialized or spills:
+        raise AssertionError(f"flash_attention_bwd: wgmma serialized {serialized}, spills {spills}")
+    return {"flash_attention_sm90": info, "flash_attention_bwd": bwd_info}
 
 
 def _flux_rope_tables(length: int, text: int = 256, axes_dim=(16, 56, 56)):
@@ -1925,7 +1943,13 @@ def phase_kernels_train():
     """Kernels E (dQ) and F (dK, dV) through the autograd function against the
     plain backward in f32, at Flux-dev training's shape (512 text + 1024
     image tokens), Flux-schnell's (256 + 1024), a padded length and head dim
-    64; times of E and F alone, the plain backward and SDPA's backward."""
+    64. Timed behind a sleep kernel: E and F alone, the pair as the backward
+    runs them (F launched as E's programmatic dependent) and the whole
+    backward route (rotation, dvec, E, F, pull-back), the pair and the route
+    in turns with SDPA's backward; at L 1536 also the tail (288 units of one
+    block an SM at 24 heads: 2.18 waves of 132 SMs): E and F with the last
+    wave's units whole (no split), the pair with F launched after E's end,
+    and E, F and the pair at 22 heads (264 units, two full waves)."""
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
@@ -1958,33 +1982,66 @@ def phase_kernels_train():
         torch.cuda.synchronize()
 
         scale = d ** -0.5
-        e_ms = time_ms(lambda: fb.flash_attention_bwd_dq_cuda(qr, kr, v, dout, lse, dvec, scale))
-        f_ms = time_ms(lambda: fb.flash_attention_bwd_dkv_cuda(qr, kr, v, dout, lse, dvec, scale))
-        plain_ms = time_ms(lambda: fb.flash_attention_bwd_reference(qr, kr, v, dout, lse, dvec, scale),
-                           iters=5, warmup=1)
-        # yardstick: SDPA's backward on the pre-rotated q/k in (B, H, L, D), device time
+        args = (qr, kr, v, dout, lse, dvec, scale)
+        e_ms = time_ms_queued(lambda: fb.flash_attention_bwd_dq_cuda(*args))
+        f_ms = time_ms_queued(lambda: fb.flash_attention_bwd_dkv_cuda(*args))
+        plain_ms = time_ms(lambda: fb.flash_attention_bwd_reference(*args), iters=5, warmup=1)
+        # yardstick: SDPA's backward on the pre-rotated q/k in (B, H, L, D)
         qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (qr, kr, v))
         os_ = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
         dos = dout.transpose(1, 2).contiguous()
-        library_ms = device_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True))
+        turns = in_turns({
+            "pair": lambda: fb.flash_attention_bwd(*args),
+            "route": lambda: fa.flash_attention_backward(q, k, v, cos, sin, out, lse, dout, scale),
+            "sdpa": lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True)})
+        library_ms = statistics.mean(turns["sdpa"])
+        pair_ms = statistics.mean(turns["pair"])
         lsq = b * h * length * length * d
         io = q.numel() * 2  # one (B, L, H, D) bf16 tensor
         e_bound = bound_ms(6 * lsq, 5 * io + 2 * b * h * length * 4)  # q k v dO in, dq out
         f_bound = bound_ms(8 * lsq, 6 * io + 2 * b * h * length * 4)  # q k v dO in, dk dv out
+        pair_bound = bound_ms(14 * lsq, 7 * io + 2 * b * h * length * 4)
         rec = dict(case=label, max_rel_err=max(errs), max_abs_err=max(
             (x.float() - r).abs().max().item() for x, r in zip(got, ref)),
-            dq_ms=e_ms, dkv_ms=f_ms, plain_ms=plain_ms, library_ms=library_ms,
+            dq_ms=e_ms, dkv_ms=f_ms, pair_ms=pair_ms, route_ms=statistics.mean(turns["route"]),
+            plain_ms=plain_ms, library_ms=library_ms, turns_ms=turns,
             dq_bound_ms=e_bound[0], dq_bound_by=e_bound[1], dkv_bound_ms=f_bound[0],
-            dkv_bound_by=f_bound[1])
+            dkv_bound_by=f_bound[1], pair_bound_ms=pair_bound[0],
+            dq_tflops=6 * lsq / e_ms / 1e9, dkv_tflops=8 * lsq / f_ms / 1e9, pair_tflops=14 * lsq / pair_ms / 1e9)
         log(f"[kernels-train] flash bwd {label}: max|Δ|/max|ref| dq {errs[0]:.3e} dk {errs[1]:.3e} "
-            f"dv {errs[2]:.3e} (tol {FLASH_BWD_REL_TOL}) | E {e_ms:.4f} ms "
-            f"({6 * lsq / e_ms / 1e9:.1f} TFLOP/s, bound {e_bound[0]:.4f}) | F {f_ms:.4f} ms "
-            f"({8 * lsq / f_ms / 1e9:.1f} TFLOP/s, bound {f_bound[0]:.4f}) | plain {plain_ms:.4f} ms"
-            f" | SDPA backward {library_ms:.4f} ms")
+            f"dv {errs[2]:.3e} (tol {FLASH_BWD_REL_TOL}) | E {e_ms:.4f} ms ({rec['dq_tflops']:.1f} TFLOP/s, "
+            f"{100 * e_bound[0] / e_ms:.1f}% of the bound {e_bound[0]:.4f}) | F {f_ms:.4f} ms "
+            f"({rec['dkv_tflops']:.1f} TFLOP/s, {100 * f_bound[0] / f_ms:.1f}% of the bound {f_bound[0]:.4f}) | "
+            f"pair {pair_ms:.4f} ms ({rec['pair_tflops']:.1f} TFLOP/s, {100 * pair_bound[0] / pair_ms:.1f}% "
+            f"of {pair_bound[0]:.4f}) | plain {plain_ms:.4f} ms | in turns: pair "
+            f"{' '.join(f'{x:.4f}' for x in turns['pair'])}, route {' '.join(f'{x:.4f}' for x in turns['route'])}"
+            f", SDPA backward {' '.join(f'{x:.4f}' for x in turns['sdpa'])} ms")
+        if label == "dev_L1536_rope":
+            # the tail: one block an SM, 288 blocks of 128 rows on 132 SMs
+            sub = [x[:, :, :22].contiguous() for x in (qr, kr, v, dout)]
+            sub += [x.reshape(b, h, length)[:, :22].reshape(b * 22, length).contiguous() for x in (lse, dvec)]
+            sub_args = (*sub, scale)
+            tail = in_turns({
+                "pair": lambda: fb.flash_attention_bwd(*args),
+                "serial": lambda: (fb.flash_attention_bwd_dq_cuda(*args),
+                                   fb.flash_attention_bwd_dkv_cuda(*args))})
+            tail.update(e_whole_ms=time_ms_queued(lambda: fb.flash_attention_bwd_dq_cuda(*args, split=False)),
+                        f_whole_ms=time_ms_queued(lambda: fb.flash_attention_bwd_dkv_cuda(*args, split=False)),
+                        e_h22_ms=time_ms_queued(lambda: fb.flash_attention_bwd_dq_cuda(*sub_args)),
+                        f_h22_ms=time_ms_queued(lambda: fb.flash_attention_bwd_dkv_cuda(*sub_args)),
+                        pair_h22_ms=time_ms_queued(lambda: fb.flash_attention_bwd(*sub_args)),
+                        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+            rec["tail"] = tail
+            log(f"[kernels-train] tail at L 1536 ({tail['sms']} SMs): E {e_ms:.4f}, F {f_ms:.4f} ms; the last "
+                f"wave's units whole: E {tail['e_whole_ms']:.4f}, F {tail['f_whole_ms']:.4f} ms | pair (F as E's "
+                f"dependent) {' '.join(f'{x:.4f}' for x in tail['pair'])} ms, F after E's end "
+                f"{' '.join(f'{x:.4f}' for x in tail['serial'])} ms | 22 heads (264 units, 2 waves): E "
+                f"{tail['e_h22_ms']:.4f}, F {tail['f_h22_ms']:.4f}, pair {tail['pair_h22_ms']:.4f} ms")
+            del sub, sub_args
         if not max(errs) <= FLASH_BWD_REL_TOL:
             failures.append(f"flash bwd {label}: {errs}")
         cases.append(rec)
-        del q, k, v, dout, qg, kg, vg, out, got, ref, qs, ks, vs, os_
+        del q, k, v, dout, qg, kg, vg, out, got, ref, qs, ks, vs, os_, args
     torch.cuda.synchronize()
     if failures:
         raise AssertionError("flash backward disagrees with its plain version: " + "; ".join(failures))
@@ -2167,14 +2224,15 @@ def phase_main_train():
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         micro = args.iterations * args.grad_accumulate
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = fb.dq_launches = fb.dkv_launches = im.launches = 0
+        fa.launches = fa.rope_launches = fb.dq_launches = fb.dkv_launches = im.launches = 0
         trace = {}
         t0 = time.perf_counter()
         train(args, pipeline=pipe, dataset=dataset, trace=trace)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = {"flash_attention": fa.launches, "flash_attention_bwd_dq": fb.dq_launches,
-                    "flash_attention_bwd_dkv": fb.dkv_launches, "int4_matmul": im.launches}
+        launches = {"flash_attention": fa.launches, "flash_attention_rope": fa.rope_launches,
+                    "flash_attention_bwd_dq": fb.dq_launches, "flash_attention_bwd_dkv": fb.dkv_launches,
+                    "int4_matmul": im.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
         steps = trace["micro_step_s"]
         log(f"[main-train] train {total_s:.3f} s: encode dataset {trace['encode_s']:.4f} s "
@@ -2188,8 +2246,11 @@ def phase_main_train():
 
         cfg = pipe.flow_cfg
         blocks = cfg.depth + cfg.depth_single_blocks
-        want = {"flash_attention": 2 * blocks * micro, "flash_attention_bwd_dq": blocks * micro,
-                "flash_attention_bwd_dkv": blocks * micro, "int4_matmul": 24 * 7 * len(dataset)}
+        # A and its pre-pass twice a block (the forward and its recompute), the
+        # pre-pass twice more in the backward (the rotation and the pull-back)
+        want = {"flash_attention": 2 * blocks * micro, "flash_attention_rope": 4 * blocks * micro,
+                "flash_attention_bwd_dq": blocks * micro, "flash_attention_bwd_dkv": blocks * micro,
+                "int4_matmul": 24 * 7 * len(dataset)}
         if launches != want:
             raise AssertionError(f"launch counts {launches}, want {want}")
         if len(steps) != micro or not np.isfinite(trace["losses"]).all():

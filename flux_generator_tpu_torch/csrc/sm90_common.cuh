@@ -1,0 +1,205 @@
+// Hopper (sm_90a) pieces shared by the wgmma/TMA kernels: kernel A's bf16 mode
+// (flash_attention_sm90.cu) and kernels E and F (flash_attention_bwd.cu).
+//
+// - mbarriers: init, arrive, arrive with an expected byte count, and a bare
+//   try_wait spin (see mbar_wait for why it has no poll limit);
+// - TMA: one box of a 4-D tensor map into shared memory, completion counted on
+//   an mbarrier; `encode_map` builds the map of a (B, L, H, D) bf16 tensor as
+//   (D, H, L, B) with boxes of 64 values × `rows` rows of one (batch, head) and
+//   a 128-byte swizzle, so a (batch, head) is read in place and rows past L
+//   come in as zeros;
+// - wgmma: the shared-memory descriptor of a 128-byte-swizzled operand, fence,
+//   commit and wait, products m64n128k16 and m64n64k16 with both operands in
+//   shared memory (K-major) or with A from registers and B MN-major in shared
+//   memory, and `pack_frag`, which turns an f32 accumulator tile into the bf16
+//   A fragments of the next product;
+// - named-barrier turns that order two consumer warpgroups' products.
+//
+// Operand layouts (BOX = 64 bf16 values, one 128-byte swizzle row). A tile of
+// `rows` rows × D columns sits in shared memory as D/64 boxes of rows × 128
+// bytes, each 1024-byte aligned. As a K-major operand (rows = M or N, the
+// columns the contraction) k16 step kk starts at box kk/4, byte (kk%4)·32,
+// with SBO 1024 (eight rows). As an MN-major B operand (rows = the
+// contraction, the columns N) k16 step kk starts 16 rows further, with LBO
+// the size of a box (the next 64 columns) and SBO 1024.
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace fgt {
+namespace sm90 {
+
+constexpr int BOX = 64;  // bf16 values in one 128-byte swizzled row of a TMA box
+constexpr int ROW_BYTES = BOX * 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the barrier's phase of this parity has completed. (A poll count
+// with a __trap() after too many polls made ptxas hold the consumers to the
+// launch's 168 registers: spills, and wgmma serialized, warning C7512.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared memory;
+// completion counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (SW128).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Named barriers 1 and 2 order the two consumer warpgroups' products: a
+// warpgroup syncs on its own before it issues and arrives on the other's after.
+__device__ __forceinline__ void turn_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void turn_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+
+// Keeps the compiler from moving reads or writes of wgmma registers across an
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define FGT_D8(b) \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]), "+f"(d[b + 5]), \
+      "+f"(d[b + 6]), "+f"(d[b + 7])
+#define FGT_REGS32                                                                                 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, " \
+  "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define FGT_REGS64                                                                                  \
+  FGT_REGS32                                                                                        \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, " \
+  "%51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (+)= A·B, m64n128k16, A and B K-major in shared memory; d is overwritten
+// when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FGT_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24), FGT_D8(32), FGT_D8(40), FGT_D8(48), FGT_D8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// As wgmma_ss_n128 with N = 64.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FGT_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A·B, m64nNk16 with N = 64 or 128: A from registers (the m16n8k16 A
+// fragment of this thread's warp's 16 rows), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FGT_REGS64 "}, {%64, %65, %66, %67}, %68, "
+      "p, 1, 1, 1;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24), FGT_D8(32), FGT_D8(40), FGT_D8(48), FGT_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FGT_REGS32 "}, {%32, %33, %34, %35}, %36, "
+      "p, 1, 1, 1;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef FGT_D8
+#undef FGT_REGS32
+#undef FGT_REGS64
+
+// This thread's f32 share of a 64 × 2N accumulator tile as bf16 A fragments:
+// columns 16kk..16kk+15 (n8 groups 2kk and 2kk + 1) are the A fragment of
+// k16 step kk.
+template <int N>
+__device__ __forceinline__ void pack_frag(const float (&sc)[N], uint32_t (&pa)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    pa[kk][0] = pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library
+// needs no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A (B, L, H, D) contiguous bf16 tensor as a 4-D map (D, H, L, B) with boxes of
+// 64 values × `rows` rows of one (batch, head), 128-byte swizzle, zero fill.
+inline bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(H) * D * 2,
+                                 static_cast<cuuint64_t>(L) * H * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(BOX), 1u, static_cast<cuuint32_t>(rows), 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace sm90
+}  // namespace fgt

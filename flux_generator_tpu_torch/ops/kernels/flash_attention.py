@@ -21,6 +21,10 @@ p (against the row's final max) and V's columns for an int8 P·V. They are an
 inference datapath: like the JAX wrapper, a sequence longer than the one-shot
 path's 6144 drops them, and a gradient through them raises.
 
+The backward (`flash_attention_backward`) rotates q and k with the same
+pre-pass, runs kernels E and F of flash_attention_bwd.py, and pulls dq and
+dk back with the pre-pass at (cos, −sin).
+
 `flash_attention_streamed` is the counterpart of the JAX `_flash_attention_jit`
 on its streamed path, where the tiers run at any length: "" and "qk" are A's
 modes above (their function does not depend on how keys are blocked), and
@@ -44,7 +48,8 @@ from .flash_attention_bwd import flash_attention_bwd
 # Launches of kernel A since the last reset, one a call in every mode (the
 # plain version on CPU tensors does not count); of its int8 tiers alone
 # ("full_streamed": the "full" tier in groups of blk_k keys); and of the
-# bf16 mode's RoPE pre-pass.
+# bf16 mode's RoPE pre-pass (two a backward with tables: the rotation and
+# the pull-back).
 launches = 0
 int8_launches = {"qk": 0, "full": 0, "full_streamed": 0}
 rope_launches = 0
@@ -329,13 +334,30 @@ def _forward(q, k, v, cos, sin, scale, int8):
     raise ValueError(f"no flash attention for device {q.device}")
 
 
+def flash_attention_backward(q, k, v, cos, sin, out, lse, dout, scale: float):
+    """The backward of `flash_attention` (int8 = "") → (dq, dk, dv), as
+    `_flash_core_bwd` of the JAX package: rotate q and k with the tables
+    (the RoPE pre-pass), form dvec = rowsum(dO·O) in f32, run kernels E and F
+    (their plain version on CPU tensors) on the rotated q/k, and pull dq and
+    dk back through the (orthogonal) rotation with (cos, −sin), the pre-pass
+    again. Negating a table is exact, so the pull-back is the rotation's
+    transpose in the working dtype."""
+    b, l, h, _ = q.shape
+    if cos is not None:
+        q, k = rope_rotate(q, k, cos, sin)
+    dout = dout.contiguous()
+    dvec = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, l).contiguous()
+    dq, dk, dv = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), dout, lse, dvec, scale)
+    if cos is not None:
+        dq, dk = rope_rotate(dq, dk, cos, -sin)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward kernel (or its plain version) with the flash backward, as
-    `_flash_core_fwd` / `_flash_core_bwd` of the JAX package: the backward
-    rotates q and k once with the tables, forms dvec = rowsum(dO·O) in f32,
-    runs dQ and dK/dV on the rotated q/k, and pulls dq and dk back through
-    the (orthogonal) rotation with (cos, −sin). cos/sin get no gradient. The
-    int8 tiers have no gradient: asking for one raises."""
+    """Forward kernel (or its plain version) with the flash backward
+    (`flash_attention_backward`), as `_flash_core_fwd` / `_flash_core_bwd` of
+    the JAX package. cos/sin get no gradient. The int8 tiers have no
+    gradient: asking for one raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, scale, int8):
@@ -352,17 +374,7 @@ class _FlashAttention(torch.autograd.Function):
             raise RuntimeError(f"the int8 attention tier {ctx.int8!r} is inference only and has no "
                                "gradient; use int8=''")
         q, k, v, cos, sin, out, lse = ctx.saved_tensors
-        b, l, h, _ = q.shape
-        dt = q.dtype
-        if cos is not None:  # the tables as the forward rounds them
-            cos, sin = cos.to(dt), sin.to(dt)
-            q, k = _rope_f32(q, cos, sin).to(dt), _rope_f32(k, cos, sin).to(dt)
-        dout = dout.contiguous()
-        dvec = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, l).contiguous()
-        dq, dk, dv = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), dout,
-                                         lse, dvec, ctx.scale)
-        if cos is not None:
-            dq, dk = _rope_f32(dq, cos, -sin).to(dt), _rope_f32(dk, cos, -sin).to(dt)
+        dq, dk, dv = flash_attention_backward(q, k, v, cos, sin, out, lse, dout, ctx.scale)
         return dq, dk, dv, None, None, None, None
 
 
