@@ -10,7 +10,8 @@ Phases, each of which fails the run on error:
                       chain-bisect probe #12 and the bare-dot probe #13) from
                       csrc/ with nvcc, all at once, with the ptxas report of
                       each and the registers, local memory, shared memory and
-                      blocks an SM of A's bf16 kernel and of E and F, which
+                      blocks an SM of the wgmma kernels: A's bf16 kernel, E
+                      and F, G's GEMM and #13's bf16 kernel; E, F, G and #13
                       must not spill nor have their wgmma serialized (C7512).
   3. kernels        — flash attention (A: its RoPE pre-pass and its bf16
                       kernel) and the int4 matmul (B) against their plain
@@ -44,13 +45,17 @@ Phases, each of which fails the run on error:
                       turns with SDPA's backward as a yardstick; at L 1536
                       the tail (the last wave whole, F after E's end, 22
                       heads).
-  6. kernels-w8a8   — the fused W8A8 matmul (G) at the Flux 512² shapes, the
-                      row quantizer (H) and A's int8 tiers ("qk", "full")
-                      against their plain versions, with times, bounds and
-                      torch._int_mm on the quantized operands as G's yardstick.
+  6. kernels-w8a8   — the fused W8A8 matmul (G) at every dense shape of a
+                      Flux 512² request (G_SHAPES), bit for bit against its
+                      plain version, timed in turns with torch._int_mm on the
+                      quantized operands and with the "rows" route, its
+                      quantizer pass and GEMM apart, and the request-weighted
+                      sums; the row quantizer (H) and A's int8 tiers ("qk",
+                      "full") against their plain versions, with times and
+                      bounds.
      kernels-bare-dot — the bare-dot probe #13 in its three modes (bf16, int8,
                       int8 quantized inside) at 64 steps of (1024, 128)·(128,
-                      1024), with torch.bmm as the bf16 yardstick.
+                      1024), bf16 in turns with torch.bmm, its yardstick.
      kernels-flash-streamed — A through flash_attention_streamed at L 16640
                       (the 2048² sequence): "", "qk" and "full" in groups of
                       1024 keys, held to their plain versions two heads at a
@@ -163,9 +168,16 @@ TRAIN_ARGS = ["--model", "dev", "--quantize-base", "--lora-rank", "8", "--resolu
               "--clip-tokenizer", str(ROOT / "tests/assets/clip_tokenizer")]
 TRAIN_PROMPTS = ["a photo of sks dog on a beach", "a photo of sks dog in a red bucket"]
 INT4_REL_TOL = 1e-2  # of max|ref|: the bf16 output rounding is 2^-9 relative
-# G, of max|ref|: one bf16 step; the same quantization and exact integer dots
-# as the plain version, the f32 fold rounded one operation at a time in both
-W8A8_REL_TOL = 2.0 ** -8
+# G's dense shapes in a Flux-schnell 512² request (name, M, K, N, launches a
+# request of 4 steps): the 38 single blocks' linear1 and linear2 (1280 tokens),
+# the 19 double blocks' image (1024 tokens) and text (256) qkv, proj, mlp0 and
+# mlp2, txt_in and the final linear: 920 launches
+G_SHAPES = (("linear1", 1280, 3072, 21504, 152), ("linear2", 1280, 15360, 3072, 152),
+            ("mlp0", 1024, 3072, 12288, 76), ("mlp2", 1024, 12288, 3072, 76),
+            ("qkv", 1024, 3072, 9216, 76), ("proj", 1024, 3072, 3072, 76),
+            ("txt_qkv", 256, 3072, 9216, 76), ("txt_proj", 256, 3072, 3072, 76),
+            ("txt_mlp0", 256, 3072, 12288, 76), ("txt_mlp2", 256, 12288, 3072, 76),
+            ("txt_in", 256, 4096, 3072, 4), ("final", 1024, 3072, 64, 4))
 # a W8A8 request's final latent against the weight-only latent of its seed:
 # activation rounding (1/254 of a row's amax a value) through 57 blocks and
 # 4 steps on random weights; a wrong route or scale gives O(1)
@@ -273,11 +285,9 @@ def in_turns(fns: dict, iters: int = 20) -> dict:
     return out
 
 
-def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
-    """Mean device time per fn() call: the sum of its CUDA kernels' times
-    under torch.profiler. For library calls whose host-side cost (the
-    autograd engine, SDPA's dispatch) would swamp CUDA-event timing at these
-    sizes."""
+def device_ms_by_kernel(fn, iters: int = 10, warmup: int = 3) -> dict:
+    """Mean device time per fn() call of each CUDA kernel that fn launches,
+    {name: ms}, under torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -290,10 +300,21 @@ def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(ev.device_time_total for ev in prof.events() if ev.device_type == DeviceType.CUDA)
-        if total > 0:
-            return total / 1e3 / iters
+        times = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                times[ev.name] = times.get(ev.name, 0.0) + ev.device_time_total / 1e3 / iters
+        if sum(times.values()) > 0:
+            return times
     raise RuntimeError("torch.profiler recorded no device time in three tries")
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Mean device time per fn() call: the sum of its CUDA kernels' times
+    under torch.profiler. For library calls whose host-side cost (the
+    autograd engine, SDPA's dispatch) would swamp CUDA-event timing at these
+    sizes."""
+    return sum(device_ms_by_kernel(fn, iters, warmup).values())
 
 
 def phase_device():
@@ -353,13 +374,23 @@ def phase_build():
                 f"{rec['registers']} registers a thread at launch (setmaxnreg: 40 producer, 232 consumers), "
                 f"{rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} bytes of shared memory a "
                 f"block, {rec['blocks_per_sm']} block(s) an SM")
-    # E and F keep their products asynchronous and in registers
-    serialized = [line.strip() for line in _build.BUILD_INFO["flash_attention_bwd"][1].splitlines()
-                  if "C7512" in line]
+    g_info = {f"{bk}x{bn}": wm.kernel_info(bk, bn) for bk in wm.BK_CANDIDATES for bn in wm.TILE_WIDTHS}
+    dot_info = {k: bd.bf16_kernel_info(k) for k in (bd.K_RANGE[0], 128, bd.K_RANGE[1])}
+    for label, recs in (("w8a8_matmul G GEMM, K block x tile width", g_info), ("bare_dot bf16, K", dot_info)):
+        for key, rec in recs.items():
+            log(f"[build] {label} {key}: {rec['registers']} registers a thread at launch (setmaxnreg: 40 "
+                f"producer, 232 consumers), {rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} "
+                f"bytes of shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
+    # E, F, G's GEMM and #13's bf16 kernel keep their products asynchronous and in registers
+    serialized = [line.strip() for name in ("flash_attention_bwd", "w8a8_matmul", "bare_dot")
+                  for line in _build.BUILD_INFO[name][1].splitlines() if "C7512" in line]
     spills = {(d, w): r["spill_bytes"] for d, recs in bwd_info.items() for w, r in recs.items() if r["spill_bytes"]}
+    spills.update({("G", key): r["spill_bytes"] for key, r in g_info.items() if r["spill_bytes"]})
+    spills.update({("bare_dot_bf16", k): r["spill_bytes"] for k, r in dot_info.items() if r["spill_bytes"]})
     if serialized or spills:
-        raise AssertionError(f"flash_attention_bwd: wgmma serialized {serialized}, spills {spills}")
-    return {"flash_attention_sm90": info, "flash_attention_bwd": bwd_info}
+        raise AssertionError(f"wgmma kernels: serialized {serialized}, spills {spills}")
+    return {"flash_attention_sm90": info, "flash_attention_bwd": bwd_info, "w8a8_matmul": g_info,
+            "bare_dot_bf16": dot_info}
 
 
 def _flux_rope_tables(length: int, text: int = 256, axes_dim=(16, 56, 56)):
@@ -538,9 +569,11 @@ def phase_kernels_bare_dot():
     """The bare-dot probe #13 in its three modes at the probe's shapes (64
     steps of (1024, 128)·(128, 1024)) against its plain version: the int8
     modes bit for bit, bf16 within one bf16 step of max|out|. The yardstick
-    for "bf16" is torch.bmm on the same blocks; no PyTorch call computes the
-    int8 modes (torch._int_mm has no batched form, and none quantizes
-    inside)."""
+    for "bf16" is torch.bmm on the same blocks, timed in turns with the
+    kernel and with a zero fill of out's size (what its 134 MB alone take to
+    write); no PyTorch call computes the int8 modes (torch._int_mm has no
+    batched form, and none quantizes inside), which are timed alone on the
+    same clock (CUDA events behind a sleep kernel)."""
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import bare_dot as bd
@@ -555,25 +588,38 @@ def phase_kernels_bare_dot():
         ref = bd.bare_dot_reference(a, b, mode)
         err = (out.float() - ref.float()).abs().max().item()
         tol = 0.0 if mode != "bf16" else 2.0 ** -8 * ref.float().abs().max().item()
-        ms = time_ms(lambda: bd.bare_dot(a, b, mode))
         plain_ms = time_ms(lambda: bd.bare_dot_reference(a, b, mode), iters=5, warmup=1)
-        library_ms = None
+        library_ms = lib_turns = zero_turns = None
         if mode == "bf16":
+            # yardsticks in turns: torch.bmm on the same blocks, and the output's
+            # bytes alone (a zero fill of a tensor of out's size)
             a3, b3 = a.view(steps, BM, K), b.view(K, steps, BN).permute(1, 0, 2)
             lib_err = (torch.bmm(a3, b3).reshape(steps * BM, BN).float() - ref.float()).abs().max().item()
-            library_ms = device_ms(lambda: torch.bmm(a3, b3))
+            turns = in_turns({"kernel": lambda: bd.bare_dot(a, b, mode), "bmm": lambda: torch.bmm(a3, b3),
+                              "zero": lambda: out.zero_()})
+            kernel_turns, lib_turns, zero_turns = turns["kernel"], turns["bmm"], turns["zero"]
+            library_ms = statistics.mean(lib_turns)
+        else:
+            kernel_turns = [time_ms_queued(lambda: bd.bare_dot(a, b, mode))]
+        ms = statistics.mean(kernel_turns)
         flop = 2 * BM * K * BN * steps
         # a and b once, out (bf16) once
         nbytes = a.numel() * a.element_size() + b.numel() * b.element_size() + 2 * steps * BM * BN
         bound = bound_ms(flop, nbytes, PEAK_BF16_FLOPS if mode != "int8" else PEAK_INT8_OPS)
-        log(f"[kernels-bare-dot] {mode} steps={steps}: max|Δ| {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms "
-            f"({flop / ms / 1e9:.1f} TFLOP/s-eff, {nbytes / ms / 1e6:.1f} GB/s) | plain {plain_ms:.4f} ms | "
-            + (f"torch.bmm {library_ms:.4f} ms (max|Δ| {lib_err:.3e})" if library_ms else "library none")
+        log(f"[kernels-bare-dot] {mode} steps={steps}: max|Δ| {err:.3e} (tol {tol:.3e}) | kernel "
+            + " ".join(f"{t:.4f}" for t in kernel_turns)
+            + f" ms ({flop / ms / 1e9:.1f} TFLOP/s-eff, {nbytes / ms / 1e6:.1f} GB/s, {100 * bound[0] / ms:.1f}% "
+            f"of its bound) | plain {plain_ms:.4f} ms | "
+            + (("torch.bmm in turns " + " ".join(f"{t:.4f}" for t in lib_turns) + f" ms (max|Δ| {lib_err:.3e}), "
+                "out's bytes alone (zero fill) " + " ".join(f"{t:.4f}" for t in zero_turns) + " ms")
+               if lib_turns else "library none")
             + f" | bound {bound[0]:.4f} ms ({bound[1]})")
         if not err <= tol:
             raise AssertionError(f"bare dot {mode} disagrees with its plain version: {err} > {tol}")
-        cases[mode] = dict(case=f"{mode}_steps{steps}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1])
+        cases[mode] = dict(case=f"{mode}_steps{steps}", max_abs_err=err, ms=ms, ms_in_turns=kernel_turns,
+                           plain_ms=plain_ms, library_ms=library_ms, library_ms_in_turns=lib_turns,
+                           zero_fill_ms_in_turns=zero_turns,
+                           bound_ms=bound[0], bound_by=bound[1], bound_share=bound[0] / ms)
         del a, b, out, ref
     return {"bare_dot": cases}
 
@@ -2049,15 +2095,18 @@ def phase_kernels_train():
 
 
 def phase_kernels_w8a8():
-    """Kernel G (fused W8A8 matmul) at the Flux-schnell 512² shapes: a double
-    block's image qkv, a single block's linear2 (K 15360, blocks of 512),
-    txt_in (256 text tokens) and the final linear (N 64, a masked N edge);
+    """Kernel G (fused W8A8 matmul) at every dense shape of a Flux-schnell
+    512² request (G_SHAPES), each against its plain version, timed in turns
+    with torch._int_mm on the quantized operands and with the "rows" route
+    (H, the int8 dot, its scalings), its two launches (quantizer pass and
+    GEMM) apart by profiler device time, and the request-weighted sums;
     kernel H (row quantizer) on the qkv input; A's int8 tiers at L 1280 with
     RoPE (D 128 and 64) and at a padded L 1000. Each against its plain
-    version on the same bf16 inputs. G and its yardstick, torch._int_mm,
-    take the weights as ops.quant stores them (K-contiguous)."""
+    version on the same bf16 inputs. G and its yardsticks take the weights
+    as ops.quant stores them (K-contiguous)."""
     import torch
 
+    from flux_generator_tpu_torch.ops import linear as tl
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
     from flux_generator_tpu_torch.ops.quant import quantize_dense
@@ -2067,35 +2116,58 @@ def phase_kernels_w8a8():
     results, failures = {}, []
 
     cases = []
-    for label, m, k, n in (("qkv_1024x3072x9216", 1024, 3072, 9216),
-                           ("linear2_1280x15360x3072", 1280, 15360, 3072),
-                           ("txt_in_256x4096x3072", 256, 4096, 3072),
-                           ("final_1024x3072x64", 1024, 3072, 64)):
+    sums = dict(kernel=0.0, int_mm=0.0, rows=0.0, bound=0.0, quantizer=0.0, gemm=0.0)
+    for name, m, k, n, per_request in G_SHAPES:
+        label = f"{name}_{m}x{k}x{n}"
         p = quantize_dense({"kernel": torch.randn((k, n), generator=g, device=dev) / k ** 0.5})
         wq, ws = p["kernel_q"], p["kernel_scale"]
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
         out = wm.w8a8_matmul(x, wq, ws)
+        again = wm.w8a8_matmul(x, wq, ws)
         ref = wm.w8a8_matmul_reference(x, wq, ws)
         err = (out.float() - ref.float()).abs().max().item()
-        tol = W8A8_REL_TOL * ref.float().abs().max().item()
-        ms = time_ms(lambda: wm.w8a8_matmul(x, wq, ws))
-        plain_ms = time_ms(lambda: wm.w8a8_matmul_reference(x, wq, ws), iters=3, warmup=1)
-        # yardstick: torch._int_mm on the operands already quantized (row-quantized
-        # x, the weight): the int8 product alone; device time
+        # each tile folds its K blocks in order, as the plain version: its bits,
+        # and the same bits from run to run
+        if not (torch.equal(out, ref) and torch.equal(out, again)):
+            failures.append(f"G {label}: equal to the plain version {torch.equal(out, ref)}, run to run "
+                            f"{torch.equal(out, again)}")
+        # yardsticks: torch._int_mm on the operands already quantized (row-quantized
+        # x, the weight), the int8 product alone; and the "rows" route
         x_q = wm.quantize_rows_reference(x)[0]
-        library_ms = device_ms(lambda: torch._int_mm(x_q, wq))
-        gop = 2 * m * k * n / 1e9
+        turns = in_turns({"kernel": lambda: wm.w8a8_matmul(x, wq, ws),
+                          "int_mm": lambda: torch._int_mm(x_q, wq),
+                          "rows": lambda: tl._w8a8(p, x, "rows")})
+        ms, lib_ms, rows_ms = (statistics.mean(turns[key]) for key in ("kernel", "int_mm", "rows"))
+        apart = device_ms_by_kernel(lambda: wm.w8a8_matmul(x, wq, ws))
+        quant_ms = sum(v for kname, v in apart.items() if "quantize" in kname)
+        gemm_ms = sum(v for kname, v in apart.items() if "quantize" not in kname)
+        plain_ms = time_ms(lambda: wm.w8a8_matmul_reference(x, wq, ws), iters=3, warmup=1)
         # x, out bf16; weights int8; scales f32
-        bound = bound_ms(gop * 1e9, 2 * m * k + k * n + 4 * n + 2 * m * n, PEAK_INT8_OPS)
-        log(f"[kernels-w8a8] G {label}: max|Δ| {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms "
-            f"({gop / ms:.1f} TOP/s) | plain {plain_ms:.4f} ms | torch._int_mm {library_ms:.4f} ms | "
-            f"bound {bound[0]:.4f} ms ({bound[1]})")
-        if not err <= tol:
-            failures.append(f"G {label}: {err} > {tol}")
-        cases.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound[0], bound_by=bound[1]))
-        del p, wq, ws, x, out, ref, x_q
+        bound = bound_ms(2 * m * k * n, 2 * m * k + k * n + 4 * n + 2 * m * n, PEAK_INT8_OPS)
+        # the quantizer pass: x read, x_q and its (row, K block) scales written
+        quant_bound = bound_ms(3 * m * k, 2 * m * k + m * k + 4 * m * (k // wm.pick_bk(k)))
+        for key, v in (("kernel", ms), ("int_mm", lib_ms), ("rows", rows_ms), ("bound", bound[0]),
+                       ("quantizer", quant_ms), ("gemm", gemm_ms)):
+            sums[key] += per_request * v
+        log(f"[kernels-w8a8] G {label} ({per_request} a request): max|Δ| {err:.3e} (tol 0: bit for bit) | "
+            f"in turns: kernel " + " ".join(f"{t:.4f}" for t in turns["kernel"])
+            + f" ms ({2 * m * k * n / ms / 1e9:.1f} TOP/s, {100 * bound[0] / ms:.1f}% of its bound), "
+            + "torch._int_mm " + " ".join(f"{t:.4f}" for t in turns["int_mm"])
+            + " ms, rows route " + " ".join(f"{t:.4f}" for t in turns["rows"])
+            + f" ms | apart (device time): quantizer {quant_ms:.4f} ms (bound {quant_bound[0]:.4f}, "
+            f"{quant_bound[1]}), GEMM {gemm_ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound[0]:.4f} ms "
+            f"({bound[1]})")
+        cases.append(dict(case=label, launches_per_request=per_request, max_abs_err=err, ms=ms,
+                          ms_in_turns=turns["kernel"], plain_ms=plain_ms, library_ms=lib_ms,
+                          library_ms_in_turns=turns["int_mm"], rows_route_ms_in_turns=turns["rows"],
+                          quantizer_ms=quant_ms, gemm_ms=gemm_ms, quantizer_bound_ms=quant_bound[0],
+                          bound_ms=bound[0], bound_by=bound[1], bound_share=bound[0] / ms))
+        del p, wq, ws, x, out, again, ref, x_q
+    log(f"[kernels-w8a8] G request-weighted sums over {sum(s[4] for s in G_SHAPES)} launches: kernel "
+        f"{sums['kernel']:.2f} ms (quantizer {sums['quantizer']:.2f} + GEMM {sums['gemm']:.2f}, device time) | "
+        f"torch._int_mm {sums['int_mm']:.2f} ms | rows route {sums['rows']:.2f} ms | bound {sums['bound']:.2f} ms")
     results["w8a8_matmul"] = cases
+    results["w8a8_matmul_request_sums_ms"] = sums
 
     m, k = 1024, 3072
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -2346,7 +2418,8 @@ def _kernel_group(name: str) -> str:
     for key, group in (("flash_fwd_sm90", "A flash forward"), ("rope_rotate", "A RoPE pre-pass"),
                        ("flash_fwd_kernel", "A int8 flash forward"), ("flash_bwd_dq", "E flash dQ"),
                        ("flash_bwd_dkv", "F flash dK/dV"), ("int4_matmul", "B int4 matmul"),
-                       ("w8a8_matmul_kernel", "G W8A8 matmul"), ("quantize_rows_kernel", "H row quantizer"),
+                       ("w8a8_gemm_sm90", "G W8A8 matmul"), ("quantize_blocks_kernel", "G quantizer pass"),
+                       ("quantize_rows_kernel", "H row quantizer"),
                        ("v_col_amax", "A int8 V column pre-pass")):
         if key in name:
             return group
@@ -2553,6 +2626,8 @@ def main() -> int:
                             max_abs_err=max(c["max_abs_err"] for c in kernels[key]),
                             ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
                             bound_by=case["bound_by"], library_ms=case["library_ms"]))
+        if key == "w8a8_matmul":
+            entries[-1]["bound_share"] = case["bound_share"]
     for key, source, replaces, launches in (
             ("decode_step_f8", ds.SOURCE, ds.REPLACES_E4M3,
              main_serve["launches"]["decode_step_f8"] + main_long["launches"]["decode_step_f8"]),
@@ -2570,7 +2645,8 @@ def main() -> int:
         entries.append(dict(name="bare_dot" if mode == "bf16" else f"bare_dot_{mode}", route="cuda",
                             source=bd.SOURCE, replaces=bd.REPLACES, launches=probe_launches["bare_dot"][mode],
                             max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
-                            bound_ms=case["bound_ms"], bound_by=case["bound_by"], library_ms=case["library_ms"]))
+                            bound_ms=case["bound_ms"], bound_by=case["bound_by"], library_ms=case["library_ms"],
+                            bound_share=case["bound_share"]))
     case = kernels["flash_attention_streamed"]["full_streamed"]
     entries.append(dict(name="flash_attention_int8_full_streamed", route="cuda", source=fa.INT8_SOURCE,
                         replaces=fa.REPLACES_STREAMED_FULL,

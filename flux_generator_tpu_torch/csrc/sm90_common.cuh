@@ -1,18 +1,22 @@
 // Hopper (sm_90a) pieces shared by the wgmma/TMA kernels: kernel A's bf16 mode
-// (flash_attention_sm90.cu) and kernels E and F (flash_attention_bwd.cu).
+// (flash_attention_sm90.cu), kernels E and F (flash_attention_bwd.cu), kernel
+// G's GEMM (w8a8_matmul.cu) and the bare-dot probe's bf16 mode (bare_dot.cu).
 //
 // - mbarriers: init, arrive, arrive with an expected byte count, and a bare
 //   try_wait spin (see mbar_wait for why it has no poll limit);
-// - TMA: one box of a 4-D tensor map into shared memory, completion counted on
-//   an mbarrier; `encode_map` builds the map of a (B, L, H, D) bf16 tensor as
-//   (D, H, L, B) with boxes of 64 values × `rows` rows of one (batch, head) and
-//   a 128-byte swizzle, so a (batch, head) is read in place and rows past L
-//   come in as zeros;
+// - TMA: one box of a 2-D or 4-D tensor map into shared memory, completion
+//   counted on an mbarrier, and a 2-D store from shared memory in bulk groups;
+//   `encode_map` builds the map of a (B, L, H, D) bf16 tensor as (D, H, L, B)
+//   with boxes of 64 values × `rows` rows of one (batch, head) and a 128-byte
+//   swizzle, so a (batch, head) is read in place and rows past L come in as
+//   zeros; `encode_map_2d` the map of a row-major matrix of any element type;
 // - wgmma: the shared-memory descriptor of a 128-byte-swizzled operand, fence,
-//   commit and wait, products m64n128k16 and m64n64k16 with both operands in
-//   shared memory (K-major) or with A from registers and B MN-major in shared
-//   memory, and `pack_frag`, which turns an f32 accumulator tile into the bf16
-//   A fragments of the next product;
+//   commit and wait, bf16 products m64n128k16 and m64n64k16 with both operands
+//   in shared memory (A K-major, B K-major or MN-major) or with A from
+//   registers and B MN-major in shared memory, the int8 products m64n128k32
+//   and m64n192k32 (s32 sums, both operands K-major in shared memory: int8
+//   wgmma takes no other layout), and `pack_frag`, which turns an f32 accumulator tile into
+//   the bf16 A fragments of the next product;
 // - named-barrier turns that order two consumer warpgroups' products.
 //
 // Operand layouts (BOX = 64 bf16 values, one 128-byte swizzle row). A tile of
@@ -21,7 +25,8 @@
 // columns the contraction) k16 step kk starts at box kk/4, byte (kk%4)·32,
 // with SBO 1024 (eight rows). As an MN-major B operand (rows = the
 // contraction, the columns N) k16 step kk starts 16 rows further, with LBO
-// the size of a box (the next 64 columns) and SBO 1024.
+// the size of a box (the next 64 columns) and SBO 1024. An int8 k32 step is
+// the same 32 bytes of a swizzled row, so int8 tiles step as bf16 ones do.
 #pragma once
 
 #include <cuda.h>
@@ -73,6 +78,35 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 2-D tensor map (column, row) into shared memory; completion
+// counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box of shared memory to a 2-D tensor map (column, row), in the thread's
+// current bulk group; the map clips what lies past the tensor's edges.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// Generic-proxy writes to shared memory made visible to TMA (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor for a 128-byte-swizzled operand: start address,
 // leading and stride byte offsets (16-byte units), layout type 1 (SW128).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -97,10 +131,18 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 #define FGT_D8(b) \
   "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]), "+f"(d[b + 5]), \
       "+f"(d[b + 6]), "+f"(d[b + 7])
+#define FGT_I8(b) \
+  "+r"(d[b + 0]), "+r"(d[b + 1]), "+r"(d[b + 2]), "+r"(d[b + 3]), "+r"(d[b + 4]), "+r"(d[b + 5]), \
+      "+r"(d[b + 6]), "+r"(d[b + 7])
 #define FGT_REGS32                                                                                 \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, " \
   "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -108,6 +150,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   FGT_REGS32                                                                                        \
   ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, " \
   "%51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define FGT_REGS96 \
+  FGT_REGS64 \
+  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79" \
+  ", %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
 
 // d (+)= A·B, m64n128k16, A and B K-major in shared memory; d is overwritten
 // when `accumulate` is 0.
@@ -116,6 +162,36 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FGT_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24), FGT_D8(32), FGT_D8(40), FGT_D8(48), FGT_D8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A·B, m64n128k16, A K-major and B MN-major (its rows the contraction)
+// in shared memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss_n128_bmn(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FGT_REGS64 "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24), FGT_D8(32), FGT_D8(40), FGT_D8(48), FGT_D8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A·B in int8 with exact s32 sums, m64n128k32, A and B K-major in
+// shared memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" FGT_REGS64 "}, %64, %65, p;\n}\n"
+      : FGT_I8(0), FGT_I8(8), FGT_I8(16), FGT_I8(24), FGT_I8(32), FGT_I8(40), FGT_I8(48), FGT_I8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// As above with N = 192.
+__device__ __forceinline__ void wgmma_s8(int (&d)[96], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {" FGT_REGS96 "}, %96, %97, p;\n}\n"
+      : FGT_I8(0), FGT_I8(8), FGT_I8(16), FGT_I8(24), FGT_I8(32), FGT_I8(40), FGT_I8(48), FGT_I8(56),
+        FGT_I8(64), FGT_I8(72), FGT_I8(80), FGT_I8(88)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -149,8 +225,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 }
 
 #undef FGT_D8
+#undef FGT_I8
 #undef FGT_REGS32
 #undef FGT_REGS64
+#undef FGT_REGS96
 
 // This thread's f32 share of a 64 × 2N accumulator tile as bf16 A fragments:
 // columns 16kk..16kk+15 (n8 groups 2kk and 2kk + 1) are the A fragment of
@@ -199,6 +277,21 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int H, i
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major matrix of `rows` rows × `cols` elements of `type` (`elem_bytes`
+// each; rows `pitch` bytes apart, a multiple of 16) as a 2-D map (column, row)
+// with boxes of box_cols × box_rows, zero fill past the edges on loads.
+inline bool encode_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, uint64_t cols,
+                          uint64_t rows, uint64_t pitch, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1u, 1u};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

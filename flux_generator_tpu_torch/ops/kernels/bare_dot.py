@@ -17,6 +17,10 @@ The division by 127 is taken as XLA compiles the TPU script's `/ 127.0`, a
 multiplication by f32(1/127) (PyTorch's CUDA division by a scalar does the
 same); x / s is an IEEE division.
 
+On the card "bf16" runs a persistent wgmma kernel fed by TMA (it needs
+16-byte aligned operands); the int8 modes run an mma.sync kernel, a block
+a 128 × 128 output tile.
+
 `bare_dot` dispatches on the inputs' device only: CPU tensors go to
 `bare_dot_reference`, CUDA tensors to the kernel, which raises for what it
 does not take. There is no fallback from one to the other.
@@ -43,6 +47,7 @@ K_RANGE = (32, 256)  # the kernel stages the whole K of a tile in shared memory
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "fgt_bare_dot": [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "fgt_bare_dot_bf16_info": [ctypes.c_int, _P, _P, _P, _P],
 }
 
 
@@ -100,6 +105,8 @@ def _check_cuda_args(a, b, mode, bm, bn):
         raise ValueError(f"bare dot kernel takes BM, BN multiples of {TILE}, got {bm}, {bn}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("bare dot kernel takes contiguous operands")
+    if mode == "bf16" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError("bare dot kernel takes 16-byte aligned bf16 operands (TMA)")
     if b.device != a.device:
         raise ValueError("a and b must lie on one device")
 
@@ -115,6 +122,15 @@ def _bare_dot_cuda(a, b, mode, bm, bn):
     _build.check("fgt_bare_dot", err)
     launches[mode] += 1
     return out
+
+
+def bf16_kernel_info(k: int = 128) -> dict:
+    """The "bf16" kernel at K: registers a thread at launch, local memory
+    (spill) bytes a thread, shared memory bytes a block, blocks an SM."""
+    lib = _build.load("bare_dot", _SIGNATURES)
+    vals = [ctypes.c_int() for _ in range(4)]
+    _build.check("fgt_bare_dot_bf16_info", lib.fgt_bare_dot_bf16_info(k, *(ctypes.byref(v) for v in vals)))
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
 
 
 def bare_dot(a: torch.Tensor, b: torch.Tensor, mode: str, bm: int = 1024, bn: int = 1024) -> torch.Tensor:

@@ -13,11 +13,17 @@ the layout in which `ops.quant` stores that tier, and raises for any other.
 The activation scale of G is per (row, K block), K cut into blocks of 512, 256 or 128 (the largest that divides K); that of H is
 per whole row. Both take sx = max(amax|x|, 1e-12) · (1/127) and
 x_q = round(x · (1/sx)) (half to even) with no clip.
+
+G's GEMM runs persistent blocks (`grid`: at most one an SM) over output
+tiles of 128 rows × 128 or 192 columns (`tile_n`), each of which folds its K
+blocks in order as the plain version does: on the card G equals the plain
+version bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,10 +39,15 @@ SOURCE = "flux_generator_tpu_torch/csrc/w8a8_matmul.cu"
 REPLACES = "flux_generator_tpu/ops/pallas/w8a8_matmul.py:119"
 REPLACES_QUANTIZE = "flux_generator_tpu/ops/pallas/w8a8_matmul.py:166"
 BK_CANDIDATES = (512, 256, 128)
+TILE = 128  # rows of G's output tiles
+TILE_WIDTHS = (128, 192)  # their columns: the kernel's two instantiations
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "fgt_w8a8_matmul": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    # x, xq, sx, w, ws, out, M, N, K, bn, grid, stream
+    "fgt_w8a8_matmul": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        _P],
+    "fgt_w8a8_matmul_info": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
     "fgt_quantize_rows": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
 }
 
@@ -44,6 +55,26 @@ _SIGNATURES = {
 def pick_bk(k: int) -> int:
     """The K block of G: the largest candidate dividing K, 0 if none does."""
     return next((bk for bk in BK_CANDIDATES if k % bk == 0), 0)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_n(m: int, n: int, sms: int) -> int:
+    """Width of G's output tiles (128 rows × 128 or 192 columns) on a card of
+    `sms` SMs: the one whose busiest block has the fewest columns to compute,
+    ⌈tiles / sms⌉ · width, the wider on a tie (it moves fewer bytes a
+    product). Both widths run a column at the same rate on the H100; what
+    differs is how evenly the tiles fill the blocks."""
+    return min(TILE_WIDTHS[::-1], key=lambda bn: _cdiv(_cdiv(m, TILE) * _cdiv(n, bn), sms) * bn)
+
+
+def grid(m: int, n: int, sms: int) -> int:
+    """Persistent blocks of G's GEMM on a card of `sms` SMs: one an SM (its
+    shared memory takes one an SM), no more than there are tiles; block b
+    takes tiles b, b + grid, ..."""
+    return min(_cdiv(m, TILE) * _cdiv(n, tile_n(m, n, sms)), sms)
 
 
 def supported(k: int, kernel_scale: torch.Tensor) -> bool:
@@ -119,19 +150,37 @@ def _w8a8_matmul_cuda(x, kernel_q, kernel_scale):
         raise ValueError("W8A8 kernel takes 16-byte aligned weights")
     if kernel_q.device != x2.device or kernel_scale.device != x2.device:
         raise ValueError("operands must lie on one device")
-    lib = _build.load("w8a8_matmul", _SIGNATURES)
     m = x2.shape[0]
+    lib = _build.load("w8a8_matmul", _SIGNATURES)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     # scratch: x quantized per (row, K block), once for all output tiles
     x_q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m, k // pick_bk(k)), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        sms = _sms(x.device.index)
         err = lib.fgt_w8a8_matmul(x2.data_ptr(), x_q.data_ptr(), sx.data_ptr(), kernel_q.data_ptr(),
-                                  kernel_scale.data_ptr(), out.data_ptr(), m, n, k,
-                                  torch.cuda.current_stream(x.device).cuda_stream)
+                                  kernel_scale.data_ptr(), out.data_ptr(), m, n, k, tile_n(m, n, sms),
+                                  grid(m, n, sms), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("fgt_w8a8_matmul", err)
     launches += 1
     return out.reshape(*lead, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (asked once: G runs
+    920 times a request)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_info(bk: int = 512, bn: int = 128) -> dict:
+    """G's GEMM kernel at K block `bk` and tile width `bn`: registers a thread
+    at launch, local memory (spill) bytes a thread, shared memory bytes a
+    block, blocks an SM."""
+    lib = _build.load("w8a8_matmul", _SIGNATURES)
+    vals = [ctypes.c_int() for _ in range(4)]
+    _build.check("fgt_w8a8_matmul_info", lib.fgt_w8a8_matmul_info(bk, bn, *(ctypes.byref(v) for v in vals)))
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
 
 
 def _quantize_rows_cuda(x):

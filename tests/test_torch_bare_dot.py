@@ -127,7 +127,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 @pytest.mark.parametrize("bad", ["mode", "dtype", "k_not_32", "k_too_big", "bm_not_128", "ragged_steps",
-                                 "non_contiguous"])
+                                 "non_contiguous", "misaligned_bf16"])
 def test_kernel_argument_checks_raise(bad):
     a = torch.zeros((2 * 256, 128), dtype=torch.bfloat16)
     b = torch.zeros((128, 2 * 256), dtype=torch.bfloat16)
@@ -147,6 +147,8 @@ def test_kernel_argument_checks_raise(bad):
         a = a[:300]
     elif bad == "non_contiguous":
         b = torch.zeros((2 * 256, 128), dtype=torch.bfloat16).t()
+    elif bad == "misaligned_bf16":  # contiguous, but 2 bytes into its buffer: "bf16" loads with TMA
+        a = torch.zeros(2 * 256 * 128 + 8, dtype=torch.bfloat16)[1:1 + 2 * 256 * 128].view(2 * 256, 128)
     with pytest.raises(ValueError):
         bd._check_cuda_args(a, b, mode, bm, bn)
     bd._check_cuda_args(torch.zeros((512, 64), dtype=torch.int8), torch.zeros((64, 512), dtype=torch.int8),
@@ -180,7 +182,7 @@ def test_probe_entry_point_imports_no_jax():
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", bd.MODES)
 @pytest.mark.parametrize("k,steps,bm,bn", [(128, 2, 1024, 1024), (128, 3, 256, 384), (64, 1, 128, 128),
-                                           (256, 2, 256, 256)])
+                                           (256, 2, 256, 256), (96, 2, 256, 128), (32, 3, 128, 256)])
 def test_cuda_kernel_matches_plain_version(mode, k, steps, bm, bn):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

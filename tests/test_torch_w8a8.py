@@ -16,6 +16,13 @@ from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as tw
 
 # the JAX package's FGT_W8A8_IMPL formulation of each route
 ROUTES = {"ops": "xla", "rows": "pq", "fused": "pallas"}
+# kernel G's dense shapes in a Flux-schnell 512² request (M, K, N): linear1,
+# linear2, image mlp0, mlp2, qkv, proj, text qkv, proj, mlp0, mlp2, txt_in,
+# the final linear
+G_SHAPES = [(1280, 3072, 21504), (1280, 15360, 3072), (1024, 3072, 12288), (1024, 12288, 3072),
+            (1024, 3072, 9216), (1024, 3072, 3072), (256, 3072, 9216), (256, 3072, 3072), (256, 3072, 12288),
+            (256, 12288, 3072), (256, 4096, 3072), (1024, 3072, 64)]
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def _mk(seed, m, k, n, lead=()):
@@ -307,7 +314,9 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert (tw.launches, tw.quantize_launches) == before
 
 
-@pytest.mark.parametrize("bad", ["f32", "k_100", "grouped", "f64_scales", "int16_weight", "n_contiguous"])
+@pytest.mark.parametrize("bad", ["f32", "k_100", "grouped", "f64_scales", "int16_weight", "n_contiguous",
+                                 "misaligned_weight", "scale_length", "k_mismatch", "weight_3d",
+                                 "strided_scales"])
 def test_kernel_argument_checks_raise(bad):
     """The wrapper's checks run before any build, so they raise here too. The
     weight is K-contiguous, as ops.quant stores it, unless `bad` says."""
@@ -326,8 +335,52 @@ def test_kernel_argument_checks_raise(bad):
         wq = wq.to(torch.int16)
     elif bad == "n_contiguous":
         wq = wq.contiguous()
+    elif bad == "misaligned_weight":  # K-contiguous, but starting one byte into its buffer (TMA takes 16)
+        wq = torch.zeros(64 * 512 + 16, dtype=torch.int8)[1:1 + 64 * 512].view(64, 512).t()
+    elif bad == "scale_length":
+        ws = torch.ones(63)
+    elif bad == "k_mismatch":
+        wq = torch.zeros(64, 384, dtype=torch.int8).t()
+    elif bad == "weight_3d":
+        wq = torch.zeros(2, 64, 512, dtype=torch.int8).transpose(1, 2)
+    elif bad == "strided_scales":
+        ws = torch.ones(128)[::2]
     with pytest.raises(ValueError):
         tw._w8a8_matmul_cuda(x, wq, ws)
+
+
+# ragged shapes on the card: N 700 and 130 store from registers in 128-wide
+# tiles; 1100 rows and N 2300 (registers, K blocks of 128) or 2296 (TMA, clipped;
+# K blocks of 256) in 192-wide ones
+RAGGED = [(77, 1536, 700), (16, 384, 130), (1100, 384, 2300), (1100, 768, 2296)]
+
+
+# G's persistent grid (blocks, tile width) on an H100 for each of G_SHAPES and
+# RAGGED, counted by hand: one block an SM (its shared memory takes one an SM)
+# unless the 128-row tiles are fewer
+H100_GRIDS = [(132, 128), (132, 128), (132, 192), (128, 192), (132, 192), (128, 192), (96, 192), (48, 128),
+              (128, 192), (48, 128), (48, 128), (8, 128), (6, 128), (2, 128), (108, 192), (108, 192)]
+
+
+@pytest.mark.parametrize("sms,m,n,blocks,bn", [
+    *((H100_SMS, m, n, blocks, bn) for (m, k, n), (blocks, bn) in zip(G_SHAPES + RAGGED, H100_GRIDS)),
+    (114, 1280, 21504, 114, 192),  # linear1 ties at 114 SMs (⌈1120 / 114⌉ · 192 = ⌈1680 / 114⌉ · 128): 192
+    (114, 256, 9216, 96, 192),  # text qkv: 2 × 48 tiles, fewer than the SMs
+    (1, 1280, 21504, 1, 192),  # one SM: one block walks every tile, the wider ones
+    (1, 1024, 3072, 1, 192)])
+def test_grid_is_one_block_an_sm_and_no_more_than_the_tiles(sms, m, n, blocks, bn):
+    """G's persistent grid and tile width on a card of `sms` SMs, pinned."""
+    assert tw.tile_n(m, n, sms) == bn
+    assert tw.grid(m, n, sms) == blocks
+
+
+def test_tile_width_fills_the_blocks_most_evenly():
+    """On an H100 (132 SMs) the 192-wide tiles go where they leave the
+    busiest block fewer columns (⌈tiles / 132⌉ · width; ties to 192), the
+    128-wide ones elsewhere, as measured in turns on the card."""
+    got = [tw.tile_n(m, n, H100_SMS) for m, k, n in G_SHAPES]
+    assert got == [128, 128, 192, 192, 192, 192, 192, 128, 192, 128, 128, 128]
+    assert [tw.tile_n(m, n, H100_SMS) for m, k, n in RAGGED] == [128, 128, 192, 192]
 
 
 @pytest.fixture
@@ -338,23 +391,28 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1024, 3072, 9216), (1280, 15360, 3072), (256, 4096, 3072),
-                                   (1024, 3072, 64), (77, 1536, 700), (16, 384, 130)])
+@pytest.mark.parametrize("m,k,n", G_SHAPES + RAGGED)
 def test_cuda_w8a8_matmul_matches_plain_version(cuda, m, k, n):
     """Kernel G, on the K-contiguous weights ops.quant stores, against its
     plain version on the same bf16 inputs: the same quantization and exact
-    integer dots, the f32 fold rounded one operation at a time in both; atol
-    one bf16 step (2^-8) of max|ref|."""
+    integer dots, the f32 fold rounded one operation at a time in block
+    order in both, the same output products: equal bit for bit, at every
+    shape of a Flux 512² request and at ragged M and N in both tile widths
+    and both stores (RAGGED). Two runs are equal, and each call counts one
+    launch."""
     x, wq, ws = _mk(12, m, k, n)
     xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
     w = torch.from_numpy(wq).to(cuda).t().contiguous().t()
     s = torch.from_numpy(ws).to(cuda)
+    ref = tw.w8a8_matmul_reference(xt, w, s)
     before = tw.launches
     out = tw.w8a8_matmul(xt, w, s)
-    torch.cuda.synchronize()
     assert tw.launches == before + 1
-    ref = tw.w8a8_matmul_reference(xt, w, s)
-    assert (out.float() - ref.float()).abs().max().item() <= 2.0 ** -8 * ref.float().abs().max().item()
+    again = tw.w8a8_matmul(xt, w, s)
+    torch.cuda.synchronize()
+    assert tw.launches == before + 2
+    assert torch.equal(out, ref)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
