@@ -11,8 +11,10 @@ Phases, each of which fails the run on error:
                       csrc/ with nvcc, all at once, with the ptxas report of
                       each and the registers, local memory, shared memory and
                       blocks an SM of the wgmma kernels: A's bf16 kernel, E
-                      and F, G's GEMM and #13's bf16 kernel; E, F, G and #13
-                      must not spill nor have their wgmma serialized (C7512).
+                      and F, G's GEMM and #13's bf16 kernel, and of D's four
+                      instantiations with its ring stages, grid syncs a
+                      layer and SASS size; E, F, G, #13 and D must not spill
+                      nor have their wgmma serialized (C7512).
   3. kernels        — flash attention (A: its RoPE pre-pass and its bf16
                       kernel) and the int4 matmul (B) against their plain
                       PyTorch versions at the shapes of the Flux-schnell 512²
@@ -20,7 +22,9 @@ Phases, each of which fails the run on error:
                       forward; B also at one row, 17 rows, a ragged N and
                       with f32 activations.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
-                      plain versions at MusicGen-medium shapes, with times.
+                      plain versions at MusicGen-medium shapes, with times;
+                      D at int8 B 2 and B 8 in turns with #11 at M 2 and M 8,
+                      and B 8's rows 0-1 bit for bit against a B 2 launch.
      kernels-musicgen-f8 — D's e4m3 cache tier against its plain version at
                       MusicGen-medium shapes (B 2 W 2500, B 8 W 2048, bf16
                       weights B 2 W 500), timed in turns with the bf16 tier.
@@ -125,6 +129,7 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -381,16 +386,40 @@ def phase_build():
             log(f"[build] {label} {key}: {rec['registers']} registers a thread at launch (setmaxnreg: 40 "
                 f"producer, 232 consumers), {rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} "
                 f"bytes of shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
-    # E, F, G's GEMM and #13's bf16 kernel keep their products asynchronous and in registers
-    serialized = [line.strip() for name in ("flash_attention_bwd", "w8a8_matmul", "bare_dot")
+    d_info = {f"{'int8' if i8 else 'bf16'} weights, {'e4m3' if f8 else 'bf16'} cache": ds.kernel_info(i8, f8)
+              for i8 in (True, False) for f8 in (False, True)}
+    for key, rec in d_info.items():
+        log(f"[build] decode_step D, {key}: {rec['registers']} registers a thread, {rec['local_bytes']} bytes of "
+            f"local memory (its calls' stack), {rec['smem_bytes']} bytes of shared memory a block, "
+            f"{rec['blocks_per_sm']} block(s) an "
+            f"SM, a weight ring of {rec['ring_stages']} stages, {rec['syncs_per_layer']} grid syncs a layer "
+            f"({rec['syncs_per_layer'] * 48} a 48-layer step)")
+    # D's code is fetched anew every layer (its phases each run once a layer): its size an instantiation
+    d_so = next(_build.BUILD_DIR.glob("decode_step-*.so"))
+    sass = subprocess.run([str(pathlib.Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(d_so)],
+                          capture_output=True, text=True, check=True).stdout
+    d_code = {}
+    for part in sass.split("Function : ")[1:]:
+        d_code[part.split(None, 1)[0][-40:]] = sum(1 for line in part.splitlines()
+                                                    if re.match(r"\s+/\*[0-9a-f]{4,}\*/", line))
+    log("[build] decode_step D code: " + ", ".join(f"{n} instructions ({n * 16 // 1024} KB)" for n in
+                                                      d_code.values()) + " an instantiation")
+    # E, F, G's GEMM and #13's bf16 kernel keep their products asynchronous and in registers; none of
+    # them, nor D, spills
+    serialized = [line.strip() for name in ("flash_attention_bwd", "w8a8_matmul", "bare_dot", "decode_step")
                   for line in _build.BUILD_INFO[name][1].splitlines() if "C7512" in line]
     spills = {(d, w): r["spill_bytes"] for d, recs in bwd_info.items() for w, r in recs.items() if r["spill_bytes"]}
     spills.update({("G", key): r["spill_bytes"] for key, r in g_info.items() if r["spill_bytes"]})
     spills.update({("bare_dot_bf16", k): r["spill_bytes"] for k, r in dot_info.items() if r["spill_bytes"]})
+    # D's phases are calls with a stack: its spills are ptxas's, for the kernels and every function
+    d_spills = [int(n) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                              _build.BUILD_INFO["decode_step"][1]) for n in pair]
+    if any(d_spills):
+        spills[("D", "ptxas")] = max(d_spills)
     if serialized or spills:
-        raise AssertionError(f"wgmma kernels: serialized {serialized}, spills {spills}")
+        raise AssertionError(f"tensor-core kernels: serialized {serialized}, spills {spills}")
     return {"flash_attention_sm90": info, "flash_attention_bwd": bwd_info, "w8a8_matmul": g_info,
-            "bare_dot_bf16": dot_info}
+            "bare_dot_bf16": dot_info, "decode_step": d_info, "decode_step_sass_instructions": d_code}
 
 
 def _flux_rope_tables(length: int, text: int = 256, axes_dim=(16, 56, 56)):
@@ -1353,11 +1382,14 @@ def phase_kernels_musicgen():
     """Kernels C and D against their plain versions at MusicGen-medium shapes:
     the EnCodec LSTM (d = 1024, T = 497 frames, B = 1) and the 48-layer decode
     step (H = 1536, 24 heads, int8 and bf16 weights, windows of 8 to 2048
-    rows, the CFG batch of 2 and a batch of 8 with cond_len masks)."""
+    rows, the CFG batch of 2 and a batch of 8 with cond_len masks). D at
+    int8 B 2 and B 8 is timed in turns with #11 at M 2 and M 8 on the same
+    weights; at B 8 its rows 0-1 must equal a B 2 launch's bit for bit."""
     import torch
     import torch.backends.cudnn.rnn as cudnn_rnn
 
     from flux_generator_tpu_torch.io.registry import MUSICGEN_MEDIUM_CONFIG as cfg
+    from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
     from flux_generator_tpu_torch.ops.kernels import lstm as lk
 
@@ -1436,23 +1468,50 @@ def phase_kernels_musicgen():
                                        v2[:, :, offset].float().abs().max().item())
         untouched = torch.equal(torch.cat([k1[:, :, :offset], k1[:, :, offset + 1:]], 2),
                                 torch.cat([kc[:, :, :offset], kc[:, :, offset + 1:]], 2))
-        ms = time_ms(lambda: ds.fused_decode_step(packed, x, ck, cv, offset, k1, v1, cl, n_heads=heads))
+        step = lambda: ds.fused_decode_step(packed, x, ck, cv, offset, k1, v1, cl, n_heads=heads)  # noqa: E731
+        chain_ms = phases = None
+        if label in ("int8_B2_W500_off250", "int8_B8_W2048_off1900"):
+            # in turns with #11, the weight stream of D's first design alone, at the same rows and weights
+            chain = lambda: dc.decode_chain(packed["w"], packed["s"], x)  # noqa: E731
+            t = [time_ms(f) for f in (step, chain, chain, step)]
+            ms, chain_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            # D's phase split: block 0's device clock after each grid sync, summed over the layers
+            phases = ds.phase_times(packed, x, ck, cv, offset, k1, v1, cl, n_heads=heads)
+            log(f"[kernels] decode {label} phase split, us a step (sync to sync): "
+                + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()) + f" | sum {sum(phases.values()):.1f}")
+        else:
+            ms = time_ms(step)
         plain_ms = time_ms(lambda: ds.fused_decode_step_plain(packed, x, ck, cv, offset, k2, v2, cl,
                                                               n_heads=heads), iters=3, warmup=1)
+        batch_free = None
+        if b == 8:
+            # rows 0-1 of this launch against a launch of those two rows alone, bit for bit
+            y8, k8, v8 = ds.fused_decode_step(packed, x, ck, cv, offset, kc.clone(), vc.clone(), cl, n_heads=heads)
+            ck2, cv2, kc2, vc2 = (t[:, :2].contiguous() for t in (ck, cv, kc, vc))
+            y2, k2b, v2b = ds.fused_decode_step(packed, x[:2].contiguous(), ck2, cv2, offset, kc2, vc2,
+                                                cl[:2].contiguous(), n_heads=heads)
+            batch_free = (torch.equal(y8[:2].view(torch.int16), y2.view(torch.int16))
+                          and torch.equal(k8[:, :2, offset].view(torch.int16), k2b[:, :, offset].view(torch.int16))
+                          and torch.equal(v8[:, :2, offset].view(torch.int16), v2b[:, :, offset].view(torch.int16)))
+            del y8, k8, v8, ck2, cv2, kc2, vc2, y2, k2b, v2b
         # bytes the step must read: weights, scales, LN, the live text rows of
         # cross K/V (cond_len of each row), live cache rows
         nbytes = (packed["w"].numel() * packed["w"].element_size() + packed["s"].numel() * 2
                   + packed["ln"].numel() * 2 + 2 * L * int(cl.sum().item()) * H * 2 + 2 * L * b * offset * H * 2)
+        bound = bound_ms(2 * b * packed["w"].numel(), nbytes)
         log(f"[kernels] decode {label}: max|Δ| {err:.3e} (tol {tol:.3e}), new rows {row_err:.3e} "
             f"(tol {row_tol:.3e}), other rows untouched {untouched} | kernel {ms:.4f} ms "
-            f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e9:.3f} GB) | plain {plain_ms:.4f} ms")
-        if not (err <= tol and row_err <= row_tol and untouched):
+            f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e9:.3f} GB; bound {bound[0]:.4f} ms, {bound[1]}) | plain "
+            f"{plain_ms:.4f} ms" + ("" if chain_ms is None else f" | #11 at M {b} in turns {chain_ms:.4f} ms "
+                                    f"(D {ms - chain_ms:+.4f})")
+            + ("" if batch_free is None else f" | rows 0-1 equal a B 2 launch bit for bit: {batch_free}"))
+        if not (err <= tol and row_err <= row_tol and untouched and batch_free is not False):
             failures.append(f"decode {label}: y {err} (tol {tol}), rows {row_err} (tol {row_tol}), "
-                            f"untouched {untouched}")
-        bound = bound_ms(2 * b * packed["w"].numel(), nbytes)
+                            f"untouched {untouched}, rows independent of B {batch_free}")
         decode_cases.append(dict(case=label, max_abs_err=err, rel_err=err / tol * DECODE_REL_TOL,
                                  ms=ms, plain_ms=plain_ms, bytes=nbytes, library_ms=None,
-                                 bound_ms=bound[0], bound_by=bound[1]))
+                                 bound_ms=bound[0], bound_by=bound[1], chain_ms_in_turns=chain_ms,
+                                 rows_independent_of_batch=batch_free, phase_us=phases))
         del kc, vc, k1, v1, k2, v2
     results["decode_step"] = decode_cases
     torch.cuda.synchronize()
@@ -1622,7 +1681,8 @@ def phase_kernels_chain():
     log(f"[kernels-chain] decode chain L48 M8: max|Δ| {err:.3e} (tol {tol:.3e}), M2 {err2:.3e} | kernel "
         f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), at M 2 {ms2:.4f} ms | plain {plain_ms:.4f} ms | bound "
         f"{bound[0]:.4f} ms ({bound[1]}) | D (int8, bf16 cache, B 2, W 500, off 250) {d_ms:.4f} ms in turns: "
-        f"the weight stream of its 2 rows alone is {ms2 / d_ms:.1%} of D's step")
+        f"D {d_ms - ms2:+.4f} ms against #11 at M 2 (#11 is the weight stream of D's first design alone, "
+        f"kept as a fixed yardstick)")
     err = max(err, err2)
     del packed, xd, ck, kc, vc, w, s, x, x2, y, ref
     if not err <= tol:
@@ -1647,8 +1707,10 @@ def phase_kernels_chain_bisect(chain):
     rung timed in turns with #11 (#11, rung, rung, #11 twice over) and shown
     beside D's time from `chain` (kernels-chain's record). A control must miss
     the tolerance: the no-extras rung's output against the ln rung's plain
-    output. Then the attribution: each rung's cost over #11 less the rung
-    before's (each in its own turns), summed beside D − #11 at 2 rows; and
+    output. Then the attribution of D's first design (decode_common.cuh),
+    kept for #12: each rung's cost over #11 less the rung before's (each in
+    its own turns), summed beside today's D − #11 at 2 rows (D now has
+    projections of its own, so the sum no longer accounts for that gap); and
     one run of the probe's entry point (the script's ladder, then every
     extra), whose launches are the line's."""
     import torch
@@ -1710,8 +1772,8 @@ def phase_kernels_chain_bisect(chain):
         attribution[m] = dict(zip([c["extras"] or "none" for c in rows], deltas))
         log(f"[kernels-chain-bisect] M {m} attribution, ms over the rung before (the first over #11): " + ", ".join(
             f"{k} {v:+.4f}" for k, v in attribution[m].items()) + f" | sum {sum(deltas):+.4f} ms" +
-            (f" beside D − #11 at 2 rows {d_minus_chain:.4f} ms (kernels-chain: D {d_ms:.4f},"
-             f" #11 {chain['m2_ms']:.4f})" if m == 2 else ""))
+            (f" (the attribution of D's first design, kept for #12) beside today's D − #11 at 2 rows "
+             f"{d_minus_chain:+.4f} ms (kernels-chain: D {d_ms:.4f}, #11 {chain['m2_ms']:.4f})" if m == 2 else ""))
     del w, s, x8, every, ops
     torch.cuda.empty_cache()
     if failures:

@@ -1,6 +1,6 @@
 // The chain-bisect probe: the decode-chain probe's weight stream (#11) with
-// the structural pieces of the fused decode step (kernel D) added one at a
-// time, for Hopper (sm_90a).
+// the structural pieces of the first design of the fused decode step (kernel
+// D) added one at a time, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel built by `make_kernel` in scripts/prof_chain_bisect.py
 // (l.57; pallas_call at :269). One step runs x (M, H) bf16 through L layers of

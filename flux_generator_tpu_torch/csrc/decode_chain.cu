@@ -1,12 +1,13 @@
-// The decode-chain probe: kernel D's weight stream with attention as
-// identity, for Hopper (sm_90a).
+// The decode-chain probe: the weight stream of kernel D's first design with
+// attention as identity, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_kernel` of scripts/prof_pallas_chain.py (l.81,
 // pallas_call at :150), the prototype that measured the weight-streaming
 // floor of the fused decode step. It streams the same packed weights — w
 // (L·14, H, H) int8, s (L·14, 1, H) bf16 — through the same 14-chunk schedule
-// as kernel D (decode_step.cu), and does nothing else, so its time is D's
-// floor for moving the weights. One layer, on x (M, H):
+// as kernel D (decode_step.cu), and does nothing else, so its time was the
+// first design's floor for moving the weights; it stays as a fixed yardstick
+// for D, whose own design is now another. One layer, on x (M, H):
 //   LN (no scale, no bias, eps 1e-5) → q = c0; c1 and c2 computed and parked
 //   (read and multiplied like q, their traffic is the point); x += c3·q;
 //   LN → x += c5·(c4·LN); LN → up c6..c9 → per chunk GELU → Σ c10..c13 → x += Σ.

@@ -1,7 +1,8 @@
-// The weight-streaming machinery of the MusicGen decode step (kernel D,
-// decode_step.cu) and of its probes (decode_chain.cu, chain_bisect.cu), for Hopper
-// (sm_90a): one persistent cooperative launch walks the layers' 14 weight
-// chunks of (H, H) in phases separated by grid syncs.
+// The weight-streaming machinery of the first design of the MusicGen decode
+// step (kernel D, which now has its own in decode_step.cu), kept for its
+// probes (decode_chain.cu, chain_bisect.cu), for Hopper (sm_90a): one
+// persistent cooperative launch walks the layers' 14 weight chunks of (H, H)
+// in phases separated by grid syncs.
 //
 //   projection   tiles of 128 output columns × a k-slice, whose weight rows
 //                are copied into shared memory with cp.async (a block's first

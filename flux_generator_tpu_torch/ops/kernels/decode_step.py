@@ -63,10 +63,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # w, s, ln, x, ck, cv, kc, vc, cond_len, y, scratch,
-    # L, B, H, S, W, offset, n_heads, w_is_int8, kv_is_e4m3, stream
-    "fgt_decode_step": [_P] * 11 + [_I] * 9 + [_P],
+    # L, B, H, S, W, offset, n_heads, w_is_int8, kv_is_e4m3, timers, stream
+    "fgt_decode_step": [_P] * 11 + [_I] * 9 + [_P, _P],
     # B, H, w_is_int8 → f32 scratch the kernel needs (0: shape not taken)
     "fgt_decode_step_scratch_floats": [_I, _I, _I],
+    # w_is_int8, kv_is_e4m3 → registers, spill bytes, shared bytes, blocks an SM, ring stages, syncs a layer
+    "fgt_decode_step_info": [_I, _I] + [_P] * 6,
 }
 
 
@@ -293,7 +295,8 @@ def _check_cuda_args(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond
         raise ValueError("decode-step kernel takes caches aligned to 16 bytes")
 
 
-def _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads):
+def _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads,
+                            timers=None):
     global launches, e4m3_launches
     _check_cuda_args(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads)
     b, h = x.shape
@@ -311,12 +314,46 @@ def _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cach
             cross_k.data_ptr(), cross_v.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             None if cond_len is None else cond_len.data_ptr(), y.data_ptr(), scratch.data_ptr(),
             n_layers, b, h, cross_k.shape[2], k_cache.shape[2], int(offset), n_heads, w_is_int8,
-            int(k_cache.dtype == torch.float8_e4m3fn), torch.cuda.current_stream(x.device).cuda_stream,
+            int(k_cache.dtype == torch.float8_e4m3fn), None if timers is None else timers.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check("fgt_decode_step", err)
     launches += 1
     e4m3_launches += int(k_cache.dtype == torch.float8_e4m3fn)
     return y, k_cache, v_cache
+
+
+def kernel_info(w_is_int8: bool = True, kv_is_e4m3: bool = False) -> dict:
+    """The kernel's instantiation for int8 or bf16 weights and bf16 or e4m3
+    caches: registers a thread, local memory bytes a thread (the stack of its
+    calls; ptxas's report gives spills apart), shared memory bytes a block,
+    blocks an SM, weight-ring stages, grid syncs a layer."""
+    lib = _build.load("decode_step", _SIGNATURES)
+    vals = [ctypes.c_int() for _ in range(6)]
+    _build.check("fgt_decode_step_info", lib.fgt_decode_step_info(int(w_is_int8), int(kv_is_e4m3),
+                                                                  *(ctypes.byref(v) for v in vals)))
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "ring_stages", "syncs_per_layer")
+    return dict(zip(keys, (v.value for v in vals)))
+
+
+# the kernel's phases a layer, each ended by a grid sync (the last layer's by the kernel's end)
+PHASE_NAMES = ("qkv", "self-attention", "o + residual", "cross q + cross-attention", "cross o + residual",
+               "up", "down + residual")
+
+
+def phase_times(packed, x, cross_k, cross_v, offset: int, k_cache, v_cache, cond_len=None, *,
+                n_heads: int) -> dict:
+    """One launch of the kernel on CUDA tensors with block 0 stamping the
+    device clock after each grid sync → {phase name: µs summed over the
+    layers}, each phase from the sync before it to the sync after it (the
+    slowest block's work and the sync; the last layer's down until block 0
+    ends). The set-up before the first sync is not counted. The caches are
+    updated as by fused_decode_step, and the launch counts."""
+    n_layers = packed["w"].shape[0] // CPL
+    stamps = torch.zeros(len(PHASE_NAMES) * n_layers + 1, dtype=torch.int64, device=x.device)
+    _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads, stamps)
+    d = stamps.diff().double().cpu().reshape(n_layers, len(PHASE_NAMES)) / 1e3
+    return dict(zip(PHASE_NAMES, d.sum(0).tolist()))
 
 
 def fused_decode_step(packed, x, cross_k, cross_v, offset: int, k_cache, v_cache, cond_len=None,

@@ -17,9 +17,10 @@ fused-RoPE kernel of csrc/flash_attention.cu.
 
 `int8` selects the int8 tiers of the TPU kernel (`int8_mxu`, the one-shot
 path's semantics): "qk" quantizes q and k rows for an int8 Q·Kᵀ, "full" also
-p (against the row's final max) and V's columns for an int8 P·V. They are an
-inference datapath: like the JAX wrapper, a sequence longer than the one-shot
-path's 6144 drops them, and a gradient through them raises.
+p (against the row's final max) and V's columns for an int8 P·V. Like the
+JAX wrapper, a sequence longer than the one-shot path's 6144 drops them. A
+gradient through a tier is the JAX package's straight-through estimate: the
+bf16 backward run on the tier's out and lse.
 
 The backward (`flash_attention_backward`) rotates q and k with the same
 pre-pass, runs kernels E and F of flash_attention_bwd.py, and pulls dq and
@@ -29,7 +30,8 @@ dk back with the pre-pass at (cos, −sin).
 on its streamed path, where the tiers run at any length: "" and "qk" are A's
 modes above (their function does not depend on how keys are blocked), and
 "full" is A's streamed mode, which quantizes p and V per group of `blk_k`
-keys as the streamed TPU kernel does (`streamed_full_reference`).
+keys as the streamed TPU kernel does (`streamed_full_reference`). It has the
+same gradient through `_FlashAttention`.
 
 Layout: q, k, v (B, L, H, D); cos/sin (B, L, D/2) tables shared by all
 heads, in the working dtype. RoPE rotates interleaved pairs (2i, 2i+1).
@@ -353,29 +355,41 @@ def flash_attention_backward(q, k, v, cos, sin, out, lse, dout, scale: float):
     return dq, dk, dv
 
 
+def _streamed_forward(q, k, v, cos, sin, scale, int8, blk_k):
+    """The streamed path's forward → (out, lse): "" and "qk" as `_forward`,
+    "full" A's streamed mode (`streamed_full_reference` on CPU tensors)."""
+    if int8 != "full":
+        return _forward(q, k, v, cos, sin, scale, int8)
+    if q.device.type == "cuda":
+        return _flash_attention_cuda(q, k, v, cos, sin, scale, "full_streamed", blk_k)
+    if q.device.type == "cpu":
+        return streamed_full_reference(q, k, v, cos, sin, scale, blk_k)
+    raise ValueError(f"no flash attention for device {q.device}")
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward kernel (or its plain version) with the flash backward
-    (`flash_attention_backward`), as `_flash_core_fwd` / `_flash_core_bwd` of
-    the JAX package. cos/sin get no gradient. The int8 tiers have no
-    gradient: asking for one raises."""
+    """Forward kernel (or its plain version), one-shot or streamed, with the
+    flash backward (`flash_attention_backward`), as `_flash_core_fwd` /
+    `_flash_core_bwd` of the JAX package. cos/sin get no gradient. An int8
+    tier's gradient is the straight-through estimate of the JAX package: the
+    bf16 backward run on the tier's out and lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos, sin, scale, int8):
-        out, lse = _forward(q, k, v, cos, sin, scale, int8)
+    def forward(ctx, q, k, v, cos, sin, scale, int8, blk_k):
+        if blk_k:
+            out, lse = _streamed_forward(q, k, v, cos, sin, scale, int8, blk_k)
+        else:
+            out, lse = _forward(q, k, v, cos, sin, scale, int8)
         ctx.save_for_backward(q, k, v, cos, sin, out, lse)
         ctx.scale = scale
-        ctx.int8 = int8
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        if ctx.int8:
-            raise RuntimeError(f"the int8 attention tier {ctx.int8!r} is inference only and has no "
-                               "gradient; use int8=''")
         q, k, v, cos, sin, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, cos, sin, out, lse, dout, ctx.scale)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def effective_int8(length: int, int8: str) -> str:
@@ -390,13 +404,14 @@ def flash_attention(q, k, v, cos=None, sin=None, scale: Optional[float] = None,
     """softmax(rope(q)·rope(k)ᵀ·scale)·v over (B, L, H, D); scale defaults to
     D^-½, RoPE applies when cos/sin (B, L, D/2) are given. Returns out, or
     (out, lse) with lse (B·H, L) f32 when return_lse. Differentiable in q, k
-    and v with int8 = "" (the default); "qk" and "full" are the int8 tiers."""
+    and v; "" (the default) is bf16, "qk" and "full" are the int8 tiers,
+    whose gradient is the bf16 backward on their out and lse."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if (cos is None) != (sin is None):
         raise ValueError("pass both RoPE tables or neither")
     int8 = effective_int8(q.shape[1], int8)
-    out, lse = _FlashAttention.apply(q, k, v, cos, sin, float(scale), int8)
+    out, lse = _FlashAttention.apply(q, k, v, cos, sin, float(scale), int8, 0)
     return (out, lse) if return_lse else out
 
 
@@ -405,18 +420,13 @@ def flash_attention_streamed(q, k, v, cos=None, sin=None, scale: Optional[float]
     """The JAX `_flash_attention_jit` on its streamed path, whose int8 tiers
     run at any length → (out, lse), lse (B·H, L) f32. "" (`bf16_forward`) and
     "qk" are kernel A's modes; "full" is A's streamed mode, quantizing p and V per group of
-    `blk_k` keys (`streamed_full_reference` on CPU tensors). Inference only:
-    no gradient."""
+    `blk_k` keys (`streamed_full_reference` on CPU tensors). Differentiable in
+    q, k and v as `flash_attention`: the bf16 backward on this out and lse."""
     _check_tier(int8)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if (cos is None) != (sin is None):
         raise ValueError("pass both RoPE tables or neither")
-    with torch.no_grad():
-        if int8 != "full":
-            return _forward(q, k, v, cos, sin, float(scale), int8)
-        if q.device.type == "cuda":
-            return _flash_attention_cuda(q, k, v, cos, sin, float(scale), "full_streamed", blk_k)
-        if q.device.type == "cpu":
-            return streamed_full_reference(q, k, v, cos, sin, float(scale), blk_k)
-    raise ValueError(f"no flash attention for device {q.device}")
+    if blk_k <= 0:
+        raise ValueError(f"blk_k must be positive, got {blk_k}")
+    return _FlashAttention.apply(q, k, v, cos, sin, float(scale), int8, blk_k)

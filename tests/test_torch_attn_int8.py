@@ -1,7 +1,7 @@
 """The int8 tiers of flash attention ("qk": int8 Q·Kᵀ; "full": also int8
 P·V): the port's plain version against the JAX Pallas kernel (interpret
-mode on CPU) under `set_attn_int8`, the one-shot length guard, the refused
-gradient, and the CUDA kernel against the plain version on a card; and
+mode on CPU) under `set_attn_int8`, the one-shot length guard, the tiers'
+straight-through gradient against jax.grad, and the CUDA kernel against the plain version on a card; and
 `flash_attention_streamed`, the JAX streamed path whose tiers run at any
 length ("full" quantized per group of blk_k keys), against
 `_flash_attention_jit` on its streamed path, and its kernel mode on a card.
@@ -210,17 +210,68 @@ def test_tier_is_dropped_at_length_6145():
     assert torch.equal(fa.flash_attention(q, k, v, int8="full"), fa.flash_attention(q, k, v))
 
 
+def _tier_grads(tier, entry, arrays, tgt):
+    """(dq, dk, dv) of Σ (out − tgt)² through the port's `flash_attention`
+    (one-shot) or `flash_attention_streamed` (groups of 64 keys) at `tier`."""
+    q, k, v, cos, sin = arrays
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    c, s = torch.from_numpy(cos), torch.from_numpy(sin)
+    if entry == "one_shot":
+        out = fa.flash_attention(qt, kt, vt, c, s, int8=tier)
+    else:
+        out = fa.flash_attention_streamed(qt, kt, vt, c, s, int8=tier, blk_k=64)[0]
+    loss = ((out - torch.from_numpy(tgt)) ** 2).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, (qt, kt, vt))]
+
+
+@pytest.mark.parametrize("entry", ["one_shot", "streamed"])
 @pytest.mark.parametrize("tier", TIERS)
-def test_gradient_through_a_tier_raises(tier):
-    """The JAX backward is bf16/f32 whatever the tier; the port refuses a
-    gradient rather than return one for another function."""
+def test_gradient_through_a_tier_matches_jax(tier, entry):
+    """The JAX backward is the bf16 one on the tier's out and lse, a
+    straight-through estimate (`_flash_core_fwd`/`_flash_core_bwd`); the
+    port's gradient against jax.grad through `_flash_attention_jit(...,
+    int8_mxu=tier)` in interpret mode, on its one-shot path and on its
+    streamed path (one-shot limit 64, q and key blocks of 64; "full" in
+    two groups), L 100, RoPE, f32. atol = rtol = 2e-4, the bf16 path's
+    backward tolerance (test_torch_flash_backward.py): the tier's out moves
+    by a rounding step at most. The bf16 function's gradient must miss it."""
+    import jax
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.pallas.flash_attention import BLK_Q, _flash_attention_jit
+    from flux_generator_tpu.runtime.config import flash_blk_k, flash_one_shot_max
+
+    arrays = _inputs(4, 1, 100, 2, 64, True)
+    tgt = np.random.default_rng(5).standard_normal(arrays[0].shape).astype(np.float32)
+    if entry == "one_shot":
+        kw = dict(blk_k=flash_blk_k(), one_shot_max=flash_one_shot_max(), blk_q=BLK_Q)
+    else:
+        kw = dict(blk_k=64, one_shot_max=64, blk_q=64)
+    jcos, jsin = jnp.asarray(arrays[3]), jnp.asarray(arrays[4])
+
+    def loss(q, k, v, int8_mxu):
+        out = _flash_attention_jit(q, k, v, jcos, jsin, scale=None, interpret=True, int8_mxu=int8_mxu, **kw)
+        return jnp.sum((out - jnp.asarray(tgt)) ** 2)
+
+    def jax_grads(int8_mxu):
+        g = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrays[:3]), int8_mxu)
+        return [np.asarray(x) for x in g]
+
+    want = jax_grads(tier)
+    got = _tier_grads(tier, entry, arrays, tgt)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g, w, atol=2e-4, rtol=2e-4, err_msg=f"d{name} ({tier}, {entry})")
+    # the check can fail: the bf16 function's gradient lies outside it
+    bf16 = jax_grads("")
+    assert any(not np.allclose(b, w, atol=2e-4, rtol=2e-4) for b, w in zip(bf16, want))
+
+
+def test_unknown_tier_raises():
     q, k, v, cos, sin = _torch(_inputs(4, 1, 40, 2, 64, True))
-    q.requires_grad_(True)
-    out = fa.flash_attention(q, k, v, cos, sin, int8=tier)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        out.sum().backward()
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, cos, sin, int8="fp8")
+    with pytest.raises(ValueError):
+        fa.flash_attention_streamed(q, k, v, cos, sin, int8="fp8")
 
 
 # (out rel-L2, lse max|Δ|) of the kernel against the plain version, as

@@ -9,7 +9,8 @@ to bf16, but the TPU kernel also rounds each q·k product, P·V product and
 the softmax denominators to bf16 (its head sums run through bf16 MXU dots),
 which the port keeps in f32; y is bf16 (2^-8 relative). Kernel against the
 plain version on a card: the same arithmetic in another summation order,
-max|Δ| ≤ 1e-2 · max|y|.
+max|Δ| ≤ 1e-2 · max|y|; rows independent of B and launches reproducible,
+bit for bit.
 
 jax is imported inside the tests that use it, so the `cuda` case runs on a
 machine without jax: `python -m pytest --noconftest -m cuda
@@ -240,3 +241,62 @@ def test_cuda_kernel_matches_plain_version(w_dtype, b, w, offset, masked):
     assert (y.float() - ref.float()).abs().max().item() <= 1e-2 * scale
     for got, want in ((k1, k2), (v1, v2)):
         assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_cuda_kernel_matches_plain_version_at_musicgen_width(w_dtype):
+    """Kernel D against the plain version at MusicGen-medium's width (H 1536,
+    24 heads of 64), 2 layers, B 2, a 300-row window at offset 257, one row's
+    text masked: the tolerance of the H 256 cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    packed, x, ck, kc, cl, heads = _kernel_inputs(b=2, h=1536, heads=24, w=300, w_dtype=w_dtype, device="cuda")
+    cl[1] = 2
+    vc = kc.flip(2).contiguous()
+    y, k1, v1 = ds.fused_decode_step(packed, x, ck, ck, 257, kc.clone(), vc.clone(), cl, n_heads=heads)
+    ref, k2, v2 = ds.fused_decode_step_plain(packed, x, ck, ck, 257, kc.clone(), vc.clone(), cl, n_heads=heads)
+    torch.cuda.synchronize()
+    assert (y.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    for got, want, orig in ((k1, k2, kc), (v1, v2, vc)):
+        assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+        # every other row is left as it was
+        assert torch.equal(torch.cat([got[:, :, :257], got[:, :, 258:]], 2),
+                           torch.cat([orig[:, :, :257], orig[:, :, 258:]], 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_cuda_rows_do_not_depend_on_the_batch(w_dtype):
+    """Every split of D's sums is chosen from the width and the offset, never
+    from B: rows 0–1 of a B 8 launch equal, bit for bit, a B 2 launch on the
+    same two rows (y and the new cache rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    packed, x, ck, kc, cl, heads = _kernel_inputs(b=8, w=300, w_dtype=w_dtype, device="cuda")
+    cl[1::2] = 2
+    vc = kc.flip(2).contiguous()
+    y8, k8, v8 = ds.fused_decode_step(packed, x, ck, ck, 257, kc.clone(), vc.clone(), cl, n_heads=heads)
+    two = [t[:, :2].contiguous() for t in (ck, kc, vc)]
+    y2, k2, v2 = ds.fused_decode_step(packed, x[:2].contiguous(), two[0], two[0], 257, two[1], two[2],
+                                      cl[:2].contiguous(), n_heads=heads)
+    torch.cuda.synchronize()
+    assert torch.equal(y8[:2].view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(k8[:, :2].view(torch.int16), k2.view(torch.int16))
+    assert torch.equal(v8[:, :2].view(torch.int16), v2.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_cuda_launches_are_reproducible(w_dtype):
+    """Every sum has one fixed order: two launches on the same inputs give the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    packed, x, ck, kc, cl, heads = _kernel_inputs(b=4, w=600, w_dtype=w_dtype, device="cuda")
+    vc = kc.flip(2).contiguous()
+    outs = [ds.fused_decode_step(packed, x, ck, ck, 550, kc.clone(), vc.clone(), cl, n_heads=heads)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
