@@ -10,17 +10,22 @@ Phases, each of which fails the run on error:
                       chain-bisect probe #12 and the bare-dot probe #13) from
                       csrc/ with nvcc, all at once, with the ptxas report of
                       each and the registers, local memory, shared memory and
-                      blocks an SM of the wgmma kernels: A's bf16 kernel, E
-                      and F, G's GEMM and #13's bf16 kernel, and of D's four
+                      blocks an SM of the wgmma kernels: A's bf16 kernel, B's
+                      five instantiations (with their ring stages and tiles),
+                      E and F, G's GEMM and #13's bf16 kernel, and of D's four
                       instantiations with its ring stages, grid syncs a
-                      layer and SASS size; E, F, G, #13 and D must not spill
-                      nor have their wgmma serialized (C7512).
+                      layer and SASS size; B, E, F, G, #13 and D must not
+                      spill nor have their wgmma serialized (C7512, C7515).
   3. kernels        — flash attention (A: its RoPE pre-pass and its bf16
                       kernel) and the int4 matmul (B) against their plain
                       PyTorch versions at the shapes of the Flux-schnell 512²
                       path, with times of both, A's in turns with SDPA's
-                      forward; B also at one row, 17 rows, a ragged N and
-                      with f32 activations.
+                      forward; B at the three T5-XXL shapes at M 256 and
+                      M 512 (g128) and 4096² per channel, in turns with
+                      tinygemm and with cuBLAS's bf16 product on the
+                      dequantized weights, with a request's sums, every K
+                      split at M 256, one-hot rows bit for bit, and at one
+                      row, 17 rows, a ragged N and with f32 activations.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
                       plain versions at MusicGen-medium shapes, with times;
                       D at int8 B 2 and B 8 in turns with #11 at M 2 and M 8,
@@ -70,7 +75,8 @@ Phases, each of which fails the run on error:
   7. main           — Flux-schnell at full width on random weights (flow int8
                       per channel, T5-XXL int4 g=128), three 512², 4-step
                       requests through FluxPipeline.generate_images; checks the
-                      images, the latents and the kernels' launch counts.
+                      images, the latents and the kernels' launch counts; then
+                      the conditioning alone under torch.profiler.
   8. main-w8a8      — the same pipeline in the W8A8 configuration: three
                       requests each on the "fused" (G) and "rows" (H) routes,
                       one each with int8 attention "qk" and "full"; checks as
@@ -183,6 +189,10 @@ G_SHAPES = (("linear1", 1280, 3072, 21504, 152), ("linear2", 1280, 15360, 3072, 
             ("txt_qkv", 256, 3072, 9216, 76), ("txt_proj", 256, 3072, 3072, 76),
             ("txt_mlp0", 256, 3072, 12288, 76), ("txt_mlp2", 256, 12288, 3072, 76),
             ("txt_in", 256, 4096, 3072, 4), ("final", 1024, 3072, 64, 4))
+# B's T5-XXL shapes (name, K, N, launches a request: 24 layers of q, k, v, o
+# at 4096→4096, wi_0 and wi_1 at 4096→10240, wo at 10240→4096)
+T5_SHAPES = (("qkvo_4096x4096_g128", 4096, 4096, 96), ("wi_4096x10240_g128", 4096, 10240, 48),
+             ("wo_10240x4096_g128", 10240, 4096, 24))
 # a W8A8 request's final latent against the weight-only latent of its seed:
 # activation rounding (1/254 of a row's amax a value) through 57 blocks and
 # 4 steps on random weights; a wrong route or scale gives O(1)
@@ -386,6 +396,14 @@ def phase_build():
             log(f"[build] {label} {key}: {rec['registers']} registers a thread at launch (setmaxnreg: 40 "
                 f"producer, 232 consumers), {rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} "
                 f"bytes of shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
+    b_info = {f"{nw} rows, {mode}": im.kernel_info(nw, mode) for nw in im.ROW_TILES for mode in im.SCALE_MODES
+              if nw == 128 or mode != "group_row"}
+    for key, rec in b_info.items():
+        nw = int(key.split()[0])
+        log(f"[build] int4_matmul B, {key} scales: {rec['registers']} registers a thread at launch (setmaxnreg: 40 "
+            f"producer, 232 consumers), {rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} bytes of "
+            f"shared memory a block, {rec['blocks_per_sm']} block(s) an SM, a ring of {rec['stages']} stages, tiles "
+            f"of {nw} rows × {im.TILE_N} columns, K split in clusters of up to {im.MAX_SPLITS[nw]} blocks")
     d_info = {f"{'int8' if i8 else 'bf16'} weights, {'e4m3' if f8 else 'bf16'} cache": ds.kernel_info(i8, f8)
               for i8 in (True, False) for f8 in (False, True)}
     for key, rec in d_info.items():
@@ -404,12 +422,14 @@ def phase_build():
                                                     if re.match(r"\s+/\*[0-9a-f]{4,}\*/", line))
     log("[build] decode_step D code: " + ", ".join(f"{n} instructions ({n * 16 // 1024} KB)" for n in
                                                       d_code.values()) + " an instantiation")
-    # E, F, G's GEMM and #13's bf16 kernel keep their products asynchronous and in registers; none of
-    # them, nor D, spills
-    serialized = [line.strip() for name in ("flash_attention_bwd", "w8a8_matmul", "bare_dot", "decode_step")
-                  for line in _build.BUILD_INFO[name][1].splitlines() if "C7512" in line]
+    # B, E, F, G's GEMM and #13's bf16 kernel keep their products asynchronous and in registers;
+    # none of them, nor D, spills
+    serialized = [line.strip() for name in ("int4_matmul", "flash_attention_bwd", "w8a8_matmul", "bare_dot",
+                                            "decode_step")
+                  for line in _build.BUILD_INFO[name][1].splitlines() if "C7512" in line or "C7515" in line]
     spills = {(d, w): r["spill_bytes"] for d, recs in bwd_info.items() for w, r in recs.items() if r["spill_bytes"]}
     spills.update({("G", key): r["spill_bytes"] for key, r in g_info.items() if r["spill_bytes"]})
+    spills.update({("B", key): r["spill_bytes"] for key, r in b_info.items() if r["spill_bytes"]})
     spills.update({("bare_dot_bf16", k): r["spill_bytes"] for k, r in dot_info.items() if r["spill_bytes"]})
     # D's phases are calls with a stack: its spills are ptxas's, for the kernels and every function
     d_spills = [int(n) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -418,7 +438,7 @@ def phase_build():
         spills[("D", "ptxas")] = max(d_spills)
     if serialized or spills:
         raise AssertionError(f"tensor-core kernels: serialized {serialized}, spills {spills}")
-    return {"flash_attention_sm90": info, "flash_attention_bwd": bwd_info, "w8a8_matmul": g_info,
+    return {"flash_attention_sm90": info, "flash_attention_bwd": bwd_info, "w8a8_matmul": g_info, "int4_matmul": b_info,
             "bare_dot_bf16": dot_info, "decode_step": d_info, "decode_step_sass_instructions": d_code}
 
 
@@ -525,42 +545,122 @@ def phase_kernels():
     results["flash_attention"] = flash
     results["flash_attention_rope"] = rope_rows
 
-    int4 = []
-    for label, k_dim, n_dim, gs in (("qkvo_4096x4096_g128", 4096, 4096, 128),
-                                    ("wi_4096x10240_g128", 4096, 10240, 128),
-                                    ("wo_10240x4096_g128", 10240, 4096, 128),
-                                    ("4096x4096_per_channel", 4096, 4096, None)):
+    results.update(_phase_kernels_int4(g))
+    torch.cuda.synchronize()
+    return results
+
+
+def _bf16_weights(kernel_q4, kernel_scale):
+    """Kernel B's weights dequantized once to bf16 (K, N), as the plain
+    version dequantizes them: cuBLAS's bf16 product on them is the second
+    yardstick, a product of the same size that reads 4x the weight bytes."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+
+    lo, hi = im._halves(kernel_q4)
+    w = torch.cat([lo, hi])
+    s = kernel_scale.float()
+    s = s.repeat_interleave(w.shape[0] // s.shape[0], dim=0) if s.dim() == 2 else s
+    return (w * s).to(torch.bfloat16)
+
+
+def _phase_kernels_int4(g):
+    """Kernel B at the T5-XXL shapes (T5_SHAPES) at M 256 (a Flux request's
+    prompt) and M 512 (Flux-dev's), grouped g128, and 4096² per channel: held
+    to its plain version, timed behind a sleep kernel in turns with tinygemm
+    (torch._weight_int4pack_mm on the same weights repacked once) and with
+    cuBLAS's bf16 product on the weights dequantized once; the request sums;
+    at M 256 every K split the plan could take, in turns; one-hot rows bit
+    for bit against the plain version; then the edge cases the TPU wrapper
+    also takes (one row, 17 rows, a ragged N, f32 x)."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+    from flux_generator_tpu_torch.ops.quant import quantize_dense
+
+    dev = torch.device("cuda")
+    capacity = im._capacity(dev.index or 0)
+    clusters = {nw: {sp: capacity(nw, sp) // sp for sp in range(1, im.MAX_SPLITS[nw] + 1)} for nw in im.ROW_TILES}
+    log(f"[kernels] int4 clusters of 1.. blocks the card runs at once, by tile rows: {clusters}")
+    int4, sums, splits_ms = [], {}, {}
+    cases = [(m, label, k, n, 128, per_request) for m in (256, 512) for label, k, n, per_request in T5_SHAPES]
+    cases.insert(3, (256, "4096x4096_per_channel", 4096, 4096, None, 0))
+    for m, label, k_dim, n_dim, gs, per_request in cases:
+        case = label if m == 256 else f"M{m}_{label}"
         w = torch.randn((k_dim, n_dim), generator=g, device=dev) / k_dim ** 0.5
         p = quantize_dense({"kernel": w}, bits=4, group_size=gs, pack=True)
         del w
-        x = torch.randn((256, k_dim), generator=g, device=dev).to(torch.bfloat16)
+        x = torch.randn((m, k_dim), generator=g, device=dev).to(torch.bfloat16)
         out = im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
         ref = im.int4_matmul_reference(x.float(), p["kernel_q4"], p["kernel_scale"])
         err = (out.float() - ref).abs().max().item()
         tol = INT4_REL_TOL * ref.abs().max().item()
-        ms = time_ms(lambda: im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"]))
-        plain_ms = time_ms(lambda: im.int4_matmul_reference(x, p["kernel_q4"], p["kernel_scale"]))
-        # yardstick: PyTorch's tinygemm int4 matmul on the same weights,
-        # repacked once into its layout; device time
+        again = im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
         lw, lgs, ltable = _tinygemm_operands(p["kernel_q4"], p["kernel_scale"])
         lib_out = torch._weight_int4pack_mm(x, lw, lgs, ltable)
         lib_err = (lib_out.float() - ref).abs().max().item()
-        library_ms = device_ms(lambda: torch._weight_int4pack_mm(x, lw, lgs, ltable))
-        gflop = 2 * 256 * k_dim * n_dim / 1e9
+        wb = _bf16_weights(p["kernel_q4"], p["kernel_scale"])
+        turns = in_turns({"kernel": lambda: im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"]),
+                          "tinygemm": lambda: torch._weight_int4pack_mm(x, lw, lgs, ltable),
+                          "cublas_bf16": lambda: x @ wb})
+        ms, library_ms, cublas_ms = (statistics.mean(turns[key]) for key in ("kernel", "tinygemm", "cublas_bf16"))
+        plain_ms = time_ms(lambda: im.int4_matmul_reference(x, p["kernel_q4"], p["kernel_scale"]))
+        gflop = 2 * m * k_dim * n_dim / 1e9
         # x and out bf16, the packed nibbles, the f32 scales
-        bound = bound_ms(gflop * 1e9, 2 * 256 * (k_dim + n_dim) + p["kernel_q4"].numel()
-                         + p["kernel_scale"].numel() * 4)
-        log(f"[kernels] int4 M=256 {label}: max|Δ| {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms "
-            f"({gflop / ms:.1f} TFLOP/s) | plain {plain_ms:.4f} ms | tinygemm {library_ms:.4f} ms "
-            f"(max|Δ| {lib_err:.3e}) | bound {bound[0]:.4f} ms ({bound[1]})")
+        bound = bound_ms(gflop * 1e9, 2 * m * (k_dim + n_dim) + p["kernel_q4"].numel() + p["kernel_scale"].numel() * 4)
+        plan = im.plan(m, n_dim, k_dim, capacity)
+        log(f"[kernels] int4 M={m} {label}: plan (rows, splits, blocks) {plan} | max|Δ| {err:.3e} (tol {tol:.3e}) "
+            f"| in turns: kernel {' '.join(f'{t:.4f}' for t in turns['kernel'])}, tinygemm "
+            f"{' '.join(f'{t:.4f}' for t in turns['tinygemm'])} (max|Δ| {lib_err:.3e}), cuBLAS bf16 on the "
+            f"dequantized weights {' '.join(f'{t:.4f}' for t in turns['cublas_bf16'])} ms | "
+            f"{gflop / ms:.1f} TFLOP/s, {100 * bound[0] / ms:.1f}% of the bound {bound[0]:.4f} ms ({bound[1]}) | "
+            f"plain {plain_ms:.4f} ms")
         if not err <= tol:
-            raise AssertionError(f"int4 {label} disagrees with its plain version: {err} > {tol}")
+            raise AssertionError(f"int4 {case} disagrees with its plain version: {err} > {tol}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"int4 {case}: two launches differ")
         if not lib_err <= tol:
-            raise AssertionError(f"int4 {label}: the tinygemm yardstick computes another function: "
-                                 f"{lib_err} > {tol}")
-        int4.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         library_max_abs_err=lib_err, bound_ms=bound[0], bound_by=bound[1]))
-        del lw, ltable, lib_out
+            raise AssertionError(f"int4 {case}: the tinygemm yardstick computes another function: {lib_err} > {tol}")
+        if per_request and gs == 128:
+            for key, value in (("kernel", ms), ("tinygemm", library_ms), ("cublas_bf16", cublas_ms),
+                               ("bound", bound[0])):
+                sums.setdefault(m, {}).setdefault(key, 0.0)
+                sums[m][key] += per_request * value
+        if m == 256 and gs == 128:  # every split the plan could take, in turns (the plan's cost model is fitted to these)
+            nw = plan[0]
+            tiles = -(-m // nw) * -(-n_dim // im.TILE_N)
+            fns = {}
+            for splits in range(1, im.MAX_SPLITS[nw] + 1):
+                grid = min(tiles, capacity(nw, splits) // splits) * splits
+                fns[splits] = (lambda splits=splits, grid=grid: _int4_with_plan(x, p, nw, splits, grid))
+            split_turns = in_turns(fns)
+            splits_ms[label] = {sp: statistics.mean(v) for sp, v in split_turns.items()}
+            log(f"[kernels] int4 M={m} {label} by K split (blocks of each in clusters of it): " + " | ".join(
+                f"{sp} {t:.4f} ms" for sp, t in splits_ms[label].items()))
+        int4.append(dict(case=case, m=m, k=k_dim, n=n_dim, group_size=gs, plan=list(plan), max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=lib_err,
+                         cublas_bf16_ms=cublas_ms, turns_ms=turns, bound_ms=bound[0], bound_by=bound[1],
+                         bound_share=bound[0] / ms, launches_per_request=per_request))
+        del lw, ltable, lib_out, wb
+    for m, row in sums.items():
+        log(f"[kernels] int4 a request's {sum(r for *_, r in T5_SHAPES)} products at M {m} (24 layers × 4 qkvo, "
+            f"2 wi, 1 wo): kernel {row['kernel']:.2f} ms, tinygemm {row['tinygemm']:.2f}, cuBLAS bf16 "
+            f"{row['cublas_bf16']:.2f}, bound {row['bound']:.2f} ({100 * row['bound'] / row['kernel']:.1f}% of it)")
+    # one-hot rows pick single weights: the output is the dequantized weight,
+    # bf16(f32(q) · s) grouped, bf16(q · s) per channel, bit for bit
+    for gs in (128, None):
+        w = torch.randn((4096, 4096), generator=g, device=dev) / 64
+        p = quantize_dense({"kernel": w}, bits=4, group_size=gs, pack=True)
+        x = torch.zeros((256, 4096), dtype=torch.bfloat16, device=dev)
+        x[torch.arange(256, device=dev), (torch.arange(256, device=dev) * 37) % 4096] = 1
+        out = im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
+        ref = im.int4_matmul_reference(x, p["kernel_q4"], p["kernel_scale"])
+        differ = int((out.view(torch.int16) != ref.view(torch.int16)).sum())
+        log(f"[kernels] int4 one-hot rows, {'g128' if gs else 'per channel'}: {differ} of {out.numel()} values "
+            "differ from the plain version's bits (must be 0)")
+        if differ:
+            raise AssertionError(f"int4 one-hot rows ({gs}): {differ} values differ bit for bit")
     # what the TPU wrapper also takes (it pads M and N): one row, 17 rows, a
     # ragged N; and f32 activations (CUDA-core f32 FMAs, no TF32), held to
     # 1e-5 of max|ref|
@@ -575,7 +675,7 @@ def phase_kernels():
         ref = im.int4_matmul_reference(x.float(), p["kernel_q4"], p["kernel_scale"])
         err = (out.float() - ref).abs().max().item()
         tol = (INT4_REL_TOL if dtype == torch.bfloat16 else 1e-5) * ref.abs().max().item()
-        ms = time_ms(lambda: im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"]))
+        ms = time_ms_queued(lambda: im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"]))
         plain_ms = time_ms(lambda: im.int4_matmul_reference(x, p["kernel_q4"], p["kernel_scale"]))
         gflop = 2 * m * k_dim * n_dim / 1e9
         xb = x.element_size()
@@ -589,9 +689,29 @@ def phase_kernels():
             raise AssertionError(f"int4 {label} disagrees with its plain version: {err} > {tol}")
         int4.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                          bound_ms=bound[0], bound_by=bound[1]))
-    results["int4_matmul"] = int4
-    torch.cuda.synchronize()
-    return results
+    return {"int4_matmul": int4, "int4_matmul_request_ms": sums, "int4_matmul_splits_ms": splits_ms,
+            "int4_matmul_clusters": clusters}
+
+
+def _int4_with_plan(x, p, nw, splits, grid):
+    """Kernel B on bf16 x with a given (rows a tile, splits, grid), as the
+    wrapper launches it with its own plan (N a multiple of 16)."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import _build
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+
+    m, k = x.shape
+    n = p["kernel_q4"].shape[1]
+    scale = p["kernel_scale"]
+    gs = k // scale.shape[0] if scale.dim() == 2 else 0
+    out = torch.empty((-(-m // nw) * nw, n), dtype=x.dtype, device=x.device)
+    err = _build.load("int4_matmul", im._SIGNATURES).fgt_int4_matmul(
+        x.data_ptr(), p["kernel_q4"].data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, n, k, gs, 0, nw, splits,
+        grid, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("fgt_int4_matmul", err)
+    return out
+
 
 
 def phase_kernels_bare_dot():
@@ -929,7 +1049,29 @@ def phase_main():
                   resident_gib=resident, clip_tokens=clip_source, requests=requests,
                   launches={"flash_attention": fa.launches, "flash_attention_rope": fa.rope_launches,
                             "int4_matmul": im.launches})
+    record["conditioning_profile"] = _profile_conditioning(pipe)
     return record, pipe, latents
+
+
+def _profile_conditioning(pipe, reps: int = 5):
+    """A request's conditioning alone (tokenize, T5-XXL on int4 weights, CLIP-L)
+    under torch.profiler: its wall time, the device's busy share and the
+    device time by kernel group (B's among them), each a conditioning."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = PROMPTS[0][1]
+    for _ in range(2):
+        pipe.prepare_conditioning(1, *pipe.tokenize(prompt))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pipe.prepare_conditioning(1, *pipe.tokenize(prompt))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return _profile_record(prof, reps, wall_ms, "main conditioning profile", "conditioning",
+                           "tokenize + T5-XXL + CLIP-L")
 
 
 def _launch_counts():
@@ -2666,6 +2808,8 @@ def main() -> int:
                             max_abs_err=max(c["max_abs_err"] for c in kernels[key]),
                             ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
                             bound_by=case["bound_by"], library_ms=case["library_ms"]))
+        if key == "int4_matmul":
+            entries[-1]["bound_share"] = case["bound_share"]
     bwd = kernels["flash_attention_bwd"]
     case = next(c for c in bwd if c["case"] == "dev_L1536_rope")
     for key, which, replaces in (("flash_attention_bwd_dq", "dq", fb.REPLACES_DQ),

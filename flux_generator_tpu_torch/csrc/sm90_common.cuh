@@ -1,6 +1,7 @@
 // Hopper (sm_90a) pieces shared by the wgmma/TMA kernels: kernel A's bf16 mode
-// (flash_attention_sm90.cu), kernels E and F (flash_attention_bwd.cu), kernel
-// G's GEMM (w8a8_matmul.cu) and the bare-dot probe's bf16 mode (bare_dot.cu).
+// (flash_attention_sm90.cu), kernel B's bf16 route (int4_matmul.cu), kernels E
+// and F (flash_attention_bwd.cu), kernel G's GEMM (w8a8_matmul.cu) and the
+// bare-dot probe's bf16 mode (bare_dot.cu).
 //
 // - mbarriers: init, arrive, arrive with an expected byte count, and a bare
 //   try_wait spin (see mbar_wait for why it has no poll limit);
@@ -13,7 +14,8 @@
 // - wgmma: the shared-memory descriptor of a 128-byte-swizzled operand, fence,
 //   commit and wait, bf16 products m64n128k16 and m64n64k16 with both operands
 //   in shared memory (A K-major, B K-major or MN-major) or with A from
-//   registers and B MN-major in shared memory, the int8 products m64n128k32
+//   registers and B MN-major (m64n128k16, m64n64k16) or K-major (m64n256k16,
+//   m64n128k16) in shared memory, the int8 products m64n128k32
 //   and m64n192k32 (s32 sums, both operands K-major in shared memory: int8
 //   wgmma takes no other layout), and `pack_frag`, which turns an f32 accumulator tile into
 //   the bf16 A fragments of the next product;
@@ -123,6 +125,11 @@ __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.a
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+// Wait until at most N of this warpgroup's commit groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of wgmma registers across an
 // asynchronous product.
@@ -224,11 +231,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define FGT_REGS128 \
+  FGT_REGS96 \
+  ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111" \
+  ", %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+// d += A·B, m64n256k16: A from registers (as wgmma_rs), B K-major in shared
+// memory (its rows the N side, the contraction along a swizzled row).
+__device__ __forceinline__ void wgmma_rs_bk(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" FGT_REGS128 "}, {%128, %129, %130, %131}, "
+      "%132, p, 1, 1, 0;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24), FGT_D8(32), FGT_D8(40), FGT_D8(48), FGT_D8(56),
+        FGT_D8(64), FGT_D8(72), FGT_D8(80), FGT_D8(88), FGT_D8(96), FGT_D8(104), FGT_D8(112), FGT_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// As above with N = 128.
+__device__ __forceinline__ void wgmma_rs_bk(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FGT_REGS64 "}, {%64, %65, %66, %67}, %68, "
+      "p, 1, 1, 0;\n}\n"
+      : FGT_D8(0), FGT_D8(8), FGT_D8(16), FGT_D8(24), FGT_D8(32), FGT_D8(40), FGT_D8(48), FGT_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef FGT_D8
 #undef FGT_I8
 #undef FGT_REGS32
 #undef FGT_REGS64
 #undef FGT_REGS96
+#undef FGT_REGS128
 
 // This thread's f32 share of a 64 × 2N accumulator tile as bf16 A fragments:
 // columns 16kk..16kk+15 (n8 groups 2kk and 2kk + 1) are the A fragment of

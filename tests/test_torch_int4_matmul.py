@@ -2,8 +2,9 @@
 kernel (interpret mode on CPU; padded M and N included) and the JAX dense()
 two-half fallback, the port's `dense` routing packed int4 as the JAX `dense`
 does (the kernel where `supported`, the two-halves formulation elsewhere),
-and the CUDA kernel against the plain version on a card. Tolerances rtol/atol
-1e-4, as in tests/test_pallas_int4.py.
+the bf16 route's tiling plan, and the CUDA kernel against the plain version on
+a card. Tolerances rtol/atol 1e-4, as in tests/test_pallas_int4.py; the
+dequantization of single weights bit for bit.
 
 jax is imported inside the tests that use it, so the `cuda` case runs on a
 machine without jax: `python -m pytest --noconftest -m cuda
@@ -78,6 +79,109 @@ def test_plain_version_matches_jax_kernel_padded(m, n, group_size):
     got = im.int4_matmul_reference(torch.from_numpy(x), tq["kernel_q4"], tq["kernel_scale"])
     assert got.shape == (m, n) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,k,n,group_size", [(255, 2048, 256, 128), (257, 2048, 256, None),
+                                               (512, 2048, 256, 128), (64, 10240, 256, 128),
+                                               (40, 2048, 328, None), (40, 2048, 328, 128)],
+                         ids=["m255_g128", "m257_per_channel", "m512_g128", "k10240_g128",
+                              "n328_per_channel", "n328_g128"])
+def test_plain_version_matches_jax_kernel_tile_edges(m, k, n, group_size):
+    """The edges of the CUDA kernel's tiles (128 or 256 rows of x, 128
+    columns, 64 packed rows a stage): M one short of and one past a tile, two
+    tiles, K 10240 (40 groups of 128 a half), and an N that is no multiple of
+    16 (the CUDA wrapper pads it), per channel and grouped; f32 x."""
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.pallas.int4_matmul import int4_matmul as jax_int4
+
+    jq, tq = _jax_quantized(14, k, n, group_size)
+    x = _x(15, m, k)
+    want = jax_int4(jnp.asarray(x), jq["kernel_q4"], jq["kernel_scale"], interpret=True)
+    got = im.int4_matmul_reference(torch.from_numpy(x), tq["kernel_q4"], tq["kernel_scale"])
+    assert got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def _one_hot_rows(m, k):
+    """(m, k) rows with a single 1, at columns spread over both K halves and
+    every group: row i picks weight row (i · 37) mod K."""
+    x = np.zeros((m, k), np.float32)
+    x[np.arange(m), (np.arange(m) * 37) % k] = 1.0
+    return x
+
+
+@pytest.mark.parametrize("group_size", [None, 128], ids=["per_channel", "g128"])
+def test_plain_version_dequantizes_as_jax_kernel_bit_for_bit(group_size):
+    """One-hot bf16 rows pick single weights, so the output is the
+    dequantized weight itself: bf16(f32(q) · s) grouped, bf16(q · s) per
+    channel, equal to the JAX kernel's bit for bit."""
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.pallas.int4_matmul import int4_matmul as jax_int4
+
+    k, n, m = 1024, 256, 96
+    jq, tq = _jax_quantized(16, k, n, group_size)
+    x = _one_hot_rows(m, k)
+    want = jax_int4(jnp.asarray(x, jnp.bfloat16), jq["kernel_q4"], jq["kernel_scale"], interpret=True)
+    got = im.int4_matmul_reference(torch.from_numpy(x).to(torch.bfloat16), tq["kernel_q4"], tq["kernel_scale"])
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), np.asarray(want).view(np.int16))
+
+
+def _ideal(sms):
+    """A card of `sms` SMs whose clusters of any split fill all but sms mod split."""
+    return lambda nw, splits: sms // splits * splits
+
+
+def _h100(nw, splits):
+    """Blocks an H100 runs at once in clusters of 1-8 (the kernel's
+    cudaOccupancyMaxActiveClusters there, times the split)."""
+    return (132, 132, 117, 120, 110, 102, 105, 120)[splits - 1]
+
+
+@pytest.mark.parametrize("m,k,n,capacity,want", [
+    (256, 4096, 4096, _h100, (256, 3, 96)), (256, 4096, 10240, _h100, (256, 1, 80)),
+    (256, 10240, 4096, _h100, (256, 3, 96)), (512, 4096, 4096, _h100, (256, 2, 128)),
+    (512, 4096, 10240, _h100, (256, 2, 132)), (512, 10240, 4096, _h100, (256, 2, 128)),
+    (1, 4096, 4096, _h100, (128, 3, 96)), (128, 4096, 4096, _h100, (128, 3, 96)),
+    (129, 4096, 4096, _h100, (256, 3, 96)), (1, 128, 16, _h100, (128, 1, 1)),
+    (256, 4096, 4096, _ideal(132), (256, 4, 128)), (512, 4096, 4096, _ideal(114), (256, 1, 64)),
+    (256, 4096, 4096, _ideal(1), (256, 1, 1))], ids=lambda v: "" if callable(v) else None)
+def test_plan_fills_the_card(m, k, n, capacity, want):
+    """The bf16 route's (x rows a tile, K splits, grid), counted by hand from
+    its cost, ⌈tiles / clusters⌉ · (⌈blocks / splits⌉ + 10 · (splits − 1) /
+    splits). At M 256 and 4096², 32 tiles of 32 blocks of packed rows: on the
+    H100, 39 clusters of 3 take every tile at once (cost 17.67), against 21
+    for 2 splits and two rounds of 30 clusters of 4 (31); a card with room
+    for 33 clusters of 4 takes 4 (15.5). At N 10240 the 80 tiles run unsplit
+    in one round (32; 2 splits take two rounds, 42). At M 512 and 4096² on
+    114 SMs, 64 tiles fit unsplit (32) and 2 splits would take two rounds of
+    57 clusters (42). The grid is a multiple of the split, never past the
+    card or the tiles."""
+    got = im.plan(m, n, k, capacity)
+    assert got == want
+    nw, splits, grid = got
+    assert grid % splits == 0 and grid <= max(capacity(nw, splits), 1) and splits <= -(-k // 2 // im.BLOCK_ROWS)
+
+
+def test_plan_takes_128_rows_for_row_scales():
+    """Group sizes that are no multiple of 64 take tiles of 128 rows at any M:
+    at M 256 and 4096² on the H100, 64 tiles; 2 splits fill 128 blocks in one
+    round (cost 21), unsplit 32, 3 splits two rounds of 39 clusters (35.33)."""
+    assert im.plan(256, 4096, 4096, _h100, row_scales=True) == (128, 2, 128)
+    assert im.plan(256, 4096, 4096, _h100) == (256, 3, 96)
+
+
+def test_ragged_n_is_padded_as_the_tpu_wrapper_pads():
+    """The CUDA route's weights for an N that is no multiple of 16: rows
+    padded to the next multiple with 0x88 bytes (both nibbles 8: q = 0)."""
+    q4 = torch.from_numpy(np.random.default_rng(17).integers(0, 256, (64, 200), dtype=np.uint8))
+    w, pitch = im._pad_n(q4)
+    assert pitch == 208 and w.shape == (64, 208)
+    assert torch.equal(w[:, :200], q4) and bool((w[:, 200:] == 0x88).all())
+    same, pitch = im._pad_n(q4[:, :192].contiguous())
+    assert pitch == 192 and same.shape == (64, 192)
 
 
 @pytest.mark.parametrize("k,group_size,dtype", [(128, None, "f32"), (96, None, "f32"), (192, 32, "f32"),
@@ -179,14 +283,20 @@ def test_kernel_takes_what_the_tpu_wrapper_takes(case):
                                       (256, 10240, 4096, 128), (256, 4096, 4096, None),
                                       (5, 1024, 400, 64), (300, 2048, 640, None),
                                       (1, 128, 16, 64), (1, 4096, 4096, 128), (17, 4096, 4096, 128),
-                                      (256, 4096, 200, 128), (17, 1024, 201, None)])
+                                      (256, 4096, 200, 128), (17, 1024, 201, None),
+                                      (64, 4096, 4096, 128), (65, 2048, 1024, None),
+                                      (255, 4096, 4096, 128), (257, 4096, 4096, None),
+                                      (512, 4096, 10240, 128), (512, 10240, 4096, 128),
+                                      (64, 1216, 200, 32), (5, 192, 48, 3), (3, 64, 16, None)])
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
 def test_cuda_kernel_matches_plain_version(m, k, n, gs, dtype, monkeypatch):
     """Kernel against the plain version on the same inputs and weights; both
     accumulate in f32. bf16: against the plain version in f32, so the bound
     is the bf16 rounding of the output, rtol 1e-2 of the output's largest
     magnitude. f32 (CUDA-core FMAs, no TF32): 1e-5 of it, f32 sums in
-    another order."""
+    another order. Cases at the bf16 route's tile edges (M 64, 65, 255, 257,
+    512; a ragged N; K 10240), K splits of 1 to 8, group sizes that are no
+    multiple of a stage (32, and 3 with a K half of 96: a partial block)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
@@ -203,3 +313,32 @@ def test_cuda_kernel_matches_plain_version(m, k, n, gs, dtype, monkeypatch):
     ref = im.int4_matmul_reference(x.float(), p["kernel_q4"], p["kernel_scale"])
     err = (out.float() - ref).abs().max().item()
     assert err <= (1e-2 if dtype == "bf16" else 1e-5) * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,gs", [(256, 4096, 4096, None), (256, 4096, 4096, 128),
+                                      (256, 10240, 4096, 128), (64, 1216, 200, 32)],
+                         ids=["per_channel", "g128", "k10240_g128", "n200_g32"])
+def test_cuda_kernel_dequantizes_bit_for_bit(m, k, n, gs, monkeypatch):
+    """One-hot bf16 rows pick single weights, so the kernel's output is the
+    dequantized weight itself and must equal the plain version's bit for bit:
+    bf16(f32(q) · s) grouped, q · s in f32 then bf16 per channel. A control
+    that rounds q and s to bf16 before their product must differ somewhere
+    (the 1e-2 · max|ref| bound of the test above cannot tell the two apart)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    p = quantize_dense({"kernel": w}, bits=4, group_size=gs, pack=True)
+    x = torch.from_numpy(_one_hot_rows(m, k)).to(dev, torch.bfloat16)
+    out = im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
+    ref = im.int4_matmul_reference(x, p["kernel_q4"], p["kernel_scale"])
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    lo, hi = im._halves(p["kernel_q4"])
+    q = torch.cat([lo, hi])[(torch.arange(m, device=dev) * 37) % k]  # the picked rows' q
+    s = p["kernel_scale"]
+    s = s.repeat_interleave(k // s.shape[0], dim=0)[(torch.arange(m, device=dev) * 37) % k] if s.dim() == 2 else s
+    control = (q.to(torch.bfloat16).float() * s.to(torch.bfloat16).float()).to(torch.bfloat16)
+    assert not torch.equal(control, ref)
