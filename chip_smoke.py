@@ -10,12 +10,14 @@ Phases, each of which fails the run on error:
                       chain-bisect probe #12 and the bare-dot probe #13) from
                       csrc/ with nvcc, all at once, with the ptxas report of
                       each and the registers, local memory, shared memory and
-                      blocks an SM of the wgmma kernels: A's bf16 kernel, B's
+                      blocks an SM of the wgmma kernels: A's bf16 kernel, A's
+                      int8 kernel (eight instantiations) and its pre-pass, B's
                       five instantiations (with their ring stages and tiles),
                       E and F, G's GEMM and #13's bf16 kernel, and of D's four
                       instantiations with its ring stages, grid syncs a
-                      layer and SASS size; B, E, F, G, #13 and D must not
-                      spill nor have their wgmma serialized (C7512, C7515).
+                      layer and SASS size; A's int8 kernel and pre-pass, B,
+                      E, F, G, #13 and D must not spill nor have their wgmma
+                      serialized (C7512, C7515).
   3. kernels        — flash attention (A: its RoPE pre-pass and its bf16
                       kernel) and the int4 matmul (B) against their plain
                       PyTorch versions at the shapes of the Flux-schnell 512²
@@ -59,9 +61,13 @@ Phases, each of which fails the run on error:
                       plain version, timed in turns with torch._int_mm on the
                       quantized operands and with the "rows" route, its
                       quantizer pass and GEMM apart, and the request-weighted
-                      sums; the row quantizer (H) and A's int8 tiers ("qk",
-                      "full") against their plain versions, with times and
-                      bounds.
+                      sums; the row quantizer (H) at every activation shape of
+                      a "rows" request, queued and by profiler device time,
+                      with the request-weighted sums; A's int8 tiers ("qk",
+                      "full": the quantize pre-pass, bit for bit, and the
+                      int8 wgmma kernel) against their plain versions, the
+                      route, pre-pass and kernel in turns with A's bf16 route
+                      and SDPA's forward, with bounds and the exp floor.
      kernels-bare-dot — the bare-dot probe #13 in its three modes (bf16, int8,
                       int8 quantized inside) at 64 steps of (1024, 128)·(128,
                       1024), bf16 in turns with torch.bmm, its yardstick.
@@ -69,8 +75,10 @@ Phases, each of which fails the run on error:
                       (the 2048² sequence): "", "qk" and "full" in groups of
                       1024 keys, held to their plain versions two heads at a
                       time, the bf16 mode in turns with SDPA's forward and
-                      its two stages timed alone; the streamed "full" at
-                      L 1280 in groups of 64 and 1024; then the probe's entry
+                      its two stages timed alone, the int8 tiers' route,
+                      pre-pass and kernel in turns with the bf16 route and
+                      SDPA; the streamed "full" at L 1280 in groups of 64 and
+                      1024, in turns likewise; then the probe's entry
                       point, scripts/prof_attn_int8.run (8 steps).
   7. main           — Flux-schnell at full width on random weights (flow int8
                       per channel, T5-XXL int4 g=128), three 512², 4-step
@@ -80,9 +88,10 @@ Phases, each of which fails the run on error:
   8. main-w8a8      — the same pipeline in the W8A8 configuration: three
                       requests each on the "fused" (G) and "rows" (H) routes,
                       one each with int8 attention "qk" and "full"; checks as
-                      main, exact launch counts, and each final latent's
+                      main, exact launch counts (A's int8 pre-pass too), and each final latent's
                       rel-L2 against the weight-only latent of its seed;
-                      weight-only and "fused" requests in turns; one of each
+                      weight-only and "fused" requests in turns; one of each,
+                      and a "fused" request with each int8 attention tier,
                       under torch.profiler.
      main-2048      — the same pipeline (weight-only) through the server's
                       generator protocol at 2048²: generate_latents + decode_u8
@@ -171,6 +180,9 @@ FLASH_BWD_REL_TOL = 2e-2
 # cores, HBM
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES_S = 989e12, 1979e12, 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
+# exponentials a second on the special-function units (H100 SXM, as
+# FlashAttention-3 reports it): the softmax's floor beside an attention bound
+PEAK_EXP_S = 3.9e12
 TRAIN_ARGS = ["--model", "dev", "--quantize-base", "--lora-rank", "8", "--resolution", "512x512",
               "--batch-size", "1", "--grad-accumulate", "4", "--num-augmentations", "2",
               "--warmup-steps", "1", "--progress-every", "0", "--checkpoint-every", "3",
@@ -382,6 +394,17 @@ def phase_build():
             f"{rec['smem_bytes']} bytes of shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
     if any("C7512" in line for line in _build.BUILD_INFO["flash_attention_sm90"][1].splitlines()):
         log("[build] WARNING: ptxas serialized flash_attention_sm90's wgmma (C7512)")
+    int8_info = {f"D {d}, {mode}, {tile}-key tiles": fa.int8_kernel_info(d, mode, tile) for d in fa.HEAD_DIMS
+                 for mode, tile in (("qk", 128), ("full", 128), ("full_streamed", 128), ("full_streamed", 64))}
+    for key, rec in int8_info.items():
+        log(f"[build] flash_attention A int8, {key}: {rec['registers']} registers a thread at launch (setmaxnreg: "
+            f"40 producer, 232 consumers), {rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} bytes of "
+            f"shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
+    pre_info = {f"D {d}, {which}": rec for d in fa.HEAD_DIMS for which, rec in fa.int8_prepass_info(d).items()}
+    for key, rec in pre_info.items():
+        log(f"[build] flash_attention A int8 pre-pass, {key} launch: {rec['registers']} registers a thread, "
+            f"{rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} bytes of shared memory a block, "
+            f"{rec['blocks_per_sm']} block(s) an SM")
     bwd_info = {d: fb.kernel_info(d) for d in fb.HEAD_DIMS}
     for d, recs in bwd_info.items():
         for which, rec in recs.items():
@@ -422,15 +445,17 @@ def phase_build():
                                                     if re.match(r"\s+/\*[0-9a-f]{4,}\*/", line))
     log("[build] decode_step D code: " + ", ".join(f"{n} instructions ({n * 16 // 1024} KB)" for n in
                                                       d_code.values()) + " an instantiation")
-    # B, E, F, G's GEMM and #13's bf16 kernel keep their products asynchronous and in registers;
-    # none of them, nor D, spills
-    serialized = [line.strip() for name in ("int4_matmul", "flash_attention_bwd", "w8a8_matmul", "bare_dot",
-                                            "decode_step")
+    # A's int8 kernel, B, E, F, G's GEMM and #13's bf16 kernel keep their products asynchronous and
+    # in registers; none of them, nor A's int8 pre-pass or D, spills
+    serialized = [line.strip() for name in ("flash_attention", "int4_matmul", "flash_attention_bwd", "w8a8_matmul",
+                                            "bare_dot", "decode_step")
                   for line in _build.BUILD_INFO[name][1].splitlines() if "C7512" in line or "C7515" in line]
     spills = {(d, w): r["spill_bytes"] for d, recs in bwd_info.items() for w, r in recs.items() if r["spill_bytes"]}
     spills.update({("G", key): r["spill_bytes"] for key, r in g_info.items() if r["spill_bytes"]})
     spills.update({("B", key): r["spill_bytes"] for key, r in b_info.items() if r["spill_bytes"]})
     spills.update({("bare_dot_bf16", k): r["spill_bytes"] for k, r in dot_info.items() if r["spill_bytes"]})
+    spills.update({("A int8", k): r["spill_bytes"] for k, r in int8_info.items() if r["spill_bytes"]})
+    spills.update({("A int8 pre-pass", k): r["spill_bytes"] for k, r in pre_info.items() if r["spill_bytes"]})
     # D's phases are calls with a stack: its spills are ptxas's, for the kernels and every function
     d_spills = [int(n) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                               _build.BUILD_INFO["decode_step"][1]) for n in pair]
@@ -438,7 +463,8 @@ def phase_build():
         spills[("D", "ptxas")] = max(d_spills)
     if serialized or spills:
         raise AssertionError(f"tensor-core kernels: serialized {serialized}, spills {spills}")
-    return {"flash_attention_sm90": info, "flash_attention_bwd": bwd_info, "w8a8_matmul": g_info, "int4_matmul": b_info,
+    return {"flash_attention_sm90": info, "flash_attention_int8": int8_info, "flash_attention_int8_prepass": pre_info,
+            "flash_attention_bwd": bwd_info, "w8a8_matmul": g_info, "int4_matmul": b_info,
             "bare_dot_bf16": dot_info, "decode_step": d_info, "decode_step_sass_instructions": d_code}
 
 
@@ -792,9 +818,10 @@ def phase_kernels_flash_streamed():
     its int8 tiers at any length): "", "qk" and "full" in groups of 1024
     keys at the 2048² geometry (L 16640, 24 heads of 128, RoPE of 16640
     positions), each timed and held to its plain version (run two heads at a
-    time); the streamed "full" also at L 1280 in groups of 64 and 1024; the
-    one-shot "full" as the control it must tell apart; SDPA's bf16 forward at
-    L 16640 for scale. Then the probe's entry point, prof_attn_int8.run
+    time), the int8 tiers' route (pre-pass + kernel), pre-pass and kernel in
+    turns with A's bf16 route and SDPA's forward, queued; the streamed "full"
+    also at L 1280 in groups of 64 and 1024, timed alike; the one-shot "full"
+    as the control it must tell apart. Then the probe's entry point, prof_attn_int8.run
     (8 steps), whose launches are this slice's probe path."""
     import torch
 
@@ -825,9 +852,17 @@ def phase_kernels_flash_streamed():
         rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
         err = (out.float() - ref.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
-        if tier:
-            ms = time_ms(lambda: fa.flash_attention_streamed(q, k, v, cos, sin, int8=tier, blk_k=1024),
-                         iters=3, warmup=1)
+        if tier:  # the route, its pre-pass and kernel apart, A's bf16 route and SDPA's forward in turns
+            mode, group = ("qk", 0) if tier == "qk" else ("full_streamed", 1024)
+            pre = fa.int8_prepass(q, k, v, cos, sin, mode, group)
+            int8_turns = in_turns(
+                {"route": lambda: fa.flash_attention_streamed(q, k, v, cos, sin, int8=tier, blk_k=1024),
+                 "prepass": lambda: fa.int8_prepass(q, k, v, cos, sin, mode, group),
+                 "kernel": lambda: fa.int8_attention(pre, v, d ** -0.5, mode, group),
+                 "bf16_route": lambda: fa.flash_attention_streamed(q, k, v, cos, sin, blk_k=1024),
+                 "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)}, iters=3)
+            del pre
+            ms = statistics.mean(int8_turns["route"])
         else:  # in turns with SDPA's forward; the pre-pass and the kernel alone
             turns = in_turns({"route": lambda: fa.flash_attention_streamed(q, k, v, cos, sin, blk_k=1024),
                               "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)},
@@ -842,6 +877,20 @@ def phase_kernels_flash_streamed():
         bound = bound_ms_parts(parts, io_bytes)
         rec = dict(case=f"L{l}_h{h}_rope_blk1024", max_abs_err=err, out_rel_l2=rel, lse_max_abs_err=err_lse,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        if tier:
+            exp_ms = l * l * h / PEAK_EXP_S * 1e3
+            rec.update(turns_ms=int8_turns, route_ms=ms, ms=statistics.mean(int8_turns["kernel"]),
+                       prepass_ms=statistics.mean(int8_turns["prepass"]),
+                       bf16_route_ms=statistics.mean(int8_turns["bf16_route"]), bound_share=bound[0] / ms,
+                       exp_floor_ms=exp_ms)
+            log(f"[kernels-flash-streamed] {name} L={l}: in turns: route "
+                + " ".join(f"{t:.4f}" for t in int8_turns["route"]) + " ms, pre-pass "
+                + " ".join(f"{t:.4f}" for t in int8_turns["prepass"]) + " ms, kernel "
+                + " ".join(f"{t:.4f}" for t in int8_turns["kernel"]) + " ms, bf16 route "
+                + " ".join(f"{t:.4f}" for t in int8_turns["bf16_route"]) + " ms, SDPA bf16 forward "
+                + " ".join(f"{t:.4f}" for t in int8_turns["sdpa"])
+                + f" ms | route {ms / rec['bf16_route_ms']:.2f}x the bf16 route, {100 * bound[0] / ms:.1f}% of "
+                f"the bound, exp floor {exp_ms:.4f} ms")
         if not tier:
             rope_bound = bound_ms(0, 4 * q.numel() * 2 + 2 * cos.numel() * 2)
             rec.update(turns_ms=turns, library_ms=statistics.mean(turns["sdpa"]), kernel_ms=kernel_ms,
@@ -868,7 +917,7 @@ def phase_kernels_flash_streamed():
             bf16_ref2, bf16_lse2 = ref[:, :, :2].float(), ref_lse.reshape(b, h, l)[:, :2].reshape(-1, l)
         if tier == "qk":
             qk_out2, qk_lse2 = out[:, :, :2].float(), lse.reshape(b, h, l)[:, :2].reshape(-1, l)
-        log(f"[kernels-flash-streamed] {name} L={l} H={h}: {note} | kernel {ms:.4f} ms "
+        log(f"[kernels-flash-streamed] {name} L={l} H={h}: {note} | route {ms:.4f} ms "
             f"({2 * half / ms / 1e9:.1f} TFLOP/s-eff) | plain (2 heads at a time) {plain_ms:.1f} ms | "
             f"bound {bound[0]:.4f} ms ({bound[1]})")
         if not tier:
@@ -916,16 +965,34 @@ def phase_kernels_flash_streamed():
         rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
         err_lse = (lse - ref_lse).abs().max().item()
         ctrl_rel = ((ctrl.float() - ref.float()).norm() / ref.float().norm()).item()
-        ms = time_ms(lambda: fa.flash_attention_streamed(q, k, v, cos, sin, int8="full", blk_k=blk))
+        pre = fa.int8_prepass(q, k, v, cos, sin, "full_streamed", blk)
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (*fa.rope_rotate(q, k, cos, sin), v))
+        turns = in_turns({"route": lambda: fa.flash_attention_streamed(q, k, v, cos, sin, int8="full", blk_k=blk),
+                          "prepass": lambda: fa.int8_prepass(q, k, v, cos, sin, "full_streamed", blk),
+                          "kernel": lambda: fa.int8_attention(pre, v, 128 ** -0.5, "full_streamed", blk),
+                          "bf16_route": lambda: fa.flash_attention_streamed(q, k, v, cos, sin, blk_k=blk),
+                          "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)})
+        ms = statistics.mean(turns["route"])
+        bound = bound_ms_parts([(4 * length * length * 128 * 24, PEAK_INT8_OPS)],
+                               4 * q.numel() * 2 + 2 * cos.numel() * 2 + length * 24 * 4)
+        exp_ms = length * length * 24 / PEAK_EXP_S * 1e3
         tol_out, tol_lse = INT8_ATTN_TOL["full"]
         log(f"[kernels-flash-streamed] full_streamed L={length} blk_k={blk}: out rel-L2 {rel:.3e} "
-            f"(tol {tol_out}), lse max|Δ| {err_lse:.3e} | one-shot control {ctrl_rel:.3e} | kernel {ms:.4f} ms")
+            f"(tol {tol_out}), lse max|Δ| {err_lse:.3e} | one-shot control {ctrl_rel:.3e} | in turns: route "
+            + " ".join(f"{t:.4f}" for t in turns["route"]) + " ms, pre-pass "
+            + " ".join(f"{t:.4f}" for t in turns["prepass"]) + " ms, kernel "
+            + " ".join(f"{t:.4f}" for t in turns["kernel"]) + " ms, bf16 route "
+            + " ".join(f"{t:.4f}" for t in turns["bf16_route"]) + " ms, SDPA bf16 forward "
+            + " ".join(f"{t:.4f}" for t in turns["sdpa"])
+            + f" ms | bound {bound[0]:.4f} ms ({bound[1]}; {100 * bound[0] / ms:.1f}%), exp floor {exp_ms:.4f} ms")
+        del pre, qs, ks, vs
         if not (rel <= tol_out and err_lse <= tol_lse):
             failures.append(f"full_streamed L {length} blk {blk}: rel {rel}, lse {err_lse}")
         if not ctrl_rel > tol_out:
             failures.append(f"full_streamed L {length} blk {blk}: the one-shot control passes ({ctrl_rel})")
         short.append(dict(case=f"L{length}_blk{blk}", out_rel_l2=rel, lse_max_abs_err=err_lse,
-                          control_one_shot_out_rel_l2=ctrl_rel, ms=ms))
+                          control_one_shot_out_rel_l2=ctrl_rel, ms=ms, turns_ms=turns, bound_ms=bound[0],
+                          exp_floor_ms=exp_ms))
     cases["full_streamed_short"] = short
 
     # the probe's entry point: the path that runs #13 and A's streamed "full"
@@ -1081,7 +1148,8 @@ def _launch_counts():
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
     return {"flash_attention": fa.launches, "flash_attention_int8_qk": fa.int8_launches["qk"],
-            "flash_attention_int8_full": fa.int8_launches["full"], "int4_matmul": im.launches,
+            "flash_attention_int8_full": fa.int8_launches["full"],
+            "flash_attention_int8_quant": fa.int8_quant_launches, "int4_matmul": im.launches,
             "w8a8_matmul": wm.launches, "w8a8_quantize_rows": wm.quantize_launches}
 
 
@@ -1091,6 +1159,7 @@ def _reset_launch_counts():
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
     fa.launches = im.launches = wm.launches = wm.quantize_launches = fa.rope_launches = 0
+    fa.int8_quant_launches = 0
     fa.int8_launches.update(qk=0, full=0, full_streamed=0)
 
 
@@ -1115,10 +1184,11 @@ def phase_main_w8a8(pipe, weight_only_latents):
     denses on G or H: 8 in each of the 19 double blocks, linear1 and linear2
     in each of the 38 single blocks, txt_in and the final linear; the 79
     with one activation row, the modulations and the embedders' out layers,
-    take the "ops" formulation), and the final latent's rel-L2 against the
+    take the "ops" formulation; the int8 tiers' pre-pass once an attention
+    call for "qk" and twice for "full"), and the final latent's rel-L2 against the
     weight-only latent of its seed. Then weight-only and "fused" requests in
-    turns for their latencies on one card, and one of each under
-    torch.profiler."""
+    turns for their latencies on one card, and one of each, and one "fused"
+    request with each int8 attention tier, under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1144,6 +1214,8 @@ def phase_main_w8a8(pipe, weight_only_latents):
             n = {key: v - c0[key] for key, v in _launch_counts().items()}
             want = {"flash_attention": attn, "flash_attention_int8_qk": attn if attn_int8 == "qk" else 0,
                     "flash_attention_int8_full": attn if attn_int8 == "full" else 0,
+                    # the int8 tiers' pre-pass: q/k, and for "full" V too
+                    "flash_attention_int8_quant": attn * {"": 0, "qk": 1, "full": 2}[attn_int8],
                     "int4_matmul": 24 * 7, "w8a8_matmul": denses if w8a8 == "fused" else 0,
                     "w8a8_quantize_rows": denses if w8a8 == "rows" else 0}
             lat, ref = trace["latent"].float(), weight_only_latents[seed].float()
@@ -1159,7 +1231,8 @@ def phase_main_w8a8(pipe, weight_only_latents):
                 f"{rec['decode_s']:.4f}) | peak {rec['peak_gib']:.2f} GiB | latent rel-L2 vs weight-only "
                 f"{rel:.4e} (tol {W8A8_LATENT_REL_TOL}) | launches G {n['w8a8_matmul']} H "
                 f"{n['w8a8_quantize_rows']} A {n['flash_attention']} (int8 qk "
-                f"{n['flash_attention_int8_qk']}, full {n['flash_attention_int8_full']}) B "
+                f"{n['flash_attention_int8_qk']}, full {n['flash_attention_int8_full']}; pre-pass "
+                f"{n['flash_attention_int8_quant']}) B "
                 f"{n['int4_matmul']} | {tuple(img.shape)} {img.dtype} | latent finite {finite}")
             if tuple(img.shape) != (1, SIZE, SIZE, 3) or img.dtype != torch.uint8 or not finite:
                 failures.append(f"{w8a8}/{attn_int8} seed {seed}: image {tuple(img.shape)} {img.dtype}, "
@@ -1186,8 +1259,9 @@ def phase_main_w8a8(pipe, weight_only_latents):
         for k, v in ab.items()))
 
     profiles = {}
-    for label, w8a8 in (("weight_only", None), ("fused", "fused")):
-        pipe.w8a8, pipe.attn_int8 = w8a8, ""
+    for label, w8a8, attn_int8 in (("weight_only", None, ""), ("fused", "fused", ""), ("fused+qk", "fused", "qk"),
+                                   ("fused+full", "fused", "full")):
+        pipe.w8a8, pipe.attn_int8 = w8a8, attn_int8
         _flux_request(pipe, 9, "a profiled request")  # same shapes, warm
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, _, latency = _flux_request(pipe, 9, "a profiled request")
@@ -1512,6 +1586,7 @@ def phase_small_w8a8():
         res = _small_flux(f"small-w8a8 {w8a8}+{attn_int8}", w8a8, attn_int8)
         n = res["launches"]
         want = {"flash_attention": 2 * STEPS, f"flash_attention_int8_{attn_int8}": 2 * STEPS,
+                "flash_attention_int8_quant": 2 * STEPS * {"qk": 1, "full": 2}[attn_int8],
                 "int4_matmul": 2 * 7, "w8a8_matmul": 12 * STEPS if w8a8 == "fused" else 0,
                 "w8a8_quantize_rows": 13 * STEPS if w8a8 == "rows" else 0}
         if any(n[key] != v for key, v in want.items()):
@@ -2304,10 +2379,14 @@ def phase_kernels_w8a8():
     with torch._int_mm on the quantized operands and with the "rows" route
     (H, the int8 dot, its scalings), its two launches (quantizer pass and
     GEMM) apart by profiler device time, and the request-weighted sums;
-    kernel H (row quantizer) on the qkv input; A's int8 tiers at L 1280 with
-    RoPE (D 128 and 64) and at a padded L 1000. Each against its plain
-    version on the same bf16 inputs. G and its yardsticks take the weights
-    as ops.quant stores them (K-contiguous)."""
+    kernel H (row quantizer) at every (M, K) a "rows" request quantizes,
+    queued and by device time, with its request sums; A's int8 tiers at L
+    1280 with RoPE (D 128 and 64), at a padded L 1000 and on peaked logits
+    with outlier V: the route, its pre-pass and kernel in turns with A's bf16
+    route and SDPA's forward. Each against its plain version on the same
+    bf16 inputs (the pre-pass bit for bit against its plain version on the
+    CPU). G and its yardsticks take the weights as ops.quant stores them
+    (K-contiguous)."""
     import torch
 
     from flux_generator_tpu_torch.ops import linear as tl
@@ -2373,26 +2452,49 @@ def phase_kernels_w8a8():
     results["w8a8_matmul"] = cases
     results["w8a8_matmul_request_sums_ms"] = sums
 
-    m, k = 1024, 3072
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    q, sx = wm.quantize_rows(x)
-    rq, rsx = wm.quantize_rows_reference(x)
-    err = max((q.int() - rq.int()).abs().max().item(), (sx - rsx).abs().max().item())
-    ms = time_ms(lambda: wm.quantize_rows(x))
-    plain_ms = time_ms(lambda: wm.quantize_rows_reference(x))
-    # bf16 read, int8 and f32 scales written; abs, max and a scaled round a value
-    bound = bound_ms(3 * m * k, 2 * m * k + m * k + 4 * m)
-    log(f"[kernels-w8a8] H 1024x3072: max|Δ| {err:.3e} (tol 0: the same correctly rounded f32 "
-        f"operations) | kernel {ms:.4f} ms ({(3 * m * k + 4 * m) / ms / 1e6:.1f} GB/s) | plain "
-        f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]})")
-    if err != 0:
-        failures.append(f"H: {err}")
-    results["w8a8_quantize_rows"] = [dict(case="1024x3072", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                          library_ms=None, bound_ms=bound[0], bound_by=bound[1])]
+    # H at every activation shape a "rows" request quantizes (G_SHAPES' (M, K),
+    # launches summed over the denses that share one), queued behind a sleep
+    # and by profiler device time
+    h_shapes = {}
+    for _, m, k, _, per_request in G_SHAPES:
+        h_shapes[(m, k)] = h_shapes.get((m, k), 0) + per_request
+    h_cases, h_sums = [], dict(queued=0.0, device=0.0, bound=0.0)
+    for (m, k), per_request in h_shapes.items():
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        q, sx = wm.quantize_rows(x)
+        rq, rsx = wm.quantize_rows_reference(x)
+        err = max((q.int() - rq.int()).abs().max().item(), (sx - rsx).abs().max().item())
+        ms = time_ms_queued(lambda: wm.quantize_rows(x))
+        dev_ms = device_ms(lambda: wm.quantize_rows(x))
+        plain_ms = time_ms(lambda: wm.quantize_rows_reference(x), iters=5, warmup=1)
+        # bf16 read, int8 and f32 scales written; abs, max and a scaled round a value
+        bound = bound_ms(3 * m * k, 2 * m * k + m * k + 4 * m)
+        for key, v in (("queued", ms), ("device", dev_ms), ("bound", bound[0])):
+            h_sums[key] += per_request * v
+        log(f"[kernels-w8a8] H {m}x{k} ({per_request} a rows request): max|Δ| {err:.3e} (tol 0: the same "
+            f"correctly rounded f32 operations) | kernel {ms:.4f} ms queued, {dev_ms:.4f} ms device time "
+            f"({(3 * m * k + 4 * m) / ms / 1e6:.1f} GB/s queued, {100 * bound[0] / ms:.1f}% of its bound) | plain "
+            f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]})")
+        if err != 0:
+            failures.append(f"H {m}x{k}: {err}")
+        h_cases.append(dict(case=f"{m}x{k}", launches_per_request=per_request, max_abs_err=err, ms=ms,
+                            device_ms=dev_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound[0],
+                            bound_by=bound[1], bound_share=bound[0] / ms))
+        del x, q, sx, rq, rsx
+    log(f"[kernels-w8a8] H request-weighted sums over {sum(h_shapes.values())} launches: queued "
+        f"{h_sums['queued']:.2f} ms, device time {h_sums['device']:.2f} ms, bound {h_sums['bound']:.2f} ms "
+        f"({100 * h_sums['bound'] / h_sums['device']:.1f}% of the device time; half the bound reached: "
+        f"{h_sums['bound'] / h_sums['device'] >= 0.5})")
+    results["w8a8_quantize_rows"] = h_cases
+    results["w8a8_quantize_rows_request_sums_ms"] = h_sums
 
     # A's int8 tiers: out by rel-L2 and lse by max|Δ| against the tier's plain
     # version, and every control (a function the tier must not be) has to
-    # fail the same check, or the check could not tell the tier apart
+    # fail the check, or the check could not tell the tier apart. The route
+    # (pre-pass + kernel), the pre-pass and the kernel apart, A's bf16 route
+    # and SDPA's bf16 forward in turns, queued; the pre-pass bit for bit
+    # against its plain version on the CPU
+    prepass_cases = []
     for tier in ("qk", "full"):
         tol_out, tol_lse = INT8_ATTN_TOL[tier]
         tier_cases = []
@@ -2421,33 +2523,64 @@ def phase_kernels_w8a8():
                 controls["qk"] = fa.flash_attention_reference(q, k_, v, cos, sin, int8="qk")
                 controls["streamed"] = fa.streamed_full_reference(q, k_, v, cos, sin)
             control_dist = {name: dist(*c) for name, c in controls.items()}
-            ms = time_ms(lambda: fa.flash_attention(q, k_, v, cos, sin, int8=tier))
-            plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k_, v, cos, sin, int8=tier),
-                               iters=5, warmup=1)
+            pre = fa.int8_prepass(q, k_, v, cos, sin, tier)
+            pre_ref = fa.int8_prepass_reference(q.cpu(), k_.cpu(), v.cpu(), cos.cpu(), sin.cpu(), tier)
+            pre_equal = all(torch.equal(pre[name].cpu(), want) for name, want in pre_ref.items())
+            scale = d ** -0.5
             qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (
                 fa._rope_f32(q, cos, sin).to(q.dtype), fa._rope_f32(k_, cos, sin).to(q.dtype), v))
-            sdpa_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs))
+            turns = in_turns({"route": lambda: fa.flash_attention(q, k_, v, cos, sin, int8=tier),
+                              "prepass": lambda: fa.int8_prepass(q, k_, v, cos, sin, tier),
+                              "kernel": lambda: fa.int8_attention(pre, v, scale, tier),
+                              "bf16_route": lambda: fa.flash_attention(q, k_, v, cos, sin),
+                              "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)})
+            ms, pre_ms, kernel_ms, bf16_ms, sdpa_ms = (statistics.mean(turns[key]) for key in (
+                "route", "prepass", "kernel", "bf16_route", "sdpa"))
+            plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k_, v, cos, sin, int8=tier),
+                               iters=5, warmup=1)
+            pre_plain_ms = time_ms(lambda: fa.int8_prepass_reference(q, k_, v, cos, sin, tier), iters=5, warmup=1)
             half = 2 * length * length * d * h  # one of the two products
             parts = ([(half, PEAK_INT8_OPS), (half, PEAK_BF16_FLOPS)] if tier == "qk"
                      else [(2 * half, PEAK_INT8_OPS)])
             # q, k, v, out bf16, the two tables, lse f32
             bound = bound_ms_parts(parts, 4 * q.numel() * 2 + 2 * cos.numel() * 2 + length * h * 4)
+            exp_ms = length * length * h / PEAK_EXP_S * 1e3  # the exponentials' floor, beside the bound
+            # the pre-pass: q, k (and v) and the tables read, the int8 tensors and the scales written
+            l_pad = fa.padded_length(length)
+            pre_bytes = (2 * q.numel() * 2 + 2 * cos.numel() * 2 + 2 * h * l_pad * (d + 4)
+                         + (q.numel() * 2 + h * l_pad * d + h * d * 4 if tier == "full" else 0))
+            pre_bound = bound_ms(0, pre_bytes)
             log(f"[kernels-w8a8] A-{tier} {label}: out rel-L2 {err_out:.3e} (tol {tol_out}), lse max|Δ| "
                 f"{err_lse:.3e} (tol {tol_lse}), max|Δ| {err:.3e} | controls (out rel-L2, lse max|Δ|): "
                 + ", ".join(f"{n} {o:.3e} {ls:.3e}" for n, (o, ls) in control_dist.items())
-                + f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | SDPA bf16 forward {sdpa_ms:.4f} ms "
-                f"(for scale) | bound {bound[0]:.4f} ms ({bound[1]})")
+                + f" | pre-pass bit for bit {pre_equal} | in turns: route " + " ".join(f"{t:.4f}" for t in turns["route"])
+                + " ms, pre-pass " + " ".join(f"{t:.4f}" for t in turns["prepass"])
+                + " ms, kernel " + " ".join(f"{t:.4f}" for t in turns["kernel"])
+                + " ms, bf16 route " + " ".join(f"{t:.4f}" for t in turns["bf16_route"])
+                + " ms, SDPA bf16 forward " + " ".join(f"{t:.4f}" for t in turns["sdpa"])
+                + f" ms | route {ms / bf16_ms:.2f}x the bf16 route | plain {plain_ms:.4f} ms | bound {bound[0]:.4f} "
+                f"ms ({bound[1]}; {100 * bound[0] / ms:.1f}% of the route, {100 * bound[0] / kernel_ms:.1f}% of the "
+                f"kernel), exp floor {exp_ms:.4f} ms | pre-pass bound {pre_bound[0]:.4f} ms (bytes; "
+                f"{100 * pre_bound[0] / pre_ms:.1f}%)")
             if not (err_out <= tol_out and err_lse <= tol_lse):
                 failures.append(f"A-{tier} {label}: out rel-L2 {err_out}, lse {err_lse}")
             passed = [n for n, (o, ls) in control_dist.items() if o <= tol_out and ls <= tol_lse]
             if passed:
                 failures.append(f"A-{tier} {label}: controls {passed} pass the check")
+            if not pre_equal:
+                failures.append(f"A-{tier} {label}: the pre-pass differs from its plain version")
             tier_cases.append(dict(case=label, max_abs_err=err, out_rel_l2=err_out, lse_max_abs_err=err_lse,
-                                   control_out_rel_l2_lse=control_dist, ms=ms, plain_ms=plain_ms,
-                                   library_ms=None, sdpa_bf16_ms=sdpa_ms, bound_ms=bound[0],
-                                   bound_by=bound[1]))
-            del q, k_, v, out, ref, qs, ks, vs, controls
+                                   control_out_rel_l2_lse=control_dist, ms=kernel_ms, route_ms=ms,
+                                   prepass_ms=pre_ms, turns_ms=turns, plain_ms=plain_ms, library_ms=None,
+                                   sdpa_bf16_ms=sdpa_ms, bf16_route_ms=bf16_ms, bound_ms=bound[0],
+                                   bound_by=bound[1], bound_share=bound[0] / ms, exp_floor_ms=exp_ms))
+            if tier == "full":  # the pre-pass's row: both of its launches
+                prepass_cases.append(dict(case=label, max_abs_err=0.0 if pre_equal else float("inf"), ms=pre_ms,
+                                          plain_ms=pre_plain_ms, library_ms=None, bound_ms=pre_bound[0],
+                                          bound_by=pre_bound[1]))
+            del q, k_, v, out, ref, qs, ks, vs, controls, pre, pre_ref
         results[f"flash_attention_int8_{tier}"] = tier_cases
+    results["flash_attention_int8_quant"] = prepass_cases
     torch.cuda.synchronize()
     if failures:
         raise AssertionError("W8A8 kernels disagree with their plain versions: " + "; ".join(failures))
@@ -2620,11 +2753,11 @@ def phase_small_train():
 def _kernel_group(name: str) -> str:
     """Coarse group of a CUDA kernel by its name, for the profiles."""
     for key, group in (("flash_fwd_sm90", "A flash forward"), ("rope_rotate", "A RoPE pre-pass"),
-                       ("flash_fwd_kernel", "A int8 flash forward"), ("flash_bwd_dq", "E flash dQ"),
+                       ("attn_int8_kernel", "A int8 flash forward"), ("flash_bwd_dq", "E flash dQ"),
                        ("flash_bwd_dkv", "F flash dK/dV"), ("int4_matmul", "B int4 matmul"),
                        ("w8a8_gemm_sm90", "G W8A8 matmul"), ("quantize_blocks_kernel", "G quantizer pass"),
                        ("quantize_rows_kernel", "H row quantizer"),
-                       ("v_col_amax", "A int8 V column pre-pass")):
+                       ("quant_qk_kernel", "A int8 pre-pass"), ("quant_v_kernel", "A int8 pre-pass")):
         if key in name:
             return group
     low = name.lower()
@@ -2825,14 +2958,16 @@ def main() -> int:
             ("w8a8_matmul", wm.SOURCE, wm.REPLACES, "qkv_1024x3072x9216"),
             ("w8a8_quantize_rows", wm.SOURCE, wm.REPLACES_QUANTIZE, "1024x3072"),
             ("flash_attention_int8_qk", fa.INT8_SOURCE, fa.REPLACES, "L1280_rope"),
-            ("flash_attention_int8_full", fa.INT8_SOURCE, fa.REPLACES, "L1280_rope")):
+            ("flash_attention_int8_full", fa.INT8_SOURCE, fa.REPLACES, "L1280_rope"),
+            # the int8 tiers' quantize pre-pass ("full": both launches)
+            ("flash_attention_int8_quant", fa.INT8_SOURCE, fa.REPLACES, "L1280_rope")):
         case = next(c for c in kernels[key] if c["case"] == main_case)
         entries.append(dict(name=key, route="cuda", source=source, replaces=replaces,
                             launches=main_w8a8["launches"][key],
                             max_abs_err=max(c["max_abs_err"] for c in kernels[key]),
                             ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
                             bound_by=case["bound_by"], library_ms=case["library_ms"]))
-        if key == "w8a8_matmul":
+        if key in ("w8a8_matmul", "w8a8_quantize_rows"):
             entries[-1]["bound_share"] = case["bound_share"]
     for key, source, replaces, launches in (
             ("decode_step_f8", ds.SOURCE, ds.REPLACES_E4M3,

@@ -75,15 +75,4 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_p
                : "r"(addr));
 }
 
-// Four transposed 8x8 bf16 matrices from shared memory. Lanes 8i..8i+7 give the
-// row addresses of matrix i. For a row-major (k, n) tile, with lane l pointing at
-// row (l % 16) and column block (l / 16) * 8, r0/r1 are the B fragment (b0, b1)
-// of the first 8 columns and r2/r3 that of the next 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* smem_ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 }  // namespace fgt

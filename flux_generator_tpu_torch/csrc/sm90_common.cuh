@@ -1,7 +1,7 @@
 // Hopper (sm_90a) pieces shared by the wgmma/TMA kernels: kernel A's bf16 mode
-// (flash_attention_sm90.cu), kernel B's bf16 route (int4_matmul.cu), kernels E
-// and F (flash_attention_bwd.cu), kernel G's GEMM (w8a8_matmul.cu) and the
-// bare-dot probe's bf16 mode (bare_dot.cu).
+// (flash_attention_sm90.cu) and int8 tiers (flash_attention.cu), kernel B's bf16
+// route (int4_matmul.cu), kernels E and F (flash_attention_bwd.cu), kernel G's
+// GEMM (w8a8_matmul.cu) and the bare-dot probe's bf16 mode (bare_dot.cu).
 //
 // - mbarriers: init, arrive, arrive with an expected byte count, and a bare
 //   try_wait spin (see mbar_wait for why it has no poll limit);
@@ -11,7 +11,7 @@
 //   with boxes of 64 values × `rows` rows of one (batch, head) and a 128-byte
 //   swizzle, so a (batch, head) is read in place and rows past L come in as
 //   zeros; `encode_map_2d` the map of a row-major matrix of any element type;
-// - wgmma: the shared-memory descriptor of a 128-byte-swizzled operand, fence,
+// - wgmma: the shared-memory descriptor of a 128- or 64-byte-swizzled operand, fence,
 //   commit and wait, bf16 products m64n128k16 and m64n64k16 with both operands
 //   in shared memory (A K-major, B K-major or MN-major) or with A from
 //   registers and B MN-major (m64n128k16, m64n64k16) or K-major (m64n256k16,
@@ -116,6 +116,12 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// As desc_sw128 for a 64-byte-swizzled operand (rows of 64 bytes, layout type 2).
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
+}
+
 // Named barriers 1 and 2 order the two consumer warpgroups' products: a
 // warpgroup syncs on its own before it issues and arrives on the other's after.
 __device__ __forceinline__ void turn_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
@@ -200,6 +206,35 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[96], uint64_t da, uint64_t db,
       : FGT_I8(0), FGT_I8(8), FGT_I8(16), FGT_I8(24), FGT_I8(32), FGT_I8(40), FGT_I8(48), FGT_I8(56),
         FGT_I8(64), FGT_I8(72), FGT_I8(80), FGT_I8(88)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// As above with N = 64.
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" FGT_REGS32 "}, %32, %33, p;\n}\n"
+      : FGT_I8(0), FGT_I8(8), FGT_I8(16), FGT_I8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A·B in int8 with exact s32 sums, m64n128k32: A from registers (the
+// m16n8k32 A fragment of this thread's warp's 16 rows, four int8 a register),
+// B K-major in shared memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[64], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" FGT_REGS64 "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : FGT_I8(0), FGT_I8(8), FGT_I8(16), FGT_I8(24), FGT_I8(32), FGT_I8(40), FGT_I8(48), FGT_I8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// As above with N = 64.
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" FGT_REGS32 "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : FGT_I8(0), FGT_I8(8), FGT_I8(16), FGT_I8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // As wgmma_ss_n128 with N = 64.

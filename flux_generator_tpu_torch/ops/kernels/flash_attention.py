@@ -12,8 +12,14 @@ package's `_flash_core` custom VJP.
 The bf16 mode (`int8=""`) is `bf16_forward`: the RoPE pre-pass
 (`rope_rotate`) rotates q and k once, as the JAX wrapper pre-rotates them
 past 6144 tokens, and `flash_attention_sm90` (csrc/flash_attention_sm90.cu:
-wgmma, a TMA ring) attends over the rotated tensors. The int8 tiers run the
-fused-RoPE kernel of csrc/flash_attention.cu.
+wgmma, a TMA ring) attends over the rotated tensors. The int8 tiers run
+csrc/flash_attention.cu in two steps: the quantize pre-pass
+(`int8_prepass`: q and k rotated and quantized per row once, and for the
+"full" modes V quantized per column, transposed and key-permuted, one or two
+launches) and the attention kernel (`int8_attention`: int8 wgmma fed by a
+TMA ring, bf16 P·V for "qk"). Its bound is the function's products at the
+int8 rate (0.0102 ms for "full" at L 1280, 24 heads of 128), with the L²·H
+exponentials at the special-function rate (about 0.010 ms there) beside it.
 
 `int8` selects the int8 tiers of the TPU kernel (`int8_mxu`, the one-shot
 path's semantics): "qk" quantizes q and k rows for an int8 Q·Kᵀ, "full" also
@@ -30,8 +36,9 @@ dk back with the pre-pass at (cos, −sin).
 on its streamed path, where the tiers run at any length: "" and "qk" are A's
 modes above (their function does not depend on how keys are blocked), and
 "full" is A's streamed mode, which quantizes p and V per group of `blk_k`
-keys as the streamed TPU kernel does (`streamed_full_reference`). It has the
-same gradient through `_FlashAttention`.
+keys (a multiple of 64) as the streamed TPU kernel does
+(`streamed_full_reference`); the pre-pass then takes V's column scales per
+group. It has the same gradient through `_FlashAttention`.
 
 Layout: q, k, v (B, L, H, D); cos/sin (B, L, D/2) tables shared by all
 heads, in the working dtype. RoPE rotates interleaved pairs (2i, 2i+1).
@@ -49,12 +56,14 @@ from .flash_attention_bwd import flash_attention_bwd
 
 # Launches of kernel A since the last reset, one a call in every mode (the
 # plain version on CPU tensors does not count); of its int8 tiers alone
-# ("full_streamed": the "full" tier in groups of blk_k keys); and of the
-# bf16 mode's RoPE pre-pass (two a backward with tables: the rotation and
-# the pull-back).
+# ("full_streamed": the "full" tier in groups of blk_k keys); of the bf16
+# mode's RoPE pre-pass (two a backward with tables: the rotation and the
+# pull-back); and of the int8 tiers' quantize pre-pass (one a "qk" call, two
+# a "full" or "full_streamed" call: q/k, then V).
 launches = 0
 int8_launches = {"qk": 0, "full": 0, "full_streamed": 0}
 rope_launches = 0
+int8_quant_launches = 0
 
 SOURCE = "flux_generator_tpu_torch/csrc/flash_attention_sm90.cu"  # the bf16 mode and its pre-pass
 INT8_SOURCE = "flux_generator_tpu_torch/csrc/flash_attention.cu"
@@ -63,7 +72,8 @@ REPLACES_STREAMED_FULL = "flux_generator_tpu/ops/pallas/flash_attention.py:292"
 HEAD_DIMS = (64, 128)
 INT8_TIERS = ("", "qk", "full")
 _MODES = {"qk": 1, "full": 2, "full_streamed": 3}
-KEY_TILE = 64  # keys per K/V tile of the kernel; a streamed group is whole tiles
+KEY_TILE = 128  # keys a K/V tile of the int8 kernel; the pre-pass pads L to whole tiles
+GROUP_KEYS = 64  # a streamed group is a multiple of this (an odd multiple runs on 64-key tiles)
 # The JAX wrapper keeps the int8 tiers to its one-shot path: a padded length
 # of at most 6144 (flash_attention.py:544-551).
 INT8_MAX_LEN = 6144
@@ -71,7 +81,11 @@ INT8_MAX_LEN = 6144
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _INT8_SIGNATURES = {
-    "fgt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    "fgt_attn_int8_quant_qk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fgt_attn_int8_quant_v": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fgt_attn_int8_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    "fgt_attn_int8_info": [_I, _I, _I, _P, _P, _P, _P],
+    "fgt_attn_int8_quant_info": [_I, _I, _P, _P, _P, _P],
 }
 _SIGNATURES = {
     "fgt_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
@@ -93,10 +107,17 @@ def _rope_f32(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Te
     return torch.stack([e * c - o * s, e * s + o * c], dim=-1).reshape(shape)
 
 
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 correctly rounded on every device. (PyTorch's CUDA division by
+    a Python scalar multiplies by its reciprocal, which can round an ulp
+    away; a tensor divisor on x's device takes the IEEE division.)"""
+    return x / x.new_full((), 127.0)
+
+
 def _quant(x: torch.Tensor, dim: int):
     """int8 levels (as f32) of f32 x with max-abs scales over `dim`: the TPU
     kernel's `_quant_rows` (over D) and `_quant_cols` (over the keys)."""
-    s = x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-20) / 127.0
+    s = _div127(x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-20))
     return torch.clamp(torch.round(x / s), -127, 127), s
 
 
@@ -136,7 +157,7 @@ def flash_attention_reference(q, k, v, cos=None, sin=None, scale: Optional[float
     if int8 == "full":
         vi, sv = _quant(v.float(), 1)
         dots = torch.einsum("bhqk,bkhd->bhqd", torch.round(p * 127.0).double(), vi.double()).float()
-        o = dots * (sv.permute(0, 2, 1, 3) / 127.0) / denom
+        o = dots * _div127(sv.permute(0, 2, 1, 3)) / denom
     else:
         o = torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), v.float()) / denom
     lse = (m + torch.log(denom)).reshape(b * h, l)
@@ -173,7 +194,7 @@ def streamed_full_reference(q, k, v, cos=None, sin=None, scale: Optional[float] 
         alpha = torch.exp(m - m_new)
         p = torch.exp(sb - m_new)
         denom = denom * alpha + p.sum(dim=-1, keepdim=True)
-        sp = p.amax(dim=-1, keepdim=True).clamp_min(1e-20) / 127.0
+        sp = _div127(p.amax(dim=-1, keepdim=True).clamp_min(1e-20))
         vi, sv = _quant(v[:, k0:k0 + blk_k].float(), 1)
         pv = torch.einsum("bhqk,bkhd->bhqd", torch.round(p / sp).double(), vi.double()).float()
         acc = acc * alpha + pv * sp * sv.permute(0, 2, 1, 3)
@@ -290,39 +311,212 @@ def bf16_forward(q, k, v, cos, sin, scale):
     return flash_attention_sm90(q, k, v, scale)
 
 
-def _flash_attention_cuda(q, k, v, cos, sin, scale, int8, group: int = 0):
-    """Kernel A's int8 tier `int8` ("qk", "full" or "full_streamed", whose
-    quantization groups are `group` keys), fused RoPE."""
-    global launches
-    _check_cuda_args(q, k, v, cos, sin)
-    b, l, h, d = q.shape
+_MODES_WITH_V = ("full", "full_streamed")
+
+
+def padded_length(length: int) -> int:
+    """L rounded up to whole K tiles: the pre-pass's row count a head."""
+    return -(-length // KEY_TILE) * KEY_TILE
+
+
+def vt_key_order(n: int) -> torch.Tensor:
+    """The keys of Vᵀi in position order: within each 16, key 2t + (i & 1) +
+    8 (i >> 1) sits at position 4t + i, so that an s32 tile of S rounded to
+    int8 is the A fragment of the int8 P·V as it stands."""
+    pos = torch.arange(n)
+    kk = pos % 16
+    return pos - kk + 2 * (kk // 4) + (kk % 4 & 1) + 8 * (kk % 4 >> 1)
+
+
+def _check_mode(int8: str, group: int):
     if int8 not in _MODES:
         raise ValueError(f"the int8 kernel's modes are {tuple(_MODES)}, got {int8!r}")
-    if int8 == "full_streamed" and (group <= 0 or group % KEY_TILE):
-        raise ValueError(f"the streamed full tier takes groups of a positive multiple of {KEY_TILE} keys, "
+    if int8 == "full_streamed" and (group <= 0 or group % GROUP_KEYS):
+        raise ValueError(f"the streamed full tier takes groups of a positive multiple of {GROUP_KEYS} keys, "
                          f"got {group}")
-    lib = _build.load("flash_attention", _INT8_SIGNATURES)
+
+
+def int8_prepass_reference(q, k, v, cos=None, sin=None, int8: str = "qk", group: int = 0) -> dict:
+    """Plain version of the int8 tiers' quantize pre-pass over (B, L, H, D)
+    q, k, v → {"qi", "qs", "ki", "ks"} and, for "full" and "full_streamed",
+    {"vt", "vs"}. q and k are rotated (when tables are given) and rounded to
+    the working dtype, then quantized over D as `_quant_rows`: qi, ki (B·H,
+    L_pad, D) int8 and qs, ks (B·H, L_pad) f32, rows past L quantized zeros
+    (L_pad = `padded_length(L)`). V is quantized per column as `_quant_cols`
+    over the whole head ("full") or per group of `group` keys from key 0
+    ("full_streamed", the last group zero-padded): vs (B·H, groups, D) f32,
+    and vt (B·H, D, L_pad) int8, transposed, its keys in `vt_key_order`."""
+    _check_mode(int8, group)
+    b, l, h, d = q.shape
+    l_pad = padded_length(l)
+    if cos is not None:
+        q, k = rope_rotate_reference(q, k, cos, sin)
+
+    def heads(x, rows):  # (B, L, H, D) → f32 (B·H, rows, D), zeros past L
+        x = x.float().permute(0, 2, 1, 3).reshape(b * h, l, d)
+        return torch.nn.functional.pad(x, (0, 0, 0, rows - l))
+
+    out = {}
+    for name, x in (("q", q), ("k", k)):
+        xi, sx = _quant(heads(x, l_pad), -1)
+        out[f"{name}i"], out[f"{name}s"] = xi.to(torch.int8), sx[..., 0]
+    if int8 in _MODES_WITH_V:
+        g = l_pad if int8 == "full" else group
+        n_groups = -(-l // g)
+        vi, sv = _quant(heads(v, n_groups * g).reshape(b * h, n_groups, g, d), 2)
+        vi = vi.reshape(b * h, n_groups * g, d)
+        vi = torch.nn.functional.pad(vi, (0, 0, 0, max(l_pad - n_groups * g, 0)))[:, :l_pad]
+        out["vt"] = vi.transpose(1, 2)[:, :, vt_key_order(l_pad).to(vi.device)].to(torch.int8).contiguous()
+        out["vs"] = sv[:, :, 0].contiguous()
+    return out
+
+
+def int8_attention_reference(pre: dict, v, scale: float, int8: str = "qk", group: int = 0):
+    """Plain version of the int8 attention kernel: the tier's (out, lse) from
+    the pre-pass's outputs `pre` and v (B, L, H, D), as
+    `flash_attention_reference` ("qk", "full") and `streamed_full_reference`
+    ("full_streamed", groups of `group` keys) compute them."""
+    _check_mode(int8, group)
+    b, l, h, d = v.shape
+    dt = v.dtype
+
+    def heads(x):  # (B·H, L_pad, ...) → (B, H, L, ...)
+        return x[:, :l].reshape(b, h, l, *x.shape[2:])
+
+    dots = torch.einsum("bhqd,bhkd->bhqk", heads(pre["qi"]).double(), heads(pre["ki"]).double()).float()
+    s = dots * (heads(pre["qs"])[..., None] * scale) * heads(pre["ks"])[:, :, None, :]
+    if int8 in _MODES_WITH_V:
+        vi = torch.empty_like(pre["vt"])
+        vi[:, :, vt_key_order(vi.shape[-1]).to(vi.device)] = pre["vt"]
+        vi = heads(vi.transpose(1, 2)).permute(0, 2, 1, 3).double()  # (B, L, H, D) levels
+        sv = pre["vs"].reshape(b, h, -1, d)
+    if int8 == "full_streamed":
+        m = torch.full((b, h, l, 1), -torch.inf, device=v.device)
+        denom = torch.zeros((b, h, l, 1), device=v.device)
+        acc = torch.zeros((b, h, l, d), device=v.device)
+        for gi, k0 in enumerate(range(0, l, group)):
+            sb = s[..., k0:k0 + group]
+            m_new = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sb - m_new)
+            denom = denom * alpha + p.sum(dim=-1, keepdim=True)
+            sp = _div127(p.amax(dim=-1, keepdim=True).clamp_min(1e-20))
+            pv = torch.einsum("bhqk,bkhd->bhqd", torch.round(p / sp).double(), vi[:, k0:k0 + group]).float()
+            acc = acc * alpha + pv * sp * sv[:, :, gi:gi + 1]
+            m = m_new
+        return (acc / denom).permute(0, 2, 1, 3).to(dt), (m + torch.log(denom)).reshape(b * h, l)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    if int8 == "full":
+        dots = torch.einsum("bhqk,bkhd->bhqd", torch.round(p * 127.0).double(), vi).float()
+        o = dots * _div127(sv) / denom
+    else:
+        o = torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), v.float()) / denom
+    return o.permute(0, 2, 1, 3).to(dt), (m + torch.log(denom)).reshape(b * h, l)
+
+
+def int8_prepass(q, k, v, cos=None, sin=None, int8: str = "qk", group: int = 0) -> dict:
+    """The int8 tiers' quantize pre-pass (see `int8_prepass_reference`): its
+    kernels on CUDA tensors, one launch for "qk" and two for the "full"
+    modes, into new tensors; the plain version on CPU ones."""
+    global int8_quant_launches
+    if q.device.type == "cpu":
+        return int8_prepass_reference(q, k, v, cos, sin, int8, group)
+    _check_mode(int8, group)
+    _check_cuda_args(q, k, v, cos, sin)
+    b, l, h, d = q.shape
+    l_pad = padded_length(l)
     if cos is not None:  # tables in the working dtype, as the JAX wrapper casts them
         cos = cos.to(q.dtype).contiguous()
         sin = sin.to(q.dtype).contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty((b * h, l), dtype=torch.float32, device=q.device)
-    # V's column amax for the "full" tiers (over the head, or per group),
-    # combined with atomicMax from zero
-    groups = {"full": 1, "full_streamed": -(-l // max(group, 1))}.get(int8, 0)
-    vamax = torch.zeros((b * h, groups, d), dtype=torch.int32, device=q.device) if groups else None
-    with torch.cuda.device(q.device):
-        err = lib.fgt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _check_aligned(cos, sin, align=8)
+    _check_aligned(q, k, v)
+    lib = _build.load("flash_attention", _INT8_SIGNATURES)
+    dev = q.device
+    pre = {name: torch.empty((b * h, l_pad, d), dtype=torch.int8, device=dev) for name in ("qi", "ki")}
+    pre.update({name: torch.empty((b * h, l_pad), dtype=torch.float32, device=dev) for name in ("qs", "ks")})
+    with_v = int8 in _MODES_WITH_V
+    vpart = torch.empty((b * h, l_pad // GROUP_KEYS, d), dtype=torch.float32, device=dev) if with_v else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.fgt_attn_int8_quant_qk(
+            q.data_ptr(), k.data_ptr(), v.data_ptr() if with_v else None,
             None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
-            None if vamax is None else vamax.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, l, h, d, float(scale), _MODES[int8], group,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check("fgt_flash_attention_fwd", err)
+            pre["qi"].data_ptr(), pre["qs"].data_ptr(), pre["ki"].data_ptr(), pre["ks"].data_ptr(),
+            None if vpart is None else vpart.data_ptr(), b, l, h, d, l_pad, stream)
+        _build.check("fgt_attn_int8_quant_qk", err)
+        int8_quant_launches += 1
+        if with_v:
+            g = l_pad if int8 == "full" else group
+            pre["vt"] = torch.empty((b * h, d, l_pad), dtype=torch.int8, device=dev)
+            pre["vs"] = torch.empty((b * h, -(-l // g), d), dtype=torch.float32, device=dev)
+            err = lib.fgt_attn_int8_quant_v(v.data_ptr(), vpart.data_ptr(), pre["vt"].data_ptr(),
+                                            pre["vs"].data_ptr(), b, l, h, d, l_pad, g, stream)
+            _build.check("fgt_attn_int8_quant_v", err)
+            int8_quant_launches += 1
+    return pre
+
+
+def int8_attention(pre: dict, v, scale: float, int8: str = "qk", group: int = 0):
+    """The int8 attention kernel over the pre-pass's outputs `pre` and v (B,
+    L, H, D) (bf16 P·V for "qk") → (out, lse): its kernel on CUDA tensors,
+    the plain version on CPU ones."""
+    global launches
+    if v.device.type == "cpu":
+        return int8_attention_reference(pre, v, scale, int8, group)
+    _check_mode(int8, group)
+    b, l, h, d = v.shape
+    l_pad = padded_length(l)
+    if pre["qi"].shape != (b * h, l_pad, d) or pre["ki"].shape != (b * h, l_pad, d):
+        raise ValueError(f"pre-pass rows {tuple(pre['qi'].shape)} do not fit v {tuple(v.shape)}")
+    vsrc = v if int8 == "qk" else pre["vt"]
+    _check_aligned(vsrc, pre["qi"], pre["ki"], pre["qs"], pre["ks"])
+    lib = _build.load("flash_attention", _INT8_SIGNATURES)
+    out = torch.empty_like(v)
+    lse = torch.empty((b * h, l), dtype=torch.float32, device=v.device)
+    with torch.cuda.device(v.device):
+        err = lib.fgt_attn_int8_fwd(
+            pre["qi"].data_ptr(), pre["qs"].data_ptr(), pre["ki"].data_ptr(), pre["ks"].data_ptr(),
+            vsrc.data_ptr(), pre["vs"].data_ptr() if int8 != "qk" else None, out.data_ptr(), lse.data_ptr(),
+            b, l, h, d, l_pad, float(scale), _MODES[int8], group,
+            torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check("fgt_attn_int8_fwd", err)
     launches += 1
     int8_launches[int8] += 1
     return out, lse
+
+
+def int8_kernel_info(d: int = 128, int8: str = "full", tile: int = KEY_TILE) -> dict:
+    """The int8 attention kernel's registers a thread at launch, spilled
+    bytes a thread, shared memory a block and blocks an SM at head dim d,
+    mode `int8` and K tile `tile` (64 only for "full_streamed")."""
+    lib = _build.load("flash_attention", _INT8_SIGNATURES)
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    _build.check("fgt_attn_int8_info", lib.fgt_attn_int8_info(d, _MODES[int8], tile,
+                                                              *(ctypes.byref(x) for x in vals)))
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
+
+
+def int8_prepass_info(d: int = 128) -> dict:
+    """The pre-pass kernels' registers, spilled bytes, static shared memory
+    and blocks an SM at head dim d: {"qk": ..., "v": ...}."""
+    lib = _build.load("flash_attention", _INT8_SIGNATURES)
+    out = {}
+    for which, name in enumerate(("qk", "v")):
+        vals = [ctypes.c_int(0) for _ in range(4)]
+        _build.check("fgt_attn_int8_quant_info", lib.fgt_attn_int8_quant_info(d, which,
+                                                                              *(ctypes.byref(x) for x in vals)))
+        out[name] = dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
+    return out
+
+
+def _flash_attention_cuda(q, k, v, cos, sin, scale, int8, group: int = 0):
+    """Kernel A's int8 tier `int8` ("qk", "full" or "full_streamed", whose
+    quantization groups are `group` keys): the quantize pre-pass, then the
+    attention kernel."""
+    pre = int8_prepass(q, k, v, cos, sin, int8, group)
+    return int8_attention(pre, v, scale, int8, group)
 
 
 def _forward(q, k, v, cos, sin, scale, int8):

@@ -4,7 +4,13 @@ mode on CPU) under `set_attn_int8`, the one-shot length guard, the tiers'
 straight-through gradient against jax.grad, and the CUDA kernel against the plain version on a card; and
 `flash_attention_streamed`, the JAX streamed path whose tiers run at any
 length ("full" quantized per group of blk_k keys), against
-`_flash_attention_jit` on its streamed path, and its kernel mode on a card.
+`_flash_attention_jit` on its streamed path, and its kernel mode on a card;
+and the tiers' two steps on the card: the quantize pre-pass (its plain
+version against the JAX package's `_quant_rows` / `_quant_cols`, V's
+key-permuted transposed layout by hand, the kernels bit for bit against the
+plain version) and the int8 attention kernel (its plain version run from the
+pre-pass's outputs equal to the tiers' references; the kernel at tile and
+slab edges).
 
 jax is imported inside the tests that use it, so the `cuda` cases run on a
 machine without jax: `python -m pytest --noconftest -m cuda
@@ -339,3 +345,171 @@ def test_cuda_streamed_full_matches_plain_version(b, l, h, d, rope, blk_k):
 
     assert within(out, lse)
     assert not within(*fa.flash_attention_reference(*args, int8="full"))
+
+
+# ---- the int8 tiers' quantize pre-pass and the attention kernel behind it
+
+PREPASS_CASES = [(d, l) for d in (64, 128) for l in (64, 65, 1000, 1280)]
+
+
+def _bf16_inputs(seed, b, l, h, d, rope):
+    return _torch(_inputs(seed, b, l, h, d, rope), dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,l", PREPASS_CASES)
+def test_prepass_plain_matches_jax_quant_bit_for_bit(d, l):
+    """The pre-pass's plain version against the JAX package's `_quant_rows`
+    (q and k rotated and rounded to bf16, each head's rows) and
+    `_quant_cols` (V over the whole head for "full"; per group of 384 keys
+    for "full_streamed", the last group zero-padded as the streamed kernel's
+    block), levels and f32 scales bit for bit; rows past L are quantized
+    zeros."""
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.pallas.flash_attention import _quant_cols, _quant_rows
+
+    b, h, group = 1, 2, 384
+    q, k, v, cos, sin = _bf16_inputs(12, b, l, h, d, True)
+    qr, kr = fa.rope_rotate_reference(q, k, cos, sin)
+    l_pad = fa.padded_length(l)
+    for tier in ("full", "full_streamed"):
+        pre = fa.int8_prepass_reference(q, k, v, cos, sin, tier, group if tier == "full_streamed" else 0)
+        for name, x in (("q", qr), ("k", kr)):
+            rows = x.float().permute(0, 2, 1, 3).reshape(b * h * l, d).numpy()
+            xi, sx = (np.asarray(a) for a in _quant_rows(jnp.asarray(rows)))
+            got_i = pre[f"{name}i"][:, :l].reshape(-1, d).numpy()
+            got_s = pre[f"{name}s"][:, :l].reshape(-1, 1).numpy()
+            assert np.array_equal(got_i, xi) and np.array_equal(got_s, sx), (tier, name)
+            assert not pre[f"{name}i"][:, l:].any() and pre[f"{name}i"].shape == (b * h, l_pad, d)
+        g = l_pad if tier == "full" else group
+        vi = torch.empty_like(pre["vt"])
+        vi[:, :, fa.vt_key_order(l_pad)] = pre["vt"]
+        for bh in range(b * h):
+            head = v[bh // h, :, bh % h].float().numpy()
+            for gi, k0 in enumerate(range(0, l, g)):
+                block = np.zeros((g, d), np.float32)
+                block[:min(g, l - k0)] = head[k0:k0 + g]
+                want_i, want_s = (np.asarray(a) for a in _quant_cols(jnp.asarray(block)))
+                n = min(g, l - k0)
+                assert np.array_equal(vi[bh, :, k0:k0 + n].T.numpy(), want_i[:n]), (tier, bh, gi)
+                assert np.array_equal(pre["vs"][bh, gi].numpy(), want_s[0]), (tier, bh, gi)
+            assert not vi[bh, :, l:].any()
+
+
+PLAIN_KERNEL_CASES = {"d128_rope": (1, 300, 2, 128, True), "b2_d64_l1000": (2, 1000, 1, 64, False),
+                      "l65": (1, 65, 2, 64, True)}
+
+
+@pytest.mark.parametrize("tier,group", [("qk", 0), ("full", 0), ("full_streamed", 64), ("full_streamed", 192)])
+@pytest.mark.parametrize("case", list(PLAIN_KERNEL_CASES))
+def test_plain_kernel_from_prepass_equals_references(case, tier, group):
+    """The attention kernel's plain version, run from the pre-pass's outputs
+    (int8 rows and scales, V transposed and key-permuted), equals
+    `flash_attention_reference` / `streamed_full_reference` bit for bit (the
+    same operations on the same values); the wrapper takes it for CPU
+    tensors, launching nothing."""
+    q, k, v, cos, sin = _bf16_inputs(13, *PLAIN_KERNEL_CASES[case])
+    scale = q.shape[-1] ** -0.5
+    before = (fa.launches, fa.int8_quant_launches)
+    pre = fa.int8_prepass(q, k, v, cos, sin, tier, group)
+    out, lse = fa.int8_attention(pre, v, scale, tier, group)
+    assert (fa.launches, fa.int8_quant_launches) == before
+    if tier == "full_streamed":
+        ref, ref_lse = fa.streamed_full_reference(q, k, v, cos, sin, scale, blk_k=group)
+    else:
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, cos, sin, scale, int8=tier)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+
+
+def test_vt_key_permutation_by_hand():
+    """Vᵀi's key order: within each 16 keys, position 4t + i holds key
+    2t + (i & 1) + 8 (i >> 1), the keys whose S accumulators a thread holds
+    (columns 8n + 2t, 8n + 2t + 1 of n8 groups n = 0, 1) in the order of its
+    k32 A fragment (k-indices 4t..4t+3); checked by hand on one tile, and
+    round-tripped through the pre-pass."""
+    order = fa.vt_key_order(32).tolist()
+    assert order[:16] == [0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15]
+    assert order[16:] == [16 + x for x in order[:16]]
+    assert sorted(fa.vt_key_order(256).tolist()) == list(range(256))
+    # V's levels are the key index itself on one head (scale 1/127 · 127 = 1): Vᵀi row 0 reads the order
+    l = 100
+    v = torch.arange(l, dtype=torch.float32)[None, :, None, None].expand(1, l, 1, 64).contiguous()
+    v[0, 0, 0, 1:] = 127.0  # column amax 127 in every column but 0, whose amax is key 99
+    q = k = torch.ones((1, l, 1, 64))
+    pre = fa.int8_prepass_reference(q, k, v, int8="full")
+    vt = pre["vt"][0]
+    assert vt.shape == (64, 128)
+    assert vt[1, :32].tolist() == [127 if key == 0 else key for key in order]
+    want_col0 = [round(key * 127 / 99) for key in fa.vt_key_order(128).tolist()]
+    assert vt[0].tolist() == [x if key < l else 0 for x, key in zip(want_col0, fa.vt_key_order(128).tolist())]
+    back = torch.empty_like(vt)
+    back[:, fa.vt_key_order(128)] = vt
+    assert back[1, :l].tolist() == [127] + list(range(1, l)) and not back[:, l:].any()
+
+
+def test_streamed_group_must_be_whole_slabs():
+    q, k, v, _, _ = _torch(_inputs(14, 1, 100, 1, 64, False))
+    for group in (0, 96, -64):
+        with pytest.raises(ValueError):
+            fa.int8_prepass(q, k, v, int8="full_streamed", group=group)
+    with pytest.raises(ValueError):
+        fa.int8_prepass(q, k, v, int8="bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier,group", [("qk", 0), ("full", 0), ("full_streamed", 64), ("full_streamed", 1024)])
+@pytest.mark.parametrize("b,l,h,d,rope", [(1, 1280, 24, 128, True), (1, 1000, 4, 128, True), (2, 129, 3, 64, False),
+                                          (1, 65, 2, 64, True), (1, 6144, 2, 128, True)])
+def test_cuda_prepass_matches_plain_version_bit_for_bit(b, l, h, d, rope, tier, group):
+    """The pre-pass kernels against the plain version run on the CPU (IEEE
+    division there; PyTorch's CUDA division by a scalar multiplies by its
+    reciprocal): every level and scale bit for bit, padding rows included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _torch(_inputs(15, b, l, h, d, rope), "cuda", torch.bfloat16)
+    before = fa.int8_quant_launches
+    pre = fa.int8_prepass(*args, int8=tier, group=group)
+    torch.cuda.synchronize()
+    assert fa.int8_quant_launches == before + (1 if tier == "qk" else 2)
+    ref = fa.int8_prepass_reference(*(None if a is None else a.cpu() for a in args), int8=tier, group=group)
+    assert sorted(pre) == sorted(ref)
+    for name, want in ref.items():
+        assert torch.equal(pre[name].cpu(), want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("b,l,h,d", [(2, l, 2, d) for l in (64, 127, 129, 1000, 6144) for d in (64, 128)])
+def test_cuda_tier_at_tile_edges(b, l, h, d, tier):
+    """The pre-pass and the attention kernel through `flash_attention` at
+    lengths around the 128-key tile and the 64-key slab, B 2 with per-batch
+    tables, against the plain version by CUDA_TOL; one launch of each kind
+    the pre-pass takes and one of the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _torch(_inputs(16, b, l, h, d, True), "cuda", torch.bfloat16)
+    before = (fa.launches, fa.int8_launches[tier], fa.int8_quant_launches)
+    out, lse = fa.flash_attention(*args, return_lse=True, int8=tier)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.int8_launches[tier], fa.int8_quant_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (1 if tier == "qk" else 2))
+    ref, ref_lse = fa.flash_attention_reference(*args, int8=tier)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= CUDA_TOL[tier][0] and (lse - ref_lse).abs().max().item() <= CUDA_TOL[tier][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk_k", [64, 1024])
+@pytest.mark.parametrize("b,l,h,d", [(2, 127, 2, 64), (2, 1000, 2, 128), (1, 1280, 24, 128), (2, 2100, 2, 64)])
+def test_cuda_streamed_full_groups(b, l, h, d, blk_k):
+    """A's streamed "full" mode in groups of 64 keys (64-key tiles) and of
+    1024 (128-key tiles, the last group partial) against
+    `streamed_full_reference` by CUDA_TOL["full"]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _torch(_inputs(17, b, l, h, d, True), "cuda", torch.bfloat16)
+    out, lse = fa.flash_attention_streamed(*args, int8="full", blk_k=blk_k)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.streamed_full_reference(*args, blk_k=blk_k)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= CUDA_TOL["full"][0] and (lse - ref_lse).abs().max().item() <= CUDA_TOL["full"][1]
