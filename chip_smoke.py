@@ -29,9 +29,14 @@ Phases, each of which fails the run on error:
                       split at M 256, one-hot rows bit for bit, and at one
                       row, 17 rows, a ragged N and with f32 activations.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
-                      plain versions at MusicGen-medium shapes, with times;
-                      D at int8 B 2 and B 8 in turns with #11 at M 2 and M 8,
-                      and B 8's rows 0-1 bit for bit against a B 2 launch.
+                      plain versions at MusicGen-medium shapes, with times:
+                      C at a 500-step and a 2500-step request's length (T 497,
+                      2497) and at d 512 in f32, two calls bit for bit, in
+                      turns with its route (projection + kernel) and cuDNN's
+                      nn.LSTM, with its serial floor (T flagged exchanges)
+                      and its per-step phase split; D at int8 B 2 and B 8 in
+                      turns with #11 at M 2 and M 8, and B 8's rows 0-1 bit
+                      for bit against a B 2 launch.
      kernels-musicgen-f8 — D's e4m3 cache tier against its plain version at
                       MusicGen-medium shapes (B 2 W 2500, B 8 W 2048, bf16
                       weights B 2 W 500), timed in turns with the bf16 tier.
@@ -110,7 +115,8 @@ Phases, each of which fails the run on error:
                       seeds 1-4), on bf16 and on e4m3 caches; then at top_k 1
                       each request's codes coalesced against its solo run.
      main-musicgen-long — one 2500-step request on bf16 and e4m3 caches in
-                      turns, with the device ms a step at its start and end.
+                      turns, with the device ms a step at its start and end
+                      and C's 2 launches.
  10. main-train     — DreamBooth LoRA training of Flux-dev at full width on
                       random weights through training.dreambooth.train: 3
                       optimizer steps of 4 micro-steps on two seeded images;
@@ -456,11 +462,13 @@ def phase_build():
     spills.update({("bare_dot_bf16", k): r["spill_bytes"] for k, r in dot_info.items() if r["spill_bytes"]})
     spills.update({("A int8", k): r["spill_bytes"] for k, r in int8_info.items() if r["spill_bytes"]})
     spills.update({("A int8 pre-pass", k): r["spill_bytes"] for k, r in pre_info.items() if r["spill_bytes"]})
-    # D's phases are calls with a stack: its spills are ptxas's, for the kernels and every function
-    d_spills = [int(n) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                                              _build.BUILD_INFO["decode_step"][1]) for n in pair]
-    if any(d_spills):
-        spills[("D", "ptxas")] = max(d_spills)
+    # D's phases are calls with a stack: its spills are ptxas's, for the kernels and every function;
+    # C holds Wh in registers and H a row's chunks: their spills are ptxas's too
+    for label, name in (("D", "decode_step"), ("C", "lstm"), ("G and H", "w8a8_matmul")):
+        found = [int(n) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                               _build.BUILD_INFO[name][1]) for n in pair]
+        if any(found):
+            spills[(label, "ptxas")] = max(found)
     if serialized or spills:
         raise AssertionError(f"tensor-core kernels: serialized {serialized}, spills {spills}")
     return {"flash_attention_sm90": info, "flash_attention_int8": int8_info, "flash_attention_int8_prepass": pre_info,
@@ -1597,7 +1605,8 @@ def phase_small_w8a8():
 
 def phase_kernels_musicgen():
     """Kernels C and D against their plain versions at MusicGen-medium shapes:
-    the EnCodec LSTM (d = 1024, T = 497 frames, B = 1) and the 48-layer decode
+    the EnCodec LSTM (d = 1024, T = 497 and 2497 frames, B = 1; in turns
+    with its route and cuDNN, with its serial floor and phase split) and the 48-layer decode
     step (H = 1536, 24 heads, int8 and bf16 weights, windows of 8 to 2048
     rows, the CFG batch of 2 and a batch of 8 with cond_len masks). D at
     int8 B 2 and B 8 is timed in turns with #11 at M 2 and M 8 on the same
@@ -1614,45 +1623,97 @@ def phase_kernels_musicgen():
     g = torch.Generator(device=dev).manual_seed(4321)
     results, failures = {}, []
 
+    # C at a 500-step request's shape (T 497, 2 a request), a 2500-step
+    # request's (T 2497) and a small d in f32: against its plain version, two
+    # calls bit for bit, and in turns (queued) with its route (the input
+    # projection x·Wx + b, then the kernel) and cuDNN's nn.LSTM, which also
+    # computes that projection, its weights compacted once into cuDNN's
+    # one-buffer layout so that no call copies them (flatten_parameters()
+    # skips bf16, which torch.backends.cudnn does not list as acceptable, so
+    # the layout is made directly); its serial floor (T flagged exchanges of
+    # h across the same grid, no gate math) and its per-step phase split
     lstm_cases = []
     for label, d, t, b, wd in (("d1024_T497_bf16", 1024, 497, 1, torch.bfloat16),
+                               ("d1024_T2497_bf16", 1024, 2497, 1, torch.bfloat16),
                                ("d512_T497_f32", 512, 497, 1, torch.float32)):
-        xw = (torch.randn((b, t, 4 * d), generator=g, device=dev) * 0.5).to(wd)
-        wh = (torch.randn((d, 4 * d), generator=g, device=dev) / d ** 0.5).to(wd)
+        x = torch.randn((b, t, d), generator=g, device=dev)
+        p = {"wx": torch.randn((d, 4 * d), generator=g, device=dev) / d ** 0.5,
+             "wh": torch.randn((d, 4 * d), generator=g, device=dev) / d ** 0.5,
+             "bias": torch.randn((4 * d,), generator=g, device=dev) * 0.1}
+        xw, wh = lk._project(p, x)
         out = lk.lstm_recurrence(xw, wh, torch.float32)
+        again = lk.lstm_recurrence(xw, wh, torch.float32)
         ref = lk.lstm_recurrence_plain(xw, wh, torch.float32)
         err = (out - ref).abs().max().item()
+        repeatable = torch.equal(out, again)
         tol = LSTM_TOL["bf16" if wd == torch.bfloat16 else "f32"]
-        ms = time_ms(lambda: lk.lstm_recurrence(xw, wh, torch.float32), iters=10)
         plain_ms = time_ms(lambda: lk.lstm_recurrence_plain(xw, wh, torch.float32), iters=2, warmup=1)
-        # yardstick: cuDNN's nn.LSTM, one layer of width d in the same dtype (it
-        # also does the input projection the kernel takes as xw), its weights
-        # compacted once into cuDNN's one-buffer layout so that no call copies
-        # them (flatten_parameters() skips bf16, which torch.backends.cudnn
-        # does not list as acceptable, so the layout is made directly); device time
         cudnn = torch.nn.LSTM(d, d, batch_first=True).to(dev, wd)
         with torch.no_grad():
             torch._cudnn_rnn_flatten_weight(cudnn._flat_weights, 4, d,
                                             cudnn_rnn.get_cudnn_mode("LSTM"), d, 0, 1,
                                             True, False)
-        x_in = torch.randn((b, t, d), generator=g, device=dev).to(wd)
+        x_in = x.to(wd)
         with torch.no_grad(), warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             cudnn(x_in)
             compacted = not any("compacted at every call" in str(w.message) for w in caught)
-            library_ms = device_ms(lambda: cudnn(x_in))
+            turns = in_turns({"kernel": lambda: lk.lstm_recurrence(xw, wh, torch.float32),
+                              "route": lambda: lk.lstm(p, x),
+                              "cudnn": lambda: cudnn(x_in)}, iters=5)
+            # queued, cuDNN's time holds its host launches; its device time does not
+            library_ms = device_ms(lambda: cudnn(x_in), iters=5)
+        ms, route_ms = (statistics.mean(turns[k]) for k in ("kernel", "route"))
+        floor_ms = time_ms_queued(lambda: lk.exchange_floor(b, t, d, dev), iters=5)
+        phases = lk.phase_times(xw, wh)
         # xw and Wh read, f32 h written; 2·d·4d operations a step
         bound = bound_ms(2 * t * b * d * 4 * d, xw.numel() * xw.element_size()
                          + wh.numel() * wh.element_size() + b * t * d * 4)
-        log(f"[kernels] lstm {label}: max|Δ| {err:.3e} (tol {tol}) | kernel {ms:.4f} ms "
-            f"({ms * 1e3 / t:.2f} us/step) | plain {plain_ms:.4f} ms | cuDNN LSTM {library_ms:.4f} ms"
-            f" (weights compacted once: {compacted}) | bound {bound[0]:.4f} ms ({bound[1]})")
-        if not err <= tol:
-            failures.append(f"lstm {label}: {err} > {tol}")
-        lstm_cases.append(dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               library_ms=library_ms, library_weights_compacted=compacted,
-                               bound_ms=bound[0], bound_by=bound[1]))
+        log(f"[kernels] lstm {label}: max|Δ| {err:.3e} (tol {tol}), two calls equal {repeatable} | in turns: "
+            f"kernel " + " ".join(f"{v:.4f}" for v in turns["kernel"]) + f" ms ({ms * 1e3 / t:.3f} us/step), "
+            "route (projection + kernel) " + " ".join(f"{v:.4f}" for v in turns["route"]) + " ms, cuDNN LSTM "
+            + " ".join(f"{v:.4f}" for v in turns["cudnn"]) + f" ms ({library_ms:.4f} ms device time; weights "
+            f"compacted once: {compacted}) | "
+            f"serial floor {floor_ms:.4f} ms ({floor_ms * 1e3 / t:.3f} us/step; kernel {ms / floor_ms:.2f}x) | "
+            f"split, us/step: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+            + f" | plain {plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]})")
+        if not (err <= tol and repeatable):
+            failures.append(f"lstm {label}: {err} > {tol} or two calls differ ({repeatable})")
+        lstm_cases.append(dict(case=label, max_abs_err=err, repeatable=repeatable, ms=ms, ms_in_turns=turns["kernel"],
+                               route_ms_in_turns=turns["route"], library_ms_in_turns=turns["cudnn"],
+                               route_ms=route_ms, plain_ms=plain_ms, library_ms=library_ms,
+                               library_weights_compacted=compacted, serial_floor_ms=floor_ms,
+                               phase_us_per_step=phases, bound_ms=bound[0], bound_by=bound[1]))
+        del x, p, xw, wh, out, again, ref, cudnn, x_in
     results["lstm"] = lstm_cases
+    # EnCodec's 2 LSTM layers run once a request, at T = steps - 3 frames
+    per_request = {c["case"]: 2 * c["ms"] for c in lstm_cases if c["case"].startswith("d1024")}
+    log("[kernels] lstm a request's 2 launches: " + ", ".join(f"{k} {v:.4f} ms" for k, v in per_request.items()))
+    results["lstm_request_ms"] = per_request
+    # C with Wh in shared memory, the route of a card with fewer than 128 SMs
+    # at d 1024 (here an H100 PCIe's 114, forced) and of any d > 1024: bit for
+    # bit the register route at d 1024 T 497, queued in turns with it, and at
+    # d 1536 against the plain version
+    xw, wh = (torch.randn((1, 497, 4096), generator=g, device=dev) * 0.5).to(torch.bfloat16), \
+        (torch.randn((1024, 4096), generator=g, device=dev) / 32).to(torch.bfloat16)
+    pcie = lk.lstm_geometry(1024, 114)
+    shared = lk._run(xw, wh, torch.float32, geometry=pcie)
+    same = torch.equal(shared, lk.lstm_recurrence(xw, wh, torch.float32))
+    turns = in_turns({"registers": lambda: lk.lstm_recurrence(xw, wh, torch.float32),
+                      "shared": lambda: lk._run(xw, wh, torch.float32, geometry=pcie)}, iters=5)
+    xw, wh = (torch.randn((1, 60, 6144), generator=g, device=dev) * 0.5).to(torch.bfloat16), \
+        (torch.randn((1536, 6144), generator=g, device=dev) / 1536 ** 0.5).to(torch.bfloat16)
+    wide_err = (lk.lstm_recurrence(xw, wh, torch.float32)
+                - lk.lstm_recurrence_plain(xw, wh, torch.float32)).abs().max().item()
+    log(f"[kernels] lstm Wh in shared memory: d 1024 T 497 at 114 SMs' launch {pcie} equal to the register route "
+        f"{same}, in turns (ms, queued): registers " + " ".join(f"{v:.4f}" for v in turns["registers"])
+        + ", shared " + " ".join(f"{v:.4f}" for v in turns["shared"])
+        + f" | d 1536 T 60 max|Δ| {wide_err:.3e} (tol {LSTM_TOL['bf16']})")
+    if not (same and wide_err <= LSTM_TOL["bf16"]):
+        failures.append(f"lstm Wh in shared memory: equal to the register route {same}, d 1536 max|Δ| {wide_err}")
+    results["lstm_shared_memory_route"] = dict(geometry_114_sms=list(pcie), equal_to_register_route=same,
+                                               ms_in_turns=turns, d1536_max_abs_err=wide_err)
+    del xw, wh, shared
 
     L, H, heads, s_text = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_attention_heads, 16
     packs = _decode_packs(g, L, H)
@@ -2087,6 +2148,7 @@ def phase_main_musicgen_long(pipe):
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
+    from flux_generator_tpu_torch.ops.kernels import lstm as lk
 
     codec = pipe.audio_decoder.cfg
     want = ((LONG_STEPS - pipe.cfg.num_codebooks + 1) * codec.hop_length, codec.audio_channels)
@@ -2095,14 +2157,14 @@ def phase_main_musicgen_long(pipe):
     for kv in ("bf16", "f8", "f8", "bf16"):
         pipe.kv_dtype = kv
         torch.cuda.reset_peak_memory_stats()
-        ds.launches = ds.e4m3_launches = 0
+        ds.launches = ds.e4m3_launches = lk.launches = 0
         trace = {}
         t0 = time.perf_counter()
         audio = pipe.generate(SERVE_TEXTS[-1], max_steps=LONG_STEPS, top_k=MG_TOP_K, seed=7, trace=trace,
                               step_times=True)
         torch.cuda.synchronize()
         latency = time.perf_counter() - t0
-        dec_n, f8_n = ds.launches, ds.e4m3_launches
+        dec_n, f8_n, lstm_n = ds.launches, ds.e4m3_launches, lk.launches
         f8_launches += f8_n
         steps = trace["step_ms"]
         finite = bool(torch.isfinite(audio).all())
@@ -2111,15 +2173,16 @@ def phase_main_musicgen_long(pipe):
                    first_250_ms_per_step=statistics.mean(steps[:250]),
                    last_250_ms_per_step=statistics.mean(steps[-250:]), audio_s=audio_s,
                    audio_s_per_s=audio_s / latency, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   decode_step_launches=dec_n, shape=list(audio.shape), finite=finite)
+                   decode_step_launches=dec_n, lstm_launches=lstm_n, shape=list(audio.shape), finite=finite)
         log(f"[main-musicgen-long] {kv} caches, {LONG_STEPS} steps: {latency:.4f} s (AR {rec['ar_s']:.4f}, "
             f"decode {rec['decode_s']:.4f}) | device ms/step first 250 {rec['first_250_ms_per_step']:.4f}, "
             f"last 250 {rec['last_250_ms_per_step']:.4f} | {rec['audio_s_per_s']:.2f} audio-s/s | peak "
-            f"{rec['peak_gib']:.2f} GiB | launches decode {dec_n} | finite {finite}")
+            f"{rec['peak_gib']:.2f} GiB | launches decode {dec_n} lstm {lstm_n} | finite {finite}")
         if tuple(audio.shape) != want or not finite or dec_n != LONG_STEPS \
-                or f8_n != (LONG_STEPS if kv == "f8" else 0):
+                or f8_n != (LONG_STEPS if kv == "f8" else 0) or lstm_n != codec.num_lstm_layers:
             raise AssertionError(f"long request: waveform {tuple(audio.shape)} (want {want}), finite "
-                                 f"{finite}, launches {dec_n} (e4m3 {f8_n})")
+                                 f"{finite}, launches {dec_n} (e4m3 {f8_n}), lstm {lstm_n} (want "
+                                 f"{codec.num_lstm_layers})")
         runs.append(rec)
     pipe.kv_dtype = "bf16"
     return dict(runs=runs, launches={"decode_step_f8": f8_launches})
@@ -2454,11 +2517,13 @@ def phase_kernels_w8a8():
 
     # H at every activation shape a "rows" request quantizes (G_SHAPES' (M, K),
     # launches summed over the denses that share one), queued behind a sleep
-    # and by profiler device time
+    # and by profiler device time (the geometries it did not choose are
+    # timed by scripts/prof_quantize_rows.py)
     h_shapes = {}
     for _, m, k, _, per_request in G_SHAPES:
         h_shapes[(m, k)] = h_shapes.get((m, k), 0) + per_request
     h_cases, h_sums = [], dict(queued=0.0, device=0.0, bound=0.0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for (m, k), per_request in h_shapes.items():
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
         q, sx = wm.quantize_rows(x)
@@ -2471,20 +2536,25 @@ def phase_kernels_w8a8():
         bound = bound_ms(3 * m * k, 2 * m * k + m * k + 4 * m)
         for key, v in (("queued", ms), ("device", dev_ms), ("bound", bound[0])):
             h_sums[key] += per_request * v
-        log(f"[kernels-w8a8] H {m}x{k} ({per_request} a rows request): max|Δ| {err:.3e} (tol 0: the same "
+        geo = wm.quantize_geometry(m, k, sms)._asdict()
+        log(f"[kernels-w8a8] H {m}x{k} ({per_request} a rows request; {geo}): max|Δ| {err:.3e} (tol 0: the same "
             f"correctly rounded f32 operations) | kernel {ms:.4f} ms queued, {dev_ms:.4f} ms device time "
             f"({(3 * m * k + 4 * m) / ms / 1e6:.1f} GB/s queued, {100 * bound[0] / ms:.1f}% of its bound) | plain "
             f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]})")
         if err != 0:
             failures.append(f"H {m}x{k}: {err}")
-        h_cases.append(dict(case=f"{m}x{k}", launches_per_request=per_request, max_abs_err=err, ms=ms,
+        h_cases.append(dict(case=f"{m}x{k}", launches_per_request=per_request, geometry=geo, max_abs_err=err, ms=ms,
                             device_ms=dev_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound[0],
                             bound_by=bound[1], bound_share=bound[0] / ms))
         del x, q, sx, rq, rsx
     log(f"[kernels-w8a8] H request-weighted sums over {sum(h_shapes.values())} launches: queued "
         f"{h_sums['queued']:.2f} ms, device time {h_sums['device']:.2f} ms, bound {h_sums['bound']:.2f} ms "
-        f"({100 * h_sums['bound'] / h_sums['device']:.1f}% of the device time; half the bound reached: "
-        f"{h_sums['bound'] / h_sums['device'] >= 0.5})")
+        f"({100 * h_sums['bound'] / h_sums['queued']:.1f}% of the queued time, "
+        f"{100 * h_sums['bound'] / h_sums['device']:.1f}% of the device time)")
+    # the kernel's fixed latency: one row, whose bytes take 5 ns
+    x1 = torch.randn((1, 3072), generator=g, device=dev).to(torch.bfloat16)
+    h_sums["one_row_ms"] = time_ms_queued(lambda: wm.quantize_rows(x1))
+    log(f"[kernels-w8a8] H fixed latency (1x3072, queued): {h_sums['one_row_ms']:.4f} ms")
     results["w8a8_quantize_rows"] = h_cases
     results["w8a8_quantize_rows_request_sums_ms"] = h_sums
 

@@ -61,9 +61,18 @@
 //   and N), so the store runs under the next tile's products; for any other N
 //   the same values go out from registers with masks at the M and N edges.
 //
-// H: one warp per row: a warp-shuffle amax, then a second pass over the row (from
-// cache) writes int8 and the f32 row scale, with the formula above over the whole
-// row. Bound: bytes (2 read + 1 written a value).
+// H: per row, sx = max(amax|x|, 1e-12) · (1/127) and x_q = rint(x · rcp(sx))
+// with no clip, over the whole row. Bound: bytes (2 read + 1 written a
+// value, 3.35 TB/s). Design: each row is read from HBM once, with whole rows
+// in flight on every SM: whole warps take a row (`tpr` threads, each holding
+// 1-8 16-byte chunks in registers; short rows share a block); the amax is a
+// warp-shuffle max and one shared-memory step across the row's warps; the
+// chunks still in registers are quantized and stored 8 bytes a thread. The
+// geometry comes from the wrapper (`quantize_geometry`): with 4 rows an SM or
+// more, the most chunks a thread (the most rows in flight); with fewer, the
+// fewest (a row's loads over the most threads). A row longer than the
+// registers hold (K > 32,768; no Flux or MusicGen activation comes near) is
+// swept twice, the second time from L2.
 
 #include <string.h>
 
@@ -94,6 +103,7 @@ struct Tile {
   static constexpr int ACC = BN / 2;  // int32 sums (and f32 folds) a consumer thread holds
 };
 constexpr int Q_WARPS = 8;       // (row, K block) items a quantizer block takes
+constexpr int H_THREADS = 512;   // H's largest block
 
 __device__ __forceinline__ float row_scale(float amax) {
   return __fmul_rn(fmaxf(amax, 1e-12f), 1.f / 127.f);
@@ -381,45 +391,125 @@ cudaError_t gemm_info_bk(int bk, int* regs, int* spill_bytes, int* smem_bytes, i
   return cudaErrorInvalidValue;
 }
 
-// H: one warp a row, Q_WARPS rows a block: the row's amax from a first sweep,
-// then a second sweep (from cache) writes int8. VEC: K % 8 == 0 and aligned rows.
-template <bool VEC>
+// H, any K: one warp a row, Q_WARPS rows a block, scalar loads (K % 8 != 0 or
+// rows not 16-byte aligned): the row's amax from a first sweep, then a second
+// sweep writes int8.
 __global__ void __launch_bounds__(Q_WARPS * 32)
-quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
-                     int M, int K) {
+quantize_rows_scalar_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int M,
+                            int K) {
   const int row = blockIdx.x * Q_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
   const bf16* xr = x + static_cast<int64_t>(row) * K;
   int8_t* qr = xq + static_cast<int64_t>(row) * K;
   float amax = 0.f;
-  if (VEC) {
-#pragma unroll 4
-    for (int c = lane; c < K / 8; c += 32) {
-      float f[8];
-      unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(f[e]));
-    }
-  } else {
-    for (int i = lane; i < K; i += 32) amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
-  }
+  for (int i = lane; i < K; i += 32) amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
   amax = fgt::warp_max(amax);
   const float s = row_scale(amax);
   const float rcp = __frcp_rn(s);
-  if (VEC) {
-#pragma unroll 4
-    for (int c = lane; c < K / 8; c += 32) {
-      float f[8];
-      unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-      *reinterpret_cast<uint2*>(qr + c * 8) = quant8(f, rcp);
-    }
-  } else {
-    for (int i = lane; i < K; i += 32) {
-      qr[i] = static_cast<int8_t>(__float2int_rn(__fmul_rn(__bfloat162float(xr[i]), rcp)));
-    }
+  for (int i = lane; i < K; i += 32) {
+    qr[i] = static_cast<int8_t>(__float2int_rn(__fmul_rn(__bfloat162float(xr[i]), rcp)));
   }
   if (lane == 0) sx[row] = s;
+}
+
+// The running max of |x| over a chunk's eight bf16 values, kept as two 16-bit
+// magnitudes a word: for values that are not NaN the order of the bits is
+// the order of the numbers, and NaNs (above inf's 0x7f80) count as 0, as
+// fmaxf skips them; no value is unpacked, so a thread holding 8 chunks fits
+// 64 registers with no spill.
+__device__ __forceinline__ uint32_t amax8(const uint4& val, uint32_t m) {
+  const uint32_t w[4] = {val.x, val.y, val.z, val.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t a = w[j] & 0x7fff7fffu;
+    m = __vmaxu2(m, a & ~__vcmpgtu2(a, 0x7f807f80u));
+  }
+  return m;
+}
+
+__device__ __forceinline__ float amax_of(uint32_t m) { return __uint_as_float(max(m & 0xffffu, m >> 16) << 16); }
+
+// H, K % 8 == 0 and 16-byte aligned rows: `tpr` threads (whole warps) take a
+// row, blockDim.x / tpr rows a block, C 16-byte chunks (8 values) a thread: a
+// warp's loads are contiguous (chunks lt, lt + tpr, ...). Where tpr · C · 8
+// ≥ K a thread's chunks are loaded at once and stay in registers for the
+// quantize pass: the row is read from HBM once. A longer row (K > 32,768)
+// is swept twice: the amax tile by tile, then each tile read again (from
+// L2). The amax is a warp-shuffle max, then one shared-memory step across
+// the row's warps; int8 is stored 8 bytes a thread. Bounded to 2 blocks of
+// H_THREADS an SM (64 registers a thread): on an H100 the compiler's
+// schedule under this bound ran the K 12288 and 15360 rows faster than under
+// 1 block an SM, though it takes more registers.
+template <int C>
+__global__ void __launch_bounds__(H_THREADS, 2)
+quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int M, int K,
+                     int tpr) {
+  __shared__ float red[32];  // each warp's amax
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rows = blockDim.x / tpr;
+  const int r = tid / tpr, lt = tid % tpr;
+  const int row = blockIdx.x * rows + r;
+  const bool live = row < M;
+  const int chunks = K / 8;
+  const int tile = tpr * C;
+  const int tiles = (chunks + tile - 1) / tile;
+  const uint4* src = reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * K);
+  int8_t* qr = xq + static_cast<int64_t>(row) * K;
+  uint4 v[C];
+  uint32_t m = 0;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const int c = lt + j * tpr;
+    v[j] = live && c < chunks ? src[c] : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < C; ++j) m = amax8(v[j], m);
+  for (int t = 1; t < tiles; ++t) {  // a longer row: the rest of its amax
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int c = t * tile + lt + j * tpr;
+      if (live && c < chunks) m = amax8(src[c], m);
+    }
+  }
+  float amax = fgt::warp_max(amax_of(m));
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+  const int wpr = tpr / 32;  // the row's warps: r · wpr, ...
+  amax = fgt::warp_max(lane < wpr ? red[r * wpr + lane] : 0.f);
+  const float s = row_scale(amax);
+  const float rcp = __frcp_rn(s);
+  if (!live) return;
+  for (int t = 0; t < tiles; ++t) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int c = t * tile + lt + j * tpr;
+      if (c < chunks) {
+        float f[8];
+        unpack8(tiles == 1 ? v[j] : src[c], f);
+        *reinterpret_cast<uint2*>(qr + c * 8) = quant8(f, rcp);
+      }
+    }
+  }
+  if (lt == 0) sx[row] = s;
+}
+
+template <int C>
+cudaError_t launch_h(const bf16* x, int8_t* xq, float* sx, int M, int K, int tpr, int rows, int blocks,
+                     cudaStream_t stream) {
+  quantize_rows_kernel<C><<<blocks, tpr * rows, 0, stream>>>(x, xq, sx, M, K, tpr);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_h_c(int c, const bf16* x, int8_t* xq, float* sx, int M, int K, int tpr, int rows, int blocks,
+                       cudaStream_t stream) {
+  switch (c) {
+    case 1: return launch_h<1>(x, xq, sx, M, K, tpr, rows, blocks, stream);
+    case 2: return launch_h<2>(x, xq, sx, M, K, tpr, rows, blocks, stream);
+    case 4: return launch_h<4>(x, xq, sx, M, K, tpr, rows, blocks, stream);
+    case 8: return launch_h<8>(x, xq, sx, M, K, tpr, rows, blocks, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -461,20 +551,28 @@ extern "C" int fgt_w8a8_matmul_info(int bk, int bn, int* regs, int* spill_bytes,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x: (M, K) contiguous bf16; xq: (M, K) int8; sx: (M,) f32. Returns a cudaError_t.
-extern "C" int fgt_quantize_rows(const void* x, void* xq, void* sx, int M, int K, void* stream) {
+// x: (M, K) contiguous bf16; xq: (M, K) int8; sx: (M,) f32. The geometry
+// (`quantize_geometry` in the wrapper): `chunks` (1, 2, 4 or 8) 16-byte
+// chunks a thread a tile, `tpr` threads a row (whole warps), `rows` rows a
+// block (tpr · rows ≤ 512), `blocks` blocks; chunks 0 takes the scalar
+// kernel for any K (one warp a row), as it must where K % 8 != 0 or x or xq
+// is not 16-byte aligned. Returns a cudaError_t.
+extern "C" int fgt_quantize_rows(const void* x, void* xq, void* sx, int M, int K, int chunks, int tpr, int rows,
+                                 int blocks, void* stream) {
   if (M <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xb = static_cast<const bf16*>(x);
   int8_t* qb = static_cast<int8_t*>(xq);
   float* sb = static_cast<float*>(sx);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(xq) % 8 == 0;
-  const int blocks = (M + Q_WARPS - 1) / Q_WARPS;
-  if (vec) {
-    quantize_rows_kernel<true><<<blocks, Q_WARPS * 32, 0, st>>>(xb, qb, sb, M, K);
-  } else {
-    quantize_rows_kernel<false><<<blocks, Q_WARPS * 32, 0, st>>>(xb, qb, sb, M, K);
+  if (chunks == 0) {
+    quantize_rows_scalar_kernel<<<(M + Q_WARPS - 1) / Q_WARPS, Q_WARPS * 32, 0, st>>>(xb, qb, sb, M, K);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  const bool aligned = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(xq) % 16 == 0;
+  if (!aligned || tpr <= 0 || tpr % 32 != 0 || rows <= 0 || tpr * rows > H_THREADS ||
+      static_cast<int64_t>(blocks) * rows < M) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_h_c(chunks, xb, qb, sb, M, K, tpr, rows, blocks, st));
 }

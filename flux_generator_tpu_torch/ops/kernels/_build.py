@@ -10,6 +10,7 @@ machines with no `nvcc` and no GPU, where only the plain versions run.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -89,6 +90,15 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`, asked once (the
+    launch geometries depend on it; G and H run 920 times a request)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(name: str, err: int) -> None:

@@ -17,13 +17,16 @@ x_q = round(x · (1/sx)) (half to even) with no clip.
 G's GEMM runs persistent blocks (`grid`: at most one an SM) over output
 tiles of 128 rows × 128 or 192 columns (`tile_n`), each of which folds its K
 blocks in order as the plain version does: on the card G equals the plain
-version bit for bit.
+version bit for bit. H reads each row from HBM once, whole warps a row with
+its chunks in registers (`quantize_geometry`), and equals its plain version
+bit for bit too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -48,7 +51,8 @@ _SIGNATURES = {
     "fgt_w8a8_matmul": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         _P],
     "fgt_w8a8_matmul_info": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
-    "fgt_quantize_rows": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    # x, xq, sx, M, K, chunks, tpr, rows, blocks, stream
+    "fgt_quantize_rows": [_P, _P, _P, *[ctypes.c_int] * 6, _P],
 }
 
 
@@ -157,20 +161,13 @@ def _w8a8_matmul_cuda(x, kernel_q, kernel_scale):
     x_q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m, k // pick_bk(k)), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        sms = _sms(x.device.index)
+        sms = _build.sm_count(x.device.index)
         err = lib.fgt_w8a8_matmul(x2.data_ptr(), x_q.data_ptr(), sx.data_ptr(), kernel_q.data_ptr(),
                                   kernel_scale.data_ptr(), out.data_ptr(), m, n, k, tile_n(m, n, sms),
                                   grid(m, n, sms), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("fgt_w8a8_matmul", err)
     launches += 1
     return out.reshape(*lead, n)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    """Streaming multiprocessors of CUDA device `index` (asked once: G runs
-    920 times a request)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def kernel_info(bk: int = 512, bn: int = 128) -> dict:
@@ -183,20 +180,76 @@ def kernel_info(bk: int = 512, bn: int = 128) -> dict:
     return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
 
 
-def _quantize_rows_cuda(x):
+H_MAX_THREADS = 512  # a block's most: the kernel's launch bound (2 blocks an SM, 64 registers a thread)
+H_BLOCK_THREADS = 256  # short rows share a block up to this many threads
+H_SCALAR_ROWS = 8  # rows a block of the scalar kernel (one warp each)
+H_REG_VALUES = H_MAX_THREADS * 8 * 8  # the longest row held in registers: 512 threads × 8 chunks of 8
+
+
+class HGeometry(NamedTuple):
+    """H's launch: `route`, `chunks` 16-byte chunks (8 values) a thread,
+    `tpr` threads a row, `rows` rows a block, `blocks` blocks."""
+    route: str
+    chunks: int
+    tpr: int
+    rows: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def quantize_geometry(m: int, k: int, sms: int) -> HGeometry:
+    """H's launch for an (m, k) bf16 input on a card of `sms` SMs (asked
+    once a shape: H runs 920 times a "rows" request).
+
+    - "registers" (K ≤ 32,768): a thread's chunks stay in registers between
+      the amax and the quantize pass, so a row is read from HBM once. With at
+      least 4 rows an SM (the activations of Flux's image stream) a thread
+      takes the most chunks that waste at most 1/8 of its row's threads, so
+      the most rows are in flight on each SM; with fewer rows (the text
+      stream's 256) a thread takes the fewest chunks that keep a row within
+      512 threads, so each row's loads are spread over the most threads.
+      (Both rules are timed by scripts/prof_quantize_rows.py.)
+    - "sweep" (longer rows; no Flux or MusicGen activation comes near): the
+      amax tile by tile, then each tile read again from L2.
+    - "scalar" (K % 8 != 0): one warp a row, scalar loads.
+    """
+    if k % 8:
+        return HGeometry("scalar", 0, 32, H_SCALAR_ROWS, _cdiv(m, H_SCALAR_ROWS))
+    n = k // 8
+
+    def tpr_of(c):
+        return _cdiv(_cdiv(n, c), 32) * 32
+
+    if m >= 4 * sms:
+        chunks = max((c for c in (1, 2, 4, 8) if tpr_of(c) * c * 8 <= 9 * n), default=8)
+    else:
+        chunks = next((c for c in (1, 2, 4, 8) if _cdiv(n, c) <= H_MAX_THREADS), 8)
+    tpr = min(tpr_of(chunks), H_MAX_THREADS)
+    rows = max(1, H_BLOCK_THREADS // tpr)
+    return HGeometry("registers" if k <= H_REG_VALUES else "sweep", chunks, tpr, rows, _cdiv(m, rows))
+
+
+def _launch_h(x2: torch.Tensor, geo: HGeometry):
+    """H on contiguous bf16 rows x2 (M, K) at launch `geo`, counted →
+    int8 (M, K), f32 (M, 1)."""
     global quantize_launches
+    m, k = x2.shape
+    lib = _build.load("w8a8_matmul", _SIGNATURES)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((m, 1), dtype=torch.float32, device=x2.device)
+    with torch.cuda.device(x2.device):
+        err = lib.fgt_quantize_rows(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k, geo.chunks, geo.tpr,
+                                    geo.rows, geo.blocks, torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check("fgt_quantize_rows", err)
+    quantize_launches += 1
+    return xq, sx
+
+
+def _quantize_rows_cuda(x):
     *lead, k = x.shape
     x2 = _rows(x)
     _check_2d(x2, "row quantizer")
-    m = x2.shape[0]
-    lib = _build.load("w8a8_matmul", _SIGNATURES)
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.fgt_quantize_rows(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k,
-                                    torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("fgt_quantize_rows", err)
-    quantize_launches += 1
+    xq, sx = _launch_h(x2, quantize_geometry(x2.shape[0], k, _build.sm_count(x2.device.index)))
     return xq.reshape(*lead, k), sx.reshape(*lead, 1)
 
 

@@ -415,12 +415,69 @@ def test_cuda_w8a8_matmul_matches_plain_version(cuda, m, k, n):
     assert torch.equal(out, again)
 
 
+# H's activation shapes in a Flux-schnell 512² "rows" request (M, K)
+H_SHAPES = [(1280, 3072), (1280, 15360), (1024, 3072), (1024, 12288), (256, 3072), (256, 12288), (256, 4096)]
+# beyond them: one row, K % 8 != 0 (the scalar kernel), rows too long for
+# registers (two sweeps), and short rows that share a block
+H_EDGES = [(1, 3072), (17, 100), (3, 70000), (2, 131072), (5, 520)]
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((1280, 3072), dict(route="registers", chunks=4, tpr=96, rows=2, blocks=640)),
+    ((1280, 15360), dict(route="registers", chunks=8, tpr=256, rows=1, blocks=1280)),
+    ((1024, 3072), dict(route="registers", chunks=4, tpr=96, rows=2, blocks=512)),
+    ((1024, 12288), dict(route="registers", chunks=8, tpr=192, rows=1, blocks=1024)),
+    ((256, 3072), dict(route="registers", chunks=1, tpr=384, rows=1, blocks=256)),
+    ((256, 12288), dict(route="registers", chunks=4, tpr=384, rows=1, blocks=256)),
+    ((256, 4096), dict(route="registers", chunks=1, tpr=512, rows=1, blocks=256)),
+    ((1, 3072), dict(route="registers", chunks=1, tpr=384, rows=1, blocks=1)),
+    ((17, 100), dict(route="scalar", chunks=0, tpr=32, rows=8, blocks=3)),
+    ((3, 70000), dict(route="sweep", chunks=8, tpr=512, rows=1, blocks=3)),
+    ((2, 131072), dict(route="sweep", chunks=8, tpr=512, rows=1, blocks=2)),
+    ((5, 520), dict(route="registers", chunks=1, tpr=96, rows=2, blocks=3)),
+])
+def test_quantize_geometry_on_an_h100_is_pinned(shape, want):
+    """H's launch on an H100 (132 SMs) at each request shape and past them,
+    pinned: with 4 rows an SM or more (M 1024, 1280) a thread takes the most
+    chunks that waste at most 1/8 of a row's threads, so the most rows are
+    in flight; with fewer (M 256) the fewest chunks that keep a row within
+    512 threads."""
+    assert tw.quantize_geometry(*shape, H100_SMS)._asdict() == want
+
+
+def test_quantize_geometry_is_computed_once_a_shape():
+    """H runs 920 times a "rows" request on seven shapes: its launch is
+    looked up, not rebuilt, after a shape's first call."""
+    assert tw.quantize_geometry(1024, 3072, H100_SMS) is tw.quantize_geometry(1024, 3072, H100_SMS)
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114, 1])
+@pytest.mark.parametrize("m,k", H_SHAPES + H_EDGES + [(4096, 64), (600, 4096), (7, 8), (2, 32768), (2, 32776)])
+def test_quantize_geometry_covers_every_row_once(sms, m, k):
+    """Whatever the card: whole warps a row, at most 512 threads a block,
+    every row in a block, and a held row covered by its threads' chunks (or
+    the route that sweeps it twice)."""
+    geo = tw.quantize_geometry(m, k, sms)
+    assert geo.tpr % 32 == 0 and geo.tpr * geo.rows <= tw.H_MAX_THREADS
+    assert geo.blocks * geo.rows >= m > (geo.blocks - 1) * geo.rows
+    if k % 8:
+        assert geo.route == "scalar"
+        return
+    held = geo.tpr * geo.chunks * 8 >= k
+    assert geo.route == ("registers" if k <= tw.H_REG_VALUES else "sweep")
+    assert held or geo.route != "registers"
+    assert geo.chunks in (1, 2, 4, 8)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k", [(1024, 3072), (1280, 15360), (17, 100)])
+@pytest.mark.parametrize("m,k", H_SHAPES + H_EDGES)
 def test_cuda_quantize_rows_matches_plain_version(cuda, m, k):
     """Kernel H against its plain version: bytes and scales equal (the same
-    correctly rounded f32 operations)."""
+    correctly rounded f32 operations), at every shape of a "rows" request
+    and on every route (scalar, registers, two sweeps), with one
+    outlier a row."""
     x, _, _ = _mk(13, m, k, 1)
+    x[:, 3 % k] = 37.0
     xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
     before = tw.quantize_launches
     q, s = tw.quantize_rows(xt)
@@ -428,6 +485,23 @@ def test_cuda_quantize_rows_matches_plain_version(cuda, m, k):
     assert tw.quantize_launches == before + 1
     rq, rs = tw.quantize_rows_reference(xt)
     assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(1280, 3072), (256, 12288), (5, 520)])
+def test_cuda_quantize_rows_every_geometry_is_bit_equal(cuda, m, k):
+    """The geometries H did not choose (every other chunk count, as
+    scripts/prof_quantize_rows.py times them) give the same bytes and
+    scales."""
+    from flux_generator_tpu_torch.scripts.prof_quantize_rows import settings
+
+    x, _, _ = _mk(15, m, k, 1)
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    rq, rs = tw.quantize_rows_reference(xt)
+    for name, geo in settings(m, k, torch.cuda.get_device_properties(cuda).multi_processor_count).items():
+        q, s = tw._launch_h(xt, geo)
+        torch.cuda.synchronize()
+        assert torch.equal(q, rq) and torch.equal(s, rs), name
 
 
 @pytest.mark.cuda
