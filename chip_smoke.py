@@ -28,6 +28,12 @@ Phases, each of which fails the run on error:
                       dequantized weights, with a request's sums, every K
                       split at M 256, one-hot rows bit for bit, and at one
                       row, 17 rows, a ragged N and with f32 activations.
+     kernels-sd     — A's bf16 kernel at head dim 64 without RoPE at the
+                      UNet self-attention shapes of a 512² SD 2.1 request
+                      (CFG, batch 2: L 4096, 1024, 256) and SDXL-Turbo
+                      request (batch 1 and 4: L 1024, 256) against its plain
+                      version, in turns with SDPA's forward, with each
+                      request's sums.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
                       plain versions at MusicGen-medium shapes, with times:
                       C at a 500-step and a 2500-step request's length (T 497,
@@ -122,6 +128,15 @@ Phases, each of which fails the run on error:
                       optimizer steps of 4 micro-steps on two seeded images;
                       checks losses, the adapters and the launch counts (A,
                       its RoPE pre-pass, E, F and B).
+     main-sd        — SD 2.1-base and SDXL-Turbo at full width on random
+                      weights (bf16), 512², through generate_latents_batch
+                      + decode_u8: SD 2.1 at 50 steps, cfg 4.0, two
+                      requests; SDXL-Turbo at 2 steps without CFG, batch 1
+                      (two requests) and 4, and an img2img at strength 0.5
+                      (generate_latents_from_image, 1 step); phase split,
+                      peak memory, exact A launch counts (750 an SD 2.1
+                      request, 140 an SDXL one, 70 the img2img), then one
+                      request of each under torch.profiler (busy share).
  11. small          — a small Flux config run on the card (bf16, kernels) and on
                       the CPU (f32, plain versions) from the same weights and noise.
      small-tiled    — the same config past the untiled sizes: a tiled decode
@@ -134,6 +149,10 @@ Phases, each of which fails the run on error:
                       and on the CPU: teacher-forced logits and a decoded waveform.
  14. small-train    — a small Flux config: the training loss and its LoRA
                       gradients on the card (bf16) against the CPU (f32).
+ 15. small-sd       — small SD and SDXL configs (heads of 64, a 256-token
+                      self-attention) on the card (bf16, kernel A) against
+                      the CPU (f32, its plain version), same weights, tokens
+                      and noise.
 The last line printed is {"ok": true, "device": {...}}; a fuller record goes
 to chiprun_out/chip_smoke.json.
 
@@ -179,6 +198,16 @@ INT8_ATTN_TOL = {"qk": (4.5e-3, FLASH_TOL), "full": (7e-3, FLASH_TOL)}
 # 256 keys (the partial 1024-key block) dropped, which moves lse by about
 # log(16640/16384) ≈ 1.6e-2.
 FLASH_LONG_TOL = (4e-3, 1e-4)
+# A's bf16 tier at the SD shapes (head dim 64, no RoPE) against its plain
+# version: (out rel-L2, lse max|Δ|). With unit-normal q, k and v the output
+# is an average over many keys, so its entries are small (about 0.02 at L
+# 4096) and a max-abs bound on it would pass an output 10% wrong; rel-L2
+# scales with the output. bf16 P and O rounding come to a few 1e-3 of it. A
+# control must fail it: the plain function with the last 64 keys dropped,
+# which moves out by about sqrt(64/L) of itself (0.125 at L 4096) but lse by
+# about log(L/(L-64)) (1.6e-2 on an average row at L 4096, within lse's
+# bound).
+SD_FLASH_TOL = (1e-2, FLASH_TOL)
 # flash backward, of max|ref|: P and dS rounded to bf16 before their products,
 # bf16 outputs, against the f32 plain backward
 FLASH_BWD_REL_TOL = 2e-2
@@ -250,6 +279,24 @@ LONG_STEPS = 2500  # the JAX package's longest request (about 50 s of audio)
 DECODE_F8_REL_TOL = 1e-2
 # the chain probes (#11, #12), of max|y| (and #12's max|kn|, max|vn|), as D
 CHAIN_REL_TOL = 1e-2
+
+# SD 2.1-base and SDXL-Turbo at 512²: the server's defaults for SD 2.1 (50
+# steps, server/api.py:284; cfg 4.0, server/schemas.py:16), the Turbo's 2
+# steps without CFG, and a coalesce bucket of 4 (server/api.py:165)
+SD21_STEPS, SD21_CFG, SDXL_STEPS = 50, 4.0, 2
+SD_PROMPTS = [
+    (21, "a watercolor of a fox in a misty pine forest"),
+    (22, "a studio photograph of a glazed ceramic teapot"),
+    (23, "an aerial view of terraced rice fields at dawn"),
+    (24, "a pencil sketch of an old lighthouse"),
+]
+# kernel A's self-attention shapes in those requests (label, B, L, heads of
+# 64, calls a request): SD 2.1 under CFG at its 64², 32² and 16² levels (5
+# calls a UNet call each, 50 calls); SDXL at 32² (10 a call) and 16² (60),
+# 2 calls, at batch 1 and 4
+SD_ATTN_SHAPES = (("sd21_L4096", 2, 4096, 5, 250), ("sd21_L1024", 2, 1024, 10, 250), ("sd21_L256", 2, 256, 20, 250),
+                  ("sdxl_b1_L1024", 1, 1024, 10, 20), ("sdxl_b1_L256", 1, 256, 20, 120),
+                  ("sdxl_b4_L1024", 4, 1024, 10, 20), ("sdxl_b4_L256", 4, 256, 20, 120))
 
 
 def log(*args):
@@ -2327,6 +2374,350 @@ def phase_small_musicgen():
     return dict(logits_rel_l2=logit_err, waveform_rel_l2=wave_err)
 
 
+# ------------------------------------------------------------ SD 2.1 and SDXL-Turbo
+
+
+def phase_kernels_sd():
+    """Kernel A's bf16 mode at head dim 64 without RoPE, at the UNet
+    self-attention shapes of a 512² request (SD_ATTN_SHAPES): held to its
+    plain version, the kernel and the route timed behind a sleep kernel, the
+    plain version by CUDA events, the route in turns with SDPA's forward on
+    the same q/k/v in (B, H, L, D)."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    rows = []
+    for label, b, length, h, per_request in SD_ATTN_SHAPES:
+        q, k, v = (torch.randn((b, length, h, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float())
+        out_abs, lse_err = (out.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item()
+        rel = _rel(out.float(), ref)
+        dropped, _ = fa.flash_attention_reference(q.float(), k[:, :-64].float(), v[:, :-64].float())
+        control_rel = _rel(dropped, ref)
+        err = max(out_abs, lse_err)
+        del ref, ref_lse, dropped
+        ms = time_ms_queued(lambda: fa.flash_attention_sm90(q, k, v))
+        route_ms = time_ms_queued(lambda: fa.flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v), iters=5)
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        turns = in_turns({"route": lambda: fa.flash_attention(q, k, v),
+                          "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)})
+        library_ms = statistics.mean(turns["sdpa"])
+        flops = 4 * b * h * length * length * 64
+        # q, k, v and out in bf16, lse in f32
+        bound = bound_ms(flops, 4 * q.numel() * 2 + b * h * length * 4)
+        row = dict(case=label, b=b, l=length, h=h, max_abs_err=err, out_rel_l2=rel, out_max_abs_err=out_abs,
+                   lse_max_abs_err=lse_err, control_last_64_keys_dropped_out_rel_l2=control_rel, ms=ms,
+                   route_ms=route_ms, plain_ms=plain_ms, library_ms=library_ms, turns_ms=turns, bound_ms=bound[0],
+                   bound_by=bound[1], tflops=flops / 1e9 / ms, bound_share=bound[0] / ms,
+                   launches_a_request=per_request)
+        tol_out, tol_lse = SD_FLASH_TOL
+        log(f"[kernels-sd] flash {label} (B {b}, L {length}, H {h}, D 64): out rel-L2 {rel:.3e} (tol {tol_out}), "
+            f"max|Δ| {out_abs:.3e} of max|out| {out.float().abs().max().item():.3e} | lse max|Δ| {lse_err:.3e} "
+            f"(tol {tol_lse}) | control, last 64 keys dropped: out rel-L2 {control_rel:.3e} (must exceed "
+            f"{tol_out}) | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of the "
+            f"bound {bound[0]:.4f} ms, {bound[1]}) | route {route_ms:.4f} ms | plain {plain_ms:.4f} ms | in turns: "
+            f"route {' '.join(f'{t:.4f}' for t in turns['route'])}, SDPA fwd "
+            f"{' '.join(f'{t:.4f}' for t in turns['sdpa'])} ms | {per_request} a request")
+        if not (rel <= tol_out and lse_err <= tol_lse):
+            raise AssertionError(f"flash {label} disagrees with its plain version: out rel-L2 {rel}, lse {lse_err}")
+        if not control_rel > tol_out:
+            raise AssertionError(f"flash {label}: the control with 64 keys dropped passes ({control_rel})")
+        rows.append(row)
+        del q, k, v, qs, ks, vs, out, lse
+    torch.cuda.synchronize()
+    sums = {}
+    for key in ("sd21", "sdxl_b1", "sdxl_b4"):
+        mine = [r for r in rows if r["case"].startswith(key + "_")]
+        sums[key] = {f: sum(r["launches_a_request"] * r[f] for r in mine)
+                     for f in ("ms", "route_ms", "plain_ms", "library_ms", "bound_ms")}
+        sums[key]["launches"] = sum(r["launches_a_request"] for r in mine)
+        s = sums[key]
+        log(f"[kernels-sd] a {key} request's {s['launches']} A calls: kernel {s['ms']:.3f} ms, route "
+            f"{s['route_ms']:.3f}, SDPA {s['library_ms']:.3f}, plain {s['plain_ms']:.3f}, bound {s['bound_ms']:.3f}")
+    return {"flash_attention_sd": rows, "flash_attention_sd_requests": sums}
+
+
+def _sd_tokenizer():
+    from flux_generator_tpu_torch.io.tokenizers import load_clip_tokenizer
+
+    return load_clip_tokenizer(ROOT / "tests/assets/clip_tokenizer/vocab.json",
+                               ROOT / "tests/assets/clip_tokenizer/merges.txt")
+
+
+def _sd_request(pipe, tag: str, texts, seeds, steps: int, cfg: float, image=None, strength: float = 0.5):
+    """One request through the server's entry points: generate_latents_batch
+    (or generate_latents_from_image when `image` is given) then decode_u8,
+    ended by a synchronize → (record, uint8 images, final latent). Kernel
+    A's launches are counted from 0 (the counts are set to 0 just before)."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    trace = {}
+    t0 = time.perf_counter()
+    if image is None:
+        steps_it = pipe.generate_latents_batch(texts, seeds, num_steps=steps, cfg_weight=cfg,
+                                               latent_size=(SIZE // 8, SIZE // 8), trace=trace)
+    else:
+        steps_it = pipe.generate_latents_from_image(image, texts[0], strength=strength, num_steps=steps,
+                                                    cfg_weight=cfg, seed=seeds[0], trace=trace)
+    lat, marks = None, []
+    for lat in steps_it:
+        marks.append(time.perf_counter())
+    n_steps = len(marks)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img = pipe.decode_u8(lat)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _launch_counts()
+    setup = trace["conditioning_s"] + trace.get("encode_s", 0.0)
+    rec = dict(batch=len(texts), steps=n_steps, cfg_weight=cfg, latency_s=t2 - t0,
+               conditioning_s=trace["conditioning_s"], encode_s=trace.get("encode_s"),
+               denoise_s=t1 - t0 - setup, decode_s=t2 - t1, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               flash_launches=fa.launches, shape=list(img.shape), dtype=str(img.dtype),
+               latent_finite=bool(torch.isfinite(lat).all()))
+    # the host's time between yields: the steps queue without a synchronize,
+    # so on a host-bound path this is each step's time (the first is the
+    # conditioning's and the prior's too)
+    gaps = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    if gaps:
+        rec["step_host_ms"] = dict(min=min(gaps), median=statistics.median(gaps), max=max(gaps))
+    others = {k: v for k, v in launches.items() if k != "flash_attention" and v}
+    if fa.rope_launches:
+        others["flash_attention_rope"] = fa.rope_launches
+    log(f"[main-sd] {tag}: {rec['latency_s']:.4f} s (conditioning {rec['conditioning_s']:.4f}"
+        + (f" + encode {rec['encode_s']:.4f}" if image is not None else "")
+        + f" + denoise {rec['denoise_s']:.4f} ({n_steps} steps, {1e3 * rec['denoise_s'] / max(n_steps, 1):.2f} "
+        f"ms a step) + decode {rec['decode_s']:.4f}) | peak {rec['peak_gib']:.2f} GiB | A launches "
+        f"{fa.launches} | {tuple(img.shape)} {img.dtype} | latent finite {rec['latent_finite']}"
+        + (" | host ms between steps: min {min:.2f}, median {median:.2f}, max {max:.2f}".format(**rec["step_host_ms"])
+           if gaps else ""))
+    if others:
+        raise AssertionError(f"{tag}: kernels other than A launched: {others}")
+    if tuple(img.shape) != (len(texts), SIZE, SIZE, 3) or img.dtype != torch.uint8 or not rec["latent_finite"]:
+        raise AssertionError(f"{tag}: image {tuple(img.shape)} {img.dtype}, latent finite {rec['latent_finite']}")
+    return rec, img, lat
+
+
+def _sd_profile(pipe, tag: str, texts, seeds, steps: int, cfg: float) -> dict:
+    """One request (generate_latents_batch + decode_u8) under torch.profiler:
+    its wall time with the profiler on, the device's busy share and the
+    device time by kernel group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lat = None
+        for lat in pipe.generate_latents_batch(texts, seeds, num_steps=steps, cfg_weight=cfg,
+                                               latent_size=(SIZE // 8, SIZE // 8)):
+            pass
+        pipe.decode_u8(lat)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rec = _profile_record(prof, 1, wall_ms, f"main-sd profile {tag}", "request",
+                          f"{steps} steps, batch {len(texts)}, cfg {cfg}")
+    rec["busy_share"] = rec["busy_ms"] / wall_ms
+    return rec
+
+
+def _sd_pipeline(cls, name: str, tag: str):
+    """A full-width pipeline in bf16 on random weights (seed 0) with the
+    CLIP tokenizer → (pipeline, set-up record)."""
+    import torch
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = cls.random_init(name, dtype=torch.bfloat16, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe.tokenizers = [_sd_tokenizer()] * len(pipe.clip_cfgs)
+    setup = dict(init_s=init_s, resident_gib=torch.cuda.memory_allocated() / 2**30)
+    log(f"[main-sd] {tag}: random init {init_s:.2f} s, resident {setup['resident_gib']:.2f} GiB | CLIP tokens: "
+        f"the BPE test asset (tests/assets/clip_tokenizer), padded with 0 to 77")
+    return pipe, setup
+
+
+def phase_main_sd():
+    """SD 2.1-base and SDXL-Turbo at full width on random weights (bf16),
+    512², through the entry points the server drives
+    (generate_latents_batch, generate_latents_from_image, decode_u8): SD 2.1
+    at the server's 50 steps and cfg 4.0 (CFG: the UNet at batch 2), three
+    requests; SDXL-Turbo at 2 steps without CFG at batch 1 (two requests)
+    and batch 4 (a coalesce bucket), and an img2img at strength 0.5 on the
+    first image (1 step). Exact A launch counts (15 an SD 2.1 UNet call, 70
+    an SDXL one), finite latents, uint8 images of the shape asked; then one
+    request of each under torch.profiler for the busy share."""
+    import gc
+
+    import torch
+
+    from flux_generator_tpu_torch.pipelines.sd import StableDiffusion, StableDiffusionXL
+
+    record = {}
+    total = 0
+    pipe, setup = _sd_pipeline(StableDiffusion, "stable-diffusion-2-1-base", "SD 2.1-base")
+    t0 = time.perf_counter()
+    _sd_request(pipe, "SD 2.1 warm-up (2 steps, not counted)", [SD_PROMPTS[0][1]], [0], 2, SD21_CFG)
+    log(f"[main-sd] SD 2.1 warm-up {time.perf_counter() - t0:.3f} s")
+    requests, images = [], []
+    for seed, prompt in SD_PROMPTS[:3]:
+        rec, img, _ = _sd_request(pipe, f"SD 2.1 request seed={seed}", [prompt], [seed], SD21_STEPS, SD21_CFG)
+        want = 15 * SD21_STEPS
+        if rec["flash_launches"] != want:
+            raise AssertionError(f"SD 2.1 request: {rec['flash_launches']} A launches, want {want}")
+        total += rec["flash_launches"]
+        requests.append(dict(rec, seed=seed))
+        images.append(img)
+    if torch.equal(images[0], images[1]):
+        raise AssertionError("SD 2.1 requests with different seeds gave identical images")
+    record["sd21"] = dict(setup, requests=requests,
+                          profile=_sd_profile(pipe, "SD 2.1", [SD_PROMPTS[0][1]], [SD_PROMPTS[0][0]], SD21_STEPS,
+                                              SD21_CFG))
+    del pipe, images
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pipe, setup = _sd_pipeline(StableDiffusionXL, "sdxl-turbo", "SDXL-Turbo")
+    _sd_request(pipe, "SDXL warm-up (not counted)", [SD_PROMPTS[0][1]], [0], SDXL_STEPS, 0.0)
+    _sd_request(pipe, "SDXL warm-up, batch 4 (not counted)", [p for _, p in SD_PROMPTS], [0, 1, 2, 3],
+                SDXL_STEPS, 0.0)
+    requests, images = [], []
+    for texts, seeds in (([SD_PROMPTS[0][1]], [SD_PROMPTS[0][0]]), ([SD_PROMPTS[1][1]], [SD_PROMPTS[1][0]]),
+                         ([p for _, p in SD_PROMPTS], [s for s, _ in SD_PROMPTS])):
+        rec, img, _ = _sd_request(pipe, f"SDXL-Turbo batch {len(texts)} seeds={seeds}", texts, seeds, SDXL_STEPS,
+                                  0.0)
+        if rec["flash_launches"] != 70 * SDXL_STEPS:
+            raise AssertionError(f"SDXL request: {rec['flash_launches']} A launches, want {70 * SDXL_STEPS}")
+        total += rec["flash_launches"]
+        requests.append(dict(rec, seeds=seeds, images_per_s=len(texts) / rec["latency_s"]))
+        images.append(img)
+    if torch.equal(images[0], images[1]):
+        raise AssertionError("SDXL requests with different seeds gave identical images")
+    # img2img on the first image, back in [-1, 1]
+    image = images[0][0].float() / 127.5 - 1
+    rec, img, _ = _sd_request(pipe, "SDXL-Turbo img2img strength 0.5", [SD_PROMPTS[2][1]], [SD_PROMPTS[2][0]],
+                              SDXL_STEPS, 0.0, image=image, strength=0.5)
+    if rec["flash_launches"] != 70 or rec["steps"] != 1:
+        raise AssertionError(f"SDXL img2img: {rec['flash_launches']} A launches in {rec['steps']} steps, want 70 in 1")
+    total += rec["flash_launches"]
+    record["sdxl_turbo"] = dict(setup, requests=requests, img2img=rec, profile={
+        f"batch {len(texts)}": _sd_profile(pipe, f"SDXL-Turbo batch {len(texts)}", texts, seeds, SDXL_STEPS, 0.0)
+        for texts, seeds in (([SD_PROMPTS[0][1]], [SD_PROMPTS[0][0]]),
+                             ([p for _, p in SD_PROMPTS], [s for s, _ in SD_PROMPTS]))})
+    record["launches"] = {"flash_attention_sd": total}
+    del pipe, images
+    return record
+
+
+@contextlib.contextmanager
+def _sd_numpy_noise():
+    """Every draw of the port's SD sampler is standard-normal noise from
+    numpy, by (the generator's seed, its draw index), on the generator's
+    device: a card-against-CPU check needs the same noise on both."""
+    import numpy as np
+    import torch
+
+    from flux_generator_tpu_torch.models.sd import sampler
+
+    real, counts, keep = sampler.normal, {}, []
+
+    def draw(generator, shape, dtype=torch.float32):
+        i = counts.get(id(generator), 0)
+        counts[id(generator)] = i + 1
+        keep.append(generator)
+        arr = np.random.default_rng([generator.initial_seed(), i]).standard_normal(tuple(shape))
+        return torch.from_numpy(arr.astype(np.float32)).to(generator.device, dtype)
+
+    sampler.normal = draw
+    try:
+        yield
+    finally:
+        sampler.normal = real
+
+
+class _SmallTokens:
+    """Rows of small ids for the small configs' 64-entry CLIP vocabulary,
+    EOS 63 (the largest id, where CLIP pools)."""
+
+    eos_token = 63
+
+    def tokenize(self, text):
+        return [1] + [3 + sum(map(ord, w)) % 57 for w in text.split()] + [63]
+
+
+def phase_small_sd():
+    """A small SD and a small SDXL config (heads of 64, a 256-token
+    self-attention at level 0: 3 and 6 A calls a UNet call) on the card in
+    bf16 with kernel A, against the CPU in f32 with its plain version, from
+    the same weights, tokens and noise: SD two prompts under CFG (4 steps,
+    Euler), SDXL two prompts without CFG (2 ancestral steps), latents and
+    images."""
+    import torch
+
+    from flux_generator_tpu_torch.models.clip.text import init_clip_text, tiny_clip_config
+    from flux_generator_tpu_torch.models.sd.config import UNetConfig, tiny_sd_ae_config
+    from flux_generator_tpu_torch.models.sd.unet import init_unet
+    from flux_generator_tpu_torch.models.sd.vae import init_sd_vae
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.pipelines.sd import StableDiffusion, StableDiffusionXL
+
+    unet = dict(block_out_channels=(64, 128), layers_per_block=(1, 1), num_attention_heads=(1, 2),
+                cross_attention_dim=(64, 64), norm_num_groups=32,
+                down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"))
+    cases = (
+        ("sd", StableDiffusion, UNetConfig(transformer_layers_per_block=(1, 1), **unet),
+         [tiny_clip_config(model_dims=64)], 4, 4.0, 3),
+        ("sdxl", StableDiffusionXL,
+         UNetConfig(transformer_layers_per_block=(2, 1), addition_embed_type="text_time", addition_time_embed_dim=8,
+                    projection_class_embeddings_input_dim=32 + 6 * 8, **unet),
+         [tiny_clip_config(model_dims=32), tiny_clip_config(model_dims=32, projection_dim=32)], 2, 0.0, 6),
+    )
+    tok = _SmallTokens()
+    out = {}
+    for tag, cls, unet_cfg, clip_cfgs, steps, cfg, per_call in cases:
+        ae_cfg = tiny_sd_ae_config(block_out_channels=(32, 64), norm_num_groups=32)
+        g = torch.Generator().manual_seed(7)
+        params = {"unet": init_unet(g, unet_cfg), "vae": init_sd_vae(g, ae_cfg),
+                  "clip": init_clip_text(g, clip_cfgs[0])}
+        if len(clip_cfgs) > 1:
+            params["clip_2"] = init_clip_text(g, clip_cfgs[1])
+        pipes = {"cpu": cls(tag, params, unet_cfg, ae_cfg, clip_cfgs, tokenizers=[tok, tok], dtype=torch.float32),
+                 "gpu": cls(tag, _to_device(params, "cuda", torch.bfloat16), unet_cfg, ae_cfg, clip_cfgs,
+                            tokenizers=[tok, tok], dtype=torch.bfloat16)}
+        res = {}
+        for name, pipe in pipes.items():
+            fa0 = fa.launches
+            with _sd_numpy_noise():
+                lat = list(pipe.generate_latents_batch(["a red fox", "a small boat"], [3, 4], num_steps=steps,
+                                                       cfg_weight=cfg, latent_size=(16, 16)))[-1]
+            res[name] = (lat.float().cpu(), pipe.decode(lat).float().cpu(), fa.launches - fa0)
+        lat_err, img_err = _rel(res["gpu"][0], res["cpu"][0]), _rel(res["gpu"][1], res["cpu"][1])
+        launches = res["gpu"][2]
+        log(f"[small-sd] {tag}: latent rel-L2 {lat_err:.3e}, image rel-L2 {img_err:.3e} (tol {SMALL_REL_TOL}) | "
+            f"A launches on the card {launches} ({steps} steps, {per_call} a UNet call), on the CPU "
+            f"{res['cpu'][2]}")
+        if launches != per_call * steps or res["cpu"][2] != 0:
+            raise AssertionError(f"small {tag}: A launches {launches} on the card, want {per_call * steps}")
+        if not (lat_err <= SMALL_REL_TOL and img_err <= SMALL_REL_TOL):
+            raise AssertionError(f"small {tag}: the card's run disagrees with the CPU reference")
+        out[tag] = dict(latent_rel_l2=lat_err, image_rel_l2=img_err, launches=launches)
+    return out
+
+
 def phase_kernels_train():
     """Kernels E (dQ) and F (dK, dV) through the autograd function against the
     plain backward in f32, at Flux-dev training's shape (512 text + 1024
@@ -2972,6 +3363,7 @@ def main() -> int:
 
     build_info = phase_build()
     kernels = run(phase_kernels)
+    kernels.update(run(phase_kernels_sd))
     kernels.update(run(phase_kernels_musicgen))
     kernels.update(run(phase_kernels_musicgen_f8))
     kernels.update(run(phase_kernels_chain))
@@ -2992,11 +3384,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     main_train = run(phase_main_train)
+    main_sd = run(phase_main_sd)
     small = run(phase_small)
     small_tiled = run(phase_small_tiled)
     small_w8a8 = run(phase_small_w8a8)
     small_music = run(phase_small_musicgen)
     small_train = run(phase_small_train)
+    small_sd = run(phase_small_sd)
 
     entries = []
     for mod, key, main_case, path in (
@@ -3013,6 +3407,15 @@ def main() -> int:
                             bound_by=case["bound_by"], library_ms=case["library_ms"]))
         if key == "int4_matmul":
             entries[-1]["bound_share"] = case["bound_share"]
+    # A at head dim 64 without RoPE on the SD path: SD 2.1's 64² level; its
+    # launches are main-sd's requests'
+    case = next(c for c in kernels["flash_attention_sd"] if c["case"] == "sd21_L4096")
+    entries.append(dict(name="flash_attention_sd", route="cuda", source=fa.SOURCE, replaces=fa.REPLACES,
+                        launches=main_sd["launches"]["flash_attention_sd"],
+                        max_abs_err=max(c["max_abs_err"] for c in kernels["flash_attention_sd"]),
+                        out_rel_l2=max(c["out_rel_l2"] for c in kernels["flash_attention_sd"]),
+                        ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                        bound_by=case["bound_by"], library_ms=case["library_ms"]))
     bwd = kernels["flash_attention_bwd"]
     case = next(c for c in bwd if c["case"] == "dev_L1536_rope")
     for key, which, replaces in (("flash_attention_bwd_dq", "dq", fb.REPLACES_DQ),
@@ -3079,8 +3482,8 @@ def main() -> int:
                   main=main_run,
                   main_w8a8=main_w8a8, main_2048=main_2048,
                   main_musicgen=main_music, main_musicgen_serve=main_serve, main_musicgen_long=main_long,
-                  main_train=main_train, small=small, small_tiled=small_tiled, small_w8a8=small_w8a8,
-                  small_musicgen=small_music, small_train=small_train)
+                  main_train=main_train, main_sd=main_sd, small=small, small_tiled=small_tiled,
+                  small_w8a8=small_w8a8, small_musicgen=small_music, small_train=small_train, small_sd=small_sd)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -1,7 +1,8 @@
 """CLIP text encoder (counterpart of flux_generator_tpu/models/clip/text.py):
 causal-mask pre-LN transformer with quick_gelu (or exact gelu), final
 LayerNorm at the default eps, pooled output at the EOS position found by
-argmax over the token ids. Layers are stacked and run by a loop."""
+argmax over the token ids, and every layer's output (SDXL conditions on the
+second to last). Layers are stacked and run by a loop."""
 
 from __future__ import annotations
 
@@ -89,18 +90,21 @@ def _layer(p, x, mask, cfg: CLIPTextConfig, act, w8a8=None):
 
 def clip_text_forward(params, cfg: CLIPTextConfig, tokens: torch.Tensor, w8a8=None) -> dict:
     """tokens (B, N) int → {"last_hidden_state": (B, N, D), "pooled_output":
-    (B, D or projection_dim)}. `w8a8` takes an int8 per-channel tree through
-    int8 activations (ops.linear.dense)."""
+    (B, D or projection_dim), "hidden_states": a list of num_layers (B, N, D),
+    each layer's output before the final LayerNorm}. `w8a8` takes an int8
+    per-channel tree through int8 activations (ops.linear.dense)."""
     b, n = tokens.shape
     eos = torch.argmax(tokens, dim=-1)
     x = params["token_embedding"][tokens] + params["position_embedding"][:n]
     causal = torch.tril(torch.ones((n, n), dtype=torch.bool, device=tokens.device))[None, None]
     act = _act(cfg.hidden_act)
     layers = params["layers"]
+    hidden = []
     for i in range(num_layers(layers)):
         x = _layer(take_layer(layers, i), x, causal, cfg, act, w8a8)
+        hidden.append(x)
     x = layer_norm(x, params["final_ln"])
     pooled = x[torch.arange(b, device=x.device), eos]
     if "text_projection" in params:
         pooled = dense(params["text_projection"], pooled, w8a8)
-    return {"last_hidden_state": x, "pooled_output": pooled}
+    return {"last_hidden_state": x, "pooled_output": pooled, "hidden_states": hidden}

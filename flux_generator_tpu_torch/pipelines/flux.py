@@ -37,17 +37,8 @@ from ..models.flux.autoencoder import AutoEncoderConfig, tiny_ae_config
 from ..models.flux.model import FluxConfig, flux_forward, init_flux, tiny_flux_config
 from ..models.t5.t5 import T5Config, init_t5_encoder, t5_encode, tiny_t5_config
 from ..ops.tiling import batched_apply, tiled_decode_2d
-from ..runtime.device import as_device, make_generator, synchronize
+from ..runtime.device import as_device, make_generator, synchronize, to_device
 
-
-def to_device(data, dtype, device: torch.device) -> torch.Tensor:
-    """Host data (a list, numpy array or CPU tensor) as a `dtype` tensor on
-    `device`. On the card it goes through pinned memory as an asynchronous
-    copy, so the host does not wait for the device's queue to drain."""
-    t = torch.as_tensor(np.asarray(data) if not isinstance(data, torch.Tensor) else data, dtype=dtype)
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 # ------------------------------------------------------------ latent packing
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -42,3 +43,13 @@ def synchronize(device) -> None:
     device = as_device(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_device(data, dtype, device: torch.device) -> torch.Tensor:
+    """Host data (a list, numpy array or CPU tensor) as a `dtype` tensor on
+    `device`. On the card it goes through pinned memory as an asynchronous
+    copy, so the host does not wait for the device's queue to drain."""
+    t = torch.as_tensor(np.asarray(data) if not isinstance(data, torch.Tensor) else data, dtype=dtype)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

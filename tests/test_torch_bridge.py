@@ -132,7 +132,7 @@ _LOADED = ("[m for m in sys.modules if m in ('jax', 'flux_generator_tpu') "
 
 def test_pipeline_import_does_not_load_jax():
     proc = _run("import sys, flux_generator_tpu_torch.pipelines.flux, "
-                "flux_generator_tpu_torch.pipelines.musicgen, "
+                "flux_generator_tpu_torch.pipelines.musicgen, flux_generator_tpu_torch.pipelines.sd, "
                 "flux_generator_tpu_torch.training.dreambooth\n"
                 f"loaded = {_LOADED}\n"
                 "assert not loaded, loaded")

@@ -202,3 +202,34 @@ def test_cuda_rope_pre_pass_matches_plain_version_bit_for_bit():
     got = fa.rope_rotate(q, k, cos, sin)
     want = fa.rope_rotate_reference(q, k, cos, sin)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the self-attention shapes of the SD path at 512² (B, L, H, D = 64, no RoPE):
+# SD 2.1-base under CFG (batch 2) at its 64², 32² and 16² levels, SDXL-Turbo
+# without CFG at its 32² and 16² levels
+SD_SHAPES = [(2, 4096, 5), (2, 1024, 10), (2, 256, 20), (1, 1024, 10), (1, 256, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h", SD_SHAPES)
+def test_cuda_kernel_at_sd_shapes(b, l, h):
+    """bf16 kernel at head dim 64 without RoPE, as the UNet calls it, against
+    the plain version run in f32 on the same bf16 inputs: the atol 2e-2 of
+    test_cuda_kernel_matches_plain_version, and out within rel-L2 1e-2. The
+    output averages over many keys (its entries are about 0.02 at L 4096),
+    so only the rel-L2 bound catches an output some 10% wrong; the plain
+    version with the last 64 keys dropped must fail it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in _inputs(10, b, l, h, 64, False)[:3])
+    before = (fa.launches, fa.rope_launches)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.rope_launches) == (before[0] + 1, before[1])
+    ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() < 2e-2
+    assert (lse - ref_lse).abs().max().item() < 2e-2
+    assert (out.float() - ref).norm() / ref.norm() <= 1e-2
+    dropped, _ = fa.flash_attention_reference(q.float(), k[:, :-64].float(), v[:, :-64].float())
+    assert (dropped - ref).norm() / ref.norm() > 1e-2
