@@ -33,7 +33,9 @@ Phases, each of which fails the run on error:
                       (CFG, batch 2: L 4096, 1024, 256) and SDXL-Turbo
                       request (batch 1 and 4: L 1024, 256) against its plain
                       version, in turns with SDPA's forward, with each
-                      request's sums.
+                      request's sums; and at SD 2.1's first level past 512²
+                      (L 6400 at 640², 16384 at 1024²), the plain version a
+                      head at a time.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
                       plain versions at MusicGen-medium shapes, with times:
                       C at a 500-step and a 2500-step request's length (T 497,
@@ -137,6 +139,22 @@ Phases, each of which fails the run on error:
                       peak memory, exact A launch counts (750 an SD 2.1
                       request, 140 an SDXL one, 70 the img2img), then one
                       request of each under torch.profiler (busy share).
+     main-serve     — the port's server (server/app.get_app, server/httpd.
+                      Server on 127.0.0.1) with full-width bf16 pipelines on
+                      random weights, the plan its memory planner makes on
+                      this card, driven over HTTP: Flux-schnell 512² (alone,
+                      then 4 at once), SD 2.1-base (50 steps, cfg 4.0, with
+                      /sdapi/v1/progress polled), SDXL-Turbo (alone, 4 at
+                      once, img2img at 0.5), MusicGen 500 steps (alone, 4 at
+                      once); each solo answer equal byte for byte to the same
+                      pipeline's direct call with the same A, C and D
+                      launches, each group coalesced, 422 and 429 where due;
+                      the server's overhead, resident and peak memory beside
+                      the planner's estimates.
+     main-serve-int8 — a second API with quantize=True and the "fused"
+                      W8A8 route, its pipelines quantized as the loaders do:
+                      one Flux, one SD 2.1 and one music request, each with
+                      G or H launched.
  11. small          — a small Flux config run on the card (bf16, kernels) and on
                       the CPU (f32, plain versions) from the same weights and noise.
      small-tiled    — the same config past the untiled sizes: a tiled decode
@@ -153,6 +171,9 @@ Phases, each of which fails the run on error:
                       self-attention) on the card (bf16, kernel A) against
                       the CPU (f32, its plain version), same weights, tokens
                       and noise.
+     small-serve    — a small SD config with int8 UNet and CLIP denses,
+                      w8a8 "fused" and attn_int8 "qk", on the card (A's
+                      int8 tier, G) against the CPU (their plain versions).
 The last line printed is {"ok": true, "device": {...}}; a fuller record goes
 to chiprun_out/chip_smoke.json.
 
@@ -297,6 +318,10 @@ SD_PROMPTS = [
 SD_ATTN_SHAPES = (("sd21_L4096", 2, 4096, 5, 250), ("sd21_L1024", 2, 1024, 10, 250), ("sd21_L256", 2, 256, 20, 250),
                   ("sdxl_b1_L1024", 1, 1024, 10, 20), ("sdxl_b1_L256", 1, 256, 20, 120),
                   ("sdxl_b4_L1024", 4, 1024, 10, 20), ("sdxl_b4_L256", 4, 256, 20, 120))
+# kernel A at SD 2.1's first UNet level past 512², which the server admits up
+# to 2048² (server/api.py MAX_SIDE): (label, B, L, heads of 64, calls a
+# 50-step request at that level): 640² (an 80² latent) and 1024² (128²)
+SD_ATTN_LONG_SHAPES = (("sd21_640_L6400", 2, 6400, 5, 250), ("sd21_1024_L16384", 2, 16384, 5, 250))
 
 
 def log(*args):
@@ -2718,6 +2743,609 @@ def phase_small_sd():
     return out
 
 
+def phase_kernels_sd_long():
+    """Kernel A's bf16 mode at head dim 64 without RoPE at the lengths the
+    server admits past 512²: SD 2.1's first UNet level under CFG (B 2, H 5)
+    at 640² (L 6400) and 1024² (L 16384), held to its plain version run a
+    head at a time (its f32 scores are 1.07 GB a head at L 16384), with the
+    dropped-keys control; the kernel, the route and the plain version
+    timed, the route in turns with SDPA's forward."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+
+    def plain(q, k, v, cos=None, sin=None):
+        return fa.flash_attention_reference(q.float(), k.float(), v.float())
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4322)
+    rows = []
+    for label, b, length, h, per_request in SD_ATTN_LONG_SHAPES:
+        q, k, v = (torch.randn((b, length, h, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        ref, ref_lse = _plain_by_heads(plain, q, k, v, None, None, chunk=1)
+        rel, out_abs = _rel(out.float(), ref), (out.float() - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        dropped, _ = _plain_by_heads(plain, q, k[:, :-64], v[:, :-64], None, None, chunk=1)
+        control_rel = _rel(dropped, ref)
+        del ref, ref_lse, dropped
+        ms = time_ms_queued(lambda: fa.flash_attention_sm90(q, k, v))
+        route_ms = time_ms_queued(lambda: fa.flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: _plain_by_heads(plain, q, k, v, None, None, chunk=1), iters=2, warmup=1)
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        turns = in_turns({"route": lambda: fa.flash_attention(q, k, v),
+                          "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)}, iters=10)
+        library_ms = statistics.mean(turns["sdpa"])
+        flops = 4 * b * h * length * length * 64
+        bound = bound_ms(flops, 4 * q.numel() * 2 + b * h * length * 4)
+        row = dict(case=label, b=b, l=length, h=h, max_abs_err=max(out_abs, lse_err), out_rel_l2=rel,
+                   out_max_abs_err=out_abs, lse_max_abs_err=lse_err,
+                   control_last_64_keys_dropped_out_rel_l2=control_rel, ms=ms, route_ms=route_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, turns_ms=turns, bound_ms=bound[0], bound_by=bound[1],
+                   tflops=flops / 1e9 / ms, bound_share=bound[0] / ms, launches_a_request=per_request)
+        tol_out, tol_lse = SD_FLASH_TOL
+        log(f"[kernels-sd] flash {label} (B {b}, L {length}, H {h}, D 64): out rel-L2 {rel:.3e} (tol {tol_out}) | "
+            f"lse max|Δ| {lse_err:.3e} (tol {tol_lse}) | control, last 64 keys dropped: out rel-L2 "
+            f"{control_rel:.3e} (must exceed {tol_out}) | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+            f"{100 * row['bound_share']:.1f}% of the bound {bound[0]:.4f} ms, {bound[1]}) | route {route_ms:.4f} ms | "
+            f"plain (a head at a time) {plain_ms:.3f} ms | in turns: route "
+            f"{' '.join(f'{t:.4f}' for t in turns['route'])}, SDPA fwd {' '.join(f'{t:.4f}' for t in turns['sdpa'])} "
+            f"ms | {per_request} a request at this level (750 A calls a request in all)")
+        if not (rel <= tol_out and lse_err <= tol_lse):
+            raise AssertionError(f"flash {label} disagrees with its plain version: out rel-L2 {rel}, lse {lse_err}")
+        if not control_rel > tol_out:
+            raise AssertionError(f"flash {label}: the control with 64 keys dropped passes ({control_rel})")
+        rows.append(row)
+        del q, k, v, qs, ks, vs, out, lse
+        torch.cuda.empty_cache()
+    return {"flash_attention_sd_long": rows}
+
+
+# ------------------------------------------------------------ the served path
+
+
+def _counts():
+    """Every kernel counter of the served paths (A, its RoPE pre-pass and
+    int8 tiers, B, C, D, G, H)."""
+    from flux_generator_tpu_torch.ops.kernels import decode_step as ds
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import lstm as lk
+
+    out = _launch_counts()
+    out.update(flash_attention_rope=fa.rope_launches, decode_step=ds.launches, lstm=lk.launches)
+    return out
+
+
+def _zero_counts():
+    from flux_generator_tpu_torch.ops.kernels import decode_step as ds
+    from flux_generator_tpu_torch.ops.kernels import lstm as lk
+
+    _reset_launch_counts()
+    ds.launches = ds.e4m3_launches = lk.launches = 0
+
+
+class _Served:
+    """HTTP calls to a running Server: JSON in, (status, JSON, wall s) out."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+
+    def call(self, path: str, payload=None):
+        import urllib.error
+        import urllib.request
+
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(self.base + path, data, {"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read()), time.perf_counter() - t0
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+    def ok(self, path: str, payload=None):
+        status, body, wall = self.call(path, payload)
+        if status != 200:
+            raise AssertionError(f"{path} {payload}: HTTP {status} {body}")
+        return body, wall
+
+    def concurrent(self, api, path: str, payloads):
+        """Send every payload at once while the generation lock is held, so
+        that all of them wait as one group, then let them run → ([(body,
+        wall)] in payload order, the device's peak above resident GiB)."""
+        import threading
+
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        out = [None] * len(payloads)
+
+        def fire(i):
+            out[i] = self.ok(path, payloads[i])
+
+        threads = [threading.Thread(target=fire, args=(i,)) for i in range(len(payloads))]
+        api._gen_lock.acquire()
+        try:
+            for t in threads:
+                t.start()
+            for _ in range(600):
+                with api._batch_lock:
+                    pending = sum(len(v) for v in api._pending.values())
+                if pending == len(payloads):
+                    break
+                time.sleep(0.05)
+            else:
+                raise AssertionError(f"only {pending} of {len(payloads)} requests queued")
+        finally:
+            api._gen_lock.release()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - resident) / 2**30
+
+
+def _wav_bytes(data_url: str) -> bytes:
+    import base64
+
+    return base64.b64decode(data_url.split(",", 1)[1])
+
+
+def _wav_frames(raw: bytes):
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(raw), "rb") as w:
+        return w.getframerate(), np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def _serve_factories(built: dict, quantized: bool = False):
+    """Flux, SD and MusicGen factories for get_app that build full-width
+    pipelines on seeded random weights in bf16 on the card (each model once,
+    kept in `built`), with the tokenizer assets. `quantized`: the loaders'
+    int8 policy, applied on the card to the pipelines in `built` (Flux: flow
+    and T5 int8 per channel; SD: the UNet's and first CLIP's denses that
+    `_sd_quant_predicate` accepts; MusicGen: decoder and T5)."""
+    import torch
+
+    from flux_generator_tpu_torch.io.loaders import _sd_quant_predicate
+    from flux_generator_tpu_torch.io.tokenizers import load_t5_tokenizer
+    from flux_generator_tpu_torch.ops.quant import quantize_tree
+    from flux_generator_tpu_torch.pipelines.flux import FluxPipeline
+    from flux_generator_tpu_torch.pipelines.musicgen import MusicGenPipeline
+    from flux_generator_tpu_torch.pipelines.sd import StableDiffusion, StableDiffusionXL
+
+    dev = torch.device("cuda")
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def timed(key, make):
+        if key not in built:
+            t0 = time.perf_counter()
+            built[key] = make()
+            torch.cuda.synchronize()
+            log(f"[main-serve] built {key} in {time.perf_counter() - t0:.2f} s (random weights, seed 0)")
+        pipe = built[key]
+        if quantized and not getattr(pipe, "_quantized", False):
+            t0 = time.perf_counter()
+            if key.startswith("flux"):
+                pipe.params["flow"] = quantize_tree(pipe.params["flow"])
+                pipe.params["t5"] = quantize_tree(pipe.params["t5"])
+            elif key == "musicgen":
+                pipe.params, pipe.t5_params = quantize_tree(pipe.params), quantize_tree(pipe.t5_params)
+            else:
+                pipe.params["unet"] = quantize_tree(pipe.params["unet"], _sd_quant_predicate)
+                pipe.params["clip"] = quantize_tree(pipe.params["clip"], _sd_quant_predicate)
+            pipe._quantized = True
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            log(f"[main-serve-int8] quantized {key} on the card in {time.perf_counter() - t0:.2f} s")
+        return pipe
+
+    def flux(name):
+        def make():
+            pipe = FluxPipeline.random_init(name, dtype=torch.bfloat16, device=dev, generator=seeded())
+            pipe.t5_tokenizer, pipe.clip_tokenizer, _ = _tokenizers()
+            return pipe
+        return timed(name, make)
+
+    def sd(name):
+        def make():
+            cls = StableDiffusionXL if "xl" in name else StableDiffusion
+            pipe = cls.random_init(name, dtype=torch.bfloat16, device=dev, generator=seeded())
+            pipe.tokenizers = [_sd_tokenizer()] * len(pipe.clip_cfgs)
+            return pipe
+        return timed(name, make)
+
+    def music():
+        def make():
+            pipe = MusicGenPipeline.random_init(tiny=False, dtype=torch.bfloat16, device=dev, generator=seeded())
+            pipe.tokenizer = load_t5_tokenizer(ROOT / "tests/assets/spiece/t5_like.model")
+            return pipe
+        return timed("musicgen", make)
+
+    return flux, sd, music
+
+
+def _start_server(api):
+    from flux_generator_tpu_torch.server.httpd import Server
+
+    srv = Server(api, "127.0.0.1", 0)  # a free port
+    srv.start_background()
+    return srv, _Served(srv.port)
+
+
+def _served_vs_direct(tag: str, served: _Served, path: str, payload, direct, key: str):
+    """One solo request over HTTP and the same pipeline's direct call with
+    the same seed: the answer's `key` (a data URL) equal byte for byte, and
+    the kernel launches of each equal. `direct()` returns the data URL; its
+    wall time is the call's, ended by a synchronize. → record."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    _zero_counts()
+    body, wall = served.ok(path, payload)
+    torch.cuda.synchronize()
+    served_counts, peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
+    got = body[key][0] if isinstance(body[key], list) else body[key]
+    _zero_counts()
+    t0 = time.perf_counter()
+    want = direct()
+    torch.cuda.synchronize()
+    direct_wall = time.perf_counter() - t0
+    direct_counts = _counts()
+    rec = dict(wall_s=wall, direct_s=direct_wall, overhead_ms=1e3 * (wall - direct_wall),
+               launches={k: v for k, v in served_counts.items() if v}, resident_gib=resident, peak_gib=peak,
+               transient_gib=peak - resident, equal=got == want, bytes=len(got))
+    log(f"[main-serve] {tag}: served {wall:.4f} s, direct call {direct_wall:.4f} s, server overhead "
+        f"{rec['overhead_ms']:.1f} ms | answer {len(got)} chars, equal to the direct call's: {rec['equal']} | "
+        f"launches {rec['launches']} | resident {resident:.2f} GiB, peak {peak:.2f} GiB (+{peak - resident:.2f})")
+    if got != want:
+        raise AssertionError(f"{tag}: the served answer differs from the direct call's")
+    if served_counts != direct_counts:
+        raise AssertionError(f"{tag}: launches served {served_counts} != direct {direct_counts}")
+    return rec, body
+
+
+def _image_url(pipe, x, latent_size=None):
+    from flux_generator_tpu_torch.server.api import _fetch_u8, _png_data_url
+
+    return _png_data_url(_fetch_u8(pipe, x, latent_size)[0])
+
+
+def _last(gen):
+    x = None
+    for x in gen:
+        pass
+    return x
+
+
+def _poll_progress(served: _Served, stop, seen: list):
+    while not stop.is_set():
+        _, snap, _ = served.call("/sdapi/v1/progress")
+        seen.append((snap["progress"], snap["textinfo"], snap["current_image"] is not None))
+        time.sleep(0.1)
+
+
+def phase_main_serve():
+    """The port's server (server/app.get_app + server/httpd.Server) on
+    127.0.0.1 with full-width bf16 pipelines on random weights (the 80 GB
+    card's plan), driven over HTTP: each solo request equal byte for byte to
+    the same pipeline's direct call, with the same A, C and D launches;
+    concurrent groups coalesced; progress previews; 422 and 429. Returns
+    (record, the pipelines built, for main-serve-int8)."""
+    import io
+    import threading
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from flux_generator_tpu_torch.server import memory
+    from flux_generator_tpu_torch.server.app import get_app
+    from flux_generator_tpu_torch.utils.audio import save_audio
+
+    built = {}
+    flux_f, sd_f, music_f = _serve_factories(built)
+    api = get_app(flux_f, sd_f)
+    api._music_factory = music_f
+    plans = {}
+    for slot, model in (("flux", "flux-schnell"), ("sd", "stabilityai/stable-diffusion-2-1-base"),
+                        ("sd", "stabilityai/sdxl-turbo"), ("musicgen", "musicgen")):
+        plan = memory.MemoryPlanner().plan(slot, model)
+        plans[model] = dict(policy=plan.policy, evict=plan.evict, est_gb=plan.est_gb)
+    log(f"[main-serve] the planner on this card ({api.memory.budget_gb:.2f} GB, transient "
+        f"{api.memory.transient_gb} GB): {plans}")
+    if any(p["policy"] != "bf16" or p["evict"] for p in plans.values()):
+        raise AssertionError(f"the planner does not keep every family at bf16 on this card: {plans}")
+    groups = []
+    real_music = api._run_music_batch
+
+    def music_batch(items, *args):
+        groups.append(len(items))
+        return real_music(items, *args)
+
+    api._run_music_batch = music_batch
+    srv, served = _start_server(api)
+    rec = dict(plans=plans, budget_gb=api.memory.budget_gb)
+    try:
+        # ---- Flux-schnell, the schema's defaults: 512², 2 steps, generate_images_fused
+        flux_prompt = PROMPTS[0][1]
+        body, wall = served.ok("/sdapi/v1/txt2img", {"prompt": "warm-up", "model": "flux-schnell", "seed": 0})
+        log(f"[main-serve] Flux warm-up (load + first request, not counted) {wall:.3f} s")
+        pipe = api.pipeline
+        rec["flux"], _ = _served_vs_direct(
+            "Flux-schnell 512², 2 steps", served, "/sdapi/v1/txt2img",
+            {"prompt": flux_prompt, "model": "flux-schnell", "seed": 1}, lambda: _image_url_u8(
+                pipe.generate_images_fused(flux_prompt, num_steps=2, guidance=4.0, latent_size=(64, 64), seed=1)),
+            "images")
+        _zero_counts()
+        t0 = time.perf_counter()
+        res, transient = served.concurrent(api, "/sdapi/v1/txt2img", [
+            {"prompt": p, "model": "flux-schnell", "seed": s} for s, p in PROMPTS + [(4, "a red kite")]])
+        rec["flux_coalesced"] = dict(wall_s=time.perf_counter() - t0, infos=[b["info"] for b, _ in res],
+                                     transient_gib=transient,
+                                     launches={k: v for k, v in _counts().items() if v})
+        log(f"[main-serve] Flux, 4 at once: {rec['flux_coalesced']['wall_s']:.4f} s | {res[0][0]['info']} | "
+            f"launches {rec['flux_coalesced']['launches']} | peak above resident {transient:.2f} GiB")
+        if not all("coalesced batch 4" in b["info"] for b, _ in res) or len({b["images"][0] for b, _ in res}) != 4:
+            raise AssertionError(f"Flux requests did not coalesce into one batch of 4: {rec['flux_coalesced']}")
+
+        # ---- SD 2.1-base, 50 steps, cfg 4.0, with progress polled
+        sd_prompt = SD_PROMPTS[0][1]
+        _, wall = served.ok("/sdapi/v1/txt2img", {"prompt": "warm-up", "model": "stabilityai/stable-diffusion-2-1-base",
+                                                   "steps": 2, "seed": 0})
+        log(f"[main-serve] SD 2.1 warm-up (load + 2 steps, not counted) {wall:.3f} s")
+        pipe = api.sd_pipeline
+        stop, seen = threading.Event(), []
+        poller = threading.Thread(target=_poll_progress, args=(served, stop, seen))
+        poller.start()
+        try:
+            rec["sd21"], _ = _served_vs_direct(
+                "SD 2.1-base 512², 50 steps, cfg 4.0", served, "/sdapi/v1/txt2img",
+                {"prompt": sd_prompt, "model": "stabilityai/stable-diffusion-2-1-base", "seed": 21},
+                lambda: _image_url(pipe, _last(pipe.generate_latents_batch(
+                    [sd_prompt], [21], num_steps=50, cfg_weight=4.0, negative_text="", latent_size=(64, 64)))),
+                "images")
+        finally:
+            stop.set()
+            poller.join()
+        steps_seen = [int(t.split()[1].split("/")[0]) for _, t, _ in seen if t.startswith("Step")]
+        rec["sd21"]["progress"] = dict(polls=len(seen), previews=sum(1 for *_, p in seen if p),
+                                       steps_seen=sorted(set(steps_seen)))
+        log(f"[main-serve] progress during the SD 2.1 request: {len(seen)} polls, "
+            f"{rec['sd21']['progress']['previews']} with a preview, steps seen {rec['sd21']['progress']['steps_seen']}")
+        if not rec["sd21"]["progress"]["previews"] or len(set(steps_seen)) < 2:
+            raise AssertionError(f"progress showed no preview or no rising step count: {rec['sd21']['progress']}")
+        if rec["sd21"]["launches"].get("flash_attention") != 750:
+            raise AssertionError(f"SD 2.1 request: A launches {rec['sd21']['launches']}, want 750")
+
+        # ---- SDXL-Turbo: solo, 4 at once, img2img at strength 0.5
+        xl_prompt = SD_PROMPTS[1][1]
+        _, wall = served.ok("/sdapi/v1/txt2img", {"prompt": "warm-up", "model": "stabilityai/sdxl-turbo", "seed": 0})
+        log(f"[main-serve] SDXL-Turbo warm-up (load, not counted) {wall:.3f} s")
+        pipe = api.sd_pipeline
+        rec["sdxl"], body = _served_vs_direct(
+            "SDXL-Turbo 512², 2 steps", served, "/sdapi/v1/txt2img",
+            {"prompt": xl_prompt, "model": "stabilityai/sdxl-turbo", "seed": 22},
+            lambda: _image_url(pipe, _last(pipe.generate_latents_batch(
+                [xl_prompt], [22], num_steps=2, cfg_weight=0.0, negative_text="", latent_size=(64, 64)))),
+            "images")
+        init_image = body["images"][0]
+        _zero_counts()
+        t0 = time.perf_counter()
+        res, transient = served.concurrent(api, "/sdapi/v1/txt2img", [
+            {"prompt": p, "model": "stabilityai/sdxl-turbo", "seed": s} for s, p in SD_PROMPTS])
+        rec["sdxl_coalesced"] = dict(wall_s=time.perf_counter() - t0, infos=[b["info"] for b, _ in res],
+                                     transient_gib=transient,
+                                     launches={k: v for k, v in _counts().items() if v})
+        log(f"[main-serve] SDXL-Turbo, 4 at once: {rec['sdxl_coalesced']['wall_s']:.4f} s | {res[0][0]['info']} | "
+            f"launches {rec['sdxl_coalesced']['launches']} | peak above resident {transient:.2f} GiB")
+        if not all("coalesced batch 4" in b["info"] for b, _ in res) or rec["sdxl_coalesced"]["launches"].get(
+                "flash_attention") != 140:
+            raise AssertionError(f"SDXL requests did not coalesce into one batch of 4: {rec['sdxl_coalesced']}")
+
+        def direct_img2img():
+            import base64
+
+            img = Image.open(io.BytesIO(base64.b64decode(init_image.split(",", 1)[1]))).convert("RGB")
+            arr = torch.from_numpy(np.array(img.resize((512, 512)))).float() / 255 * 2 - 1
+            return _image_url(pipe, _last(pipe.generate_latents_from_image(
+                arr, SD_PROMPTS[2][1], n_images=1, strength=0.5, num_steps=2, cfg_weight=0.0, negative_text="",
+                seed=23)))
+
+        rec["sdxl_img2img"], _ = _served_vs_direct(
+            "SDXL-Turbo img2img, strength 0.5", served, "/sdapi/v1/img2img",
+            {"prompt": SD_PROMPTS[2][1], "model": "stabilityai/sdxl-turbo", "init_images": [init_image],
+             "denoising_strength": 0.5, "cfg_scale": 0.0, "seed": 23}, direct_img2img, "images")
+
+        # ---- MusicGen-medium: 500 steps solo, then 4 at once
+        _, wall = served.ok("/api/music", {"prompt": "warm-up", "max_steps": 8, "seed": 0})
+        log(f"[main-serve] MusicGen warm-up (load + 8 steps, not counted) {wall:.3f} s")
+        pipe = api.music_pipeline
+        mg_prompt = MG_PROMPTS[0][1]
+
+        def direct_music():
+            import base64
+
+            wav = pipe.generate_requests([{"text": mg_prompt, "max_steps": MG_STEPS, "seed": 11}], top_k=MG_TOP_K,
+                                         temp=1.0, guidance_coef=3.0)[0]
+            buf = io.BytesIO()
+            save_audio(buf, wav.float().cpu().numpy(), pipe.sampling_rate)
+            return "data:audio/wav;base64," + base64.b64encode(buf.getvalue()).decode()
+
+        groups.clear()
+        rec["music"], body = _served_vs_direct("MusicGen-medium, 500 steps", served, "/api/music",
+                                               {"prompt": mg_prompt, "max_steps": MG_STEPS, "seed": 11},
+                                               direct_music, "audio")
+        sr, frames = _wav_frames(_wav_bytes(body["audio"]))
+        rec["music"].update(sampling_rate=sr, frames=len(frames), duration_s=body["duration_s"])
+        if rec["music"]["launches"].get("decode_step") != MG_STEPS or rec["music"]["launches"].get("lstm") != 2:
+            raise AssertionError(f"music request: launches {rec['music']['launches']}, want {MG_STEPS} D and 2 C")
+        groups.clear()
+        _zero_counts()
+        t0 = time.perf_counter()
+        res, transient = served.concurrent(api, "/api/music", [{"prompt": t, "max_steps": MG_STEPS, "seed": 30 + i}
+                                                               for i, t in enumerate(SERVE_TEXTS)])
+        rec["music_coalesced"] = dict(wall_s=time.perf_counter() - t0, groups=list(groups), transient_gib=transient,
+                                      launches={k: v for k, v in _counts().items() if v},
+                                      frames=[len(_wav_frames(_wav_bytes(b["audio"]))[1]) for b, _ in res])
+        log(f"[main-serve] MusicGen, 4 at once: {rec['music_coalesced']['wall_s']:.4f} s | groups {groups} | "
+            f"launches {rec['music_coalesced']['launches']} | frames {rec['music_coalesced']['frames']} | peak "
+            f"above resident {transient:.2f} GiB")
+        if groups != [4] or rec["music_coalesced"]["launches"].get("decode_step") != MG_STEPS:
+            raise AssertionError(f"music requests did not coalesce into one batch of 4: {rec['music_coalesced']}")
+
+        # ---- refusals
+        status, detail, _ = served.call("/sdapi/v1/txt2img", {"prompt": "x", "width": 4096, "model": "flux-schnell"})
+        status_missing, _, _ = served.call("/sdapi/v1/txt2img", {"width": 512})
+        for _ in range(8):  # every queue slot taken
+            api._queue_slots.acquire(blocking=False)
+        try:
+            status_full, detail_full, _ = served.call("/sdapi/v1/txt2img", {"prompt": "x", "model": "flux-schnell"})
+        finally:
+            for _ in range(8):
+                api._queue_slots.release()
+        rec["refusals"] = dict(oversize=status, missing_prompt=status_missing, queue_full=status_full)
+        log(f"[main-serve] refusals: 4096 px wide {status} ({detail['detail']}), no prompt {status_missing}, "
+            f"queue full {status_full} ({detail_full['detail']})")
+        if (status, status_missing, status_full) != (422, 422, 429):
+            raise AssertionError(f"refusals {rec['refusals']}, want 422, 422, 429")
+    finally:
+        srv.shutdown()
+    est = memory.footprints_gb()
+    rec["resident"] = {slot: dict(model=s.model, policy=s.policy, measured_gb=s.gb,
+                                  estimate_gb=est[(s.family, s.policy)]) for slot, s in api.memory.slots.items()}
+    for slot, r in rec["resident"].items():
+        log(f"[main-serve] slot {slot}: {r['model']} {r['policy']}, measured {r['measured_gb']:.3f} GB, "
+            f"planner's estimate {r['estimate_gb']:.3f} GB")
+    rec["transient_gib_max"] = max(r["transient_gib"] for k, r in rec.items()
+                                   if isinstance(r, dict) and "transient_gib" in r)
+    log(f"[main-serve] the largest peak above resident of a served request: {rec['transient_gib_max']:.2f} GiB "
+        f"({rec['transient_gib_max'] * 2**30 / 1e9:.2f} GB; the planner keeps {memory.TRANSIENT_GB} GB)")
+    if rec["transient_gib_max"] * 2**30 / 1e9 > memory.TRANSIENT_GB:
+        raise AssertionError("a served request needed more head-room than server/memory.TRANSIENT_GB")
+    if any(s.policy != "bf16" for s in api.memory.slots.values()):
+        raise AssertionError(f"the API loaded below bf16 on this card: {rec['resident']}")
+    return rec, built
+
+
+def _image_url_u8(images):
+    from flux_generator_tpu_torch.server.api import _host, _png_data_url
+
+    return _png_data_url(_host(images)[0])
+
+
+def phase_main_serve_int8(built):
+    """A second FluxAPI with quantize=True and the "fused" W8A8 route, its
+    factories quantizing main-serve's pipelines on the card as the loaders
+    do: one Flux, one SD 2.1 and one music request over HTTP, each with G or
+    H launched, finite and of the right shape."""
+    import base64
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from flux_generator_tpu_torch.server.app import get_app
+
+    flux_f, sd_f, music_f = _serve_factories(built, quantized=True)
+    api = get_app(flux_f, sd_f, quantize=True, w8a8="fused")
+    api._music_factory = music_f
+    srv, served = _start_server(api)
+    rec = {}
+    # a long prompt: T5's int8 denses take G from 16 rows
+    long_prompt = ("a slow cinematic orchestral piece with warm strings, soft brass, a distant choir and "
+                   "gentle timpani rolls building to a bright and hopeful major key finale")
+    try:
+        for tag, path, payload in (
+                ("flux", "/sdapi/v1/txt2img", {"prompt": PROMPTS[1][1], "model": "flux-schnell", "seed": 2}),
+                ("sd21", "/sdapi/v1/txt2img", {"prompt": SD_PROMPTS[3][1],
+                                                "model": "stabilityai/stable-diffusion-2-1-base", "seed": 24}),
+                ("music", "/api/music", {"prompt": long_prompt, "max_steps": MG_STEPS, "seed": 12})):
+            served.ok(path, dict(payload, **({"max_steps": 8} if tag == "music" else {"steps": 1})))  # load
+            _zero_counts()
+            body, wall = served.ok(path, payload)
+            counts = {k: v for k, v in _counts().items() if v}
+            if tag == "music":
+                sr, frames = _wav_frames(_wav_bytes(body["audio"]))
+                shape, finite = (len(frames),), True  # int16 PCM: finite by construction
+                want = ((MG_STEPS - 3) * api.music_pipeline.audio_decoder.cfg.hop_length,)
+                out_ok = shape == want
+            else:
+                img = np.array(Image.open(io.BytesIO(base64.b64decode(body["images"][0].split(",", 1)[1]))))
+                shape, out_ok = img.shape, img.shape == (512, 512, 3) and img.dtype == np.uint8
+            rec[tag] = dict(wall_s=wall, launches=counts, shape=list(shape))
+            g_h = counts.get("w8a8_matmul", 0) + counts.get("w8a8_quantize_rows", 0)
+            log(f"[main-serve-int8] {tag}: {wall:.4f} s | launches {counts} | output {tuple(shape)}")
+            if not g_h or not out_ok:
+                raise AssertionError(f"main-serve-int8 {tag}: G/H launches {g_h}, output {shape}")
+        pipe = api.pipeline
+        lat = _last(pipe.generate_latents(PROMPTS[1][1], num_steps=2, latent_size=(64, 64), seed=2))
+        rec["flux"]["latent_finite"] = bool(torch.isfinite(lat).all())
+        if not rec["flux"]["latent_finite"]:
+            raise AssertionError("main-serve-int8: the Flux latent is not finite")
+    finally:
+        srv.shutdown()
+    rec["resident"] = {slot: dict(model=s.model, policy=s.policy, measured_gb=s.gb) for slot, s in
+                       api.memory.slots.items()}
+    log(f"[main-serve-int8] slots {rec['resident']}")
+    return rec
+
+
+def phase_small_serve():
+    """A small SD config with every UNet and CLIP dense int8 per channel,
+    served with w8a8="fused" and attn_int8="qk", on the card (bf16, kernels
+    A int8 and G) against the CPU (f32, their plain versions) from the same
+    weights, tokens and noise."""
+    import torch
+
+    from flux_generator_tpu_torch.models.clip.text import init_clip_text, tiny_clip_config
+    from flux_generator_tpu_torch.models.sd.config import UNetConfig, tiny_sd_ae_config
+    from flux_generator_tpu_torch.models.sd.unet import init_unet
+    from flux_generator_tpu_torch.models.sd.vae import init_sd_vae
+    from flux_generator_tpu_torch.ops.quant import quantize_tree
+    from flux_generator_tpu_torch.pipelines.sd import StableDiffusion
+
+    unet_cfg = UNetConfig(block_out_channels=(64, 128), layers_per_block=(1, 1), num_attention_heads=(1, 2),
+                          cross_attention_dim=(64, 64), norm_num_groups=32, transformer_layers_per_block=(1, 1),
+                          down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                          up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"))
+    clip_cfg = tiny_clip_config(model_dims=64)
+    ae_cfg = tiny_sd_ae_config(block_out_channels=(32, 64), norm_num_groups=32)
+    g = torch.Generator().manual_seed(8)
+    params = {"unet": quantize_tree(init_unet(g, unet_cfg), lambda p: p["kernel"].ndim <= 3),
+              "vae": init_sd_vae(g, ae_cfg), "clip": quantize_tree(init_clip_text(g, clip_cfg), lambda p: True)}
+    tok = _SmallTokens()
+    pipes = {"cpu": StableDiffusion("sd", params, unet_cfg, ae_cfg, [clip_cfg], tokenizers=[tok], dtype=torch.float32,
+                                    w8a8="fused", attn_int8="qk"),
+             "gpu": StableDiffusion("sd", _to_device(params, "cuda", torch.bfloat16), unet_cfg, ae_cfg, [clip_cfg],
+                                    tokenizers=[tok], dtype=torch.bfloat16, w8a8="fused", attn_int8="qk")}
+    res = {}
+    for name, pipe in pipes.items():
+        _zero_counts()
+        with _sd_numpy_noise():
+            lat = _last(pipe.generate_latents_batch(["a red fox", "a small boat"], [3, 4], num_steps=4,
+                                                    cfg_weight=4.0, latent_size=(16, 16)))
+        res[name] = (lat.float().cpu(), pipe.decode(lat).float().cpu(), {k: v for k, v in _counts().items() if v})
+    lat_err, img_err = _rel(res["gpu"][0], res["cpu"][0]), _rel(res["gpu"][1], res["cpu"][1])
+    launches = res["gpu"][2]
+    log(f"[small-serve] SD, w8a8 fused + attn_int8 qk: latent rel-L2 {lat_err:.3e}, image rel-L2 {img_err:.3e} "
+        f"(tol {SMALL_REL_TOL}) | launches on the card {launches}, on the CPU {res['cpu'][2]}")
+    if launches.get("flash_attention_int8_qk") != 3 * 4 or not launches.get("w8a8_matmul") or res["cpu"][2]:
+        raise AssertionError(f"small-serve: launches {launches} on the card, {res['cpu'][2]} on the CPU")
+    if not (lat_err <= SMALL_REL_TOL and img_err <= SMALL_REL_TOL):
+        raise AssertionError("small-serve: the card's run disagrees with the CPU reference")
+    return dict(latent_rel_l2=lat_err, image_rel_l2=img_err, launches=launches)
+
+
 def phase_kernels_train():
     """Kernels E (dQ) and F (dK, dV) through the autograd function against the
     plain backward in f32, at Flux-dev training's shape (512 text + 1024
@@ -3364,6 +3992,7 @@ def main() -> int:
     build_info = phase_build()
     kernels = run(phase_kernels)
     kernels.update(run(phase_kernels_sd))
+    kernels.update(run(phase_kernels_sd_long))
     kernels.update(run(phase_kernels_musicgen))
     kernels.update(run(phase_kernels_musicgen_f8))
     kernels.update(run(phase_kernels_chain))
@@ -3385,12 +4014,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_train = run(phase_main_train)
     main_sd = run(phase_main_sd)
+    served, built = phase_main_serve()
+    served_int8 = run(lambda: phase_main_serve_int8(built))
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
     small = run(phase_small)
     small_tiled = run(phase_small_tiled)
     small_w8a8 = run(phase_small_w8a8)
     small_music = run(phase_small_musicgen)
     small_train = run(phase_small_train)
     small_sd = run(phase_small_sd)
+    small_serve = run(phase_small_serve)
 
     entries = []
     for mod, key, main_case, path in (
@@ -3482,8 +4117,9 @@ def main() -> int:
                   main=main_run,
                   main_w8a8=main_w8a8, main_2048=main_2048,
                   main_musicgen=main_music, main_musicgen_serve=main_serve, main_musicgen_long=main_long,
-                  main_train=main_train, main_sd=main_sd, small=small, small_tiled=small_tiled,
-                  small_w8a8=small_w8a8, small_musicgen=small_music, small_train=small_train, small_sd=small_sd)
+                  main_train=main_train, main_sd=main_sd, main_serve=served, main_serve_int8=served_int8,
+                  small=small, small_tiled=small_tiled, small_w8a8=small_w8a8, small_musicgen=small_music,
+                  small_train=small_train, small_sd=small_sd, small_serve=small_serve)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -8,8 +8,14 @@ nibbles per byte, split layout) and `kernel_scale` (f32, (…, out) per channel
 or (…, groups, out) per input group; unpacked int4 `kernel_q` is held as
 int8 with `kernel_int4` beside it), and LoRA adapters under `lora_a` /
 `lora_b`. So one converter serves trees built by the JAX package (tests),
-optimizer states included, and, later, checkpoints mapped by the jax-free
-`flux_generator_tpu.io.sanitize`.
+optimizer states included.
+
+Checkpoints reach the same layout through the port's own modules: the key
+mappers of `io/sanitize.py` (the port's copy of the JAX package's) turn a
+flat checkpoint into flat canonical paths, applying the weight transforms
+below (linear (out,in)→(in,out); conv2d OIHW→HWIO; conv1d OIK→KIO;
+convtranspose1d IOK→KIO with a time flip), and `unflatten` assembles them,
+stacking homogeneous layer stacks on a leading axis.
 """
 
 from __future__ import annotations
@@ -129,3 +135,68 @@ def _torch_to_np(t: torch.Tensor) -> np.ndarray:
 def to_numpy(tree):
     """torch tensor tree → numpy arrays (bf16 as ml_dtypes.bfloat16)."""
     return tree_map(lambda t: _torch_to_np(t) if isinstance(t, torch.Tensor) else t, tree)
+
+
+# ------------------------------------------------------------ checkpoint assembly
+
+
+def unflatten(flat: dict, stack_prefixes=()):
+    """flat {"a.0.b.kernel": tensor} → nested dicts and lists; integer-keyed
+    subtrees whose path (integers left out) is in `stack_prefixes` are
+    stacked into one tree of leading-axis tensors (the JAX package's
+    io/params.unflatten)."""
+    root = {}
+    for path, value in flat.items():
+        parts = path.split(".")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def is_int_keyed(d):
+        return isinstance(d, dict) and d and all(k.isdigit() for k in d)
+
+    def convert(node, path):
+        if not isinstance(node, dict):
+            return node
+        if is_int_keyed(node):
+            # index gaps become empty dicts: parameterless entries (EnCodec's
+            # ELU slots) never appear in checkpoints
+            n = max(int(i) for i in node) + 1
+            items = [convert(node.get(str(i), {}), path + (str(i),)) for i in range(n)]
+            if path and ".".join(p for p in path if not p.isdigit()) in stack_prefixes:
+                return _stack_trees(items)
+            return items
+        return {k: convert(v, path + (k,)) for k, v in node.items()}
+
+    return convert(root, ())
+
+
+def _stack_trees(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_stack_trees([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack([torch.as_tensor(t) for t in trees])
+
+
+def t_linear(w: torch.Tensor) -> torch.Tensor:
+    """torch Linear (out, in) → dense kernel (in, out)."""
+    return w.t().contiguous()
+
+
+def t_conv2d(w: torch.Tensor) -> torch.Tensor:
+    """OIHW → HWIO."""
+    return w.permute(2, 3, 1, 0).contiguous()
+
+
+def t_conv1d(w: torch.Tensor) -> torch.Tensor:
+    """OIK → KIO."""
+    return w.permute(2, 1, 0).contiguous()
+
+
+def t_convtr1d(w: torch.Tensor) -> torch.Tensor:
+    """ConvTranspose1d (in, out, k) → the lhs-dilated conv kernel (k, in,
+    out), flipped in time (models/musicgen/encodec._dec_convtr)."""
+    return w.permute(2, 0, 1).flip(0).contiguous()

@@ -1,10 +1,17 @@
-"""Model configurations (the numbers of flux_generator_tpu/io/registry.py:31-93
-for the Flux family, of the MusicGen-medium stack and of SD 2.1-base and
-SDXL-Turbo, over the port's own config classes; that module imports the JAX
-model modules, so it is not imported here). Nothing is downloaded: the names
-below are the public sources of the numbers."""
+"""Model configurations and checkpoint locations (the numbers and file
+names of flux_generator_tpu/io/registry.py for the Flux family, of the
+MusicGen-medium stack and of SD 2.1-base and SDXL-Turbo, over the port's own
+config classes; that module imports the JAX model modules, so it is not
+imported here). Nothing is downloaded: the repo ids name where each
+checkpoint is published, and io/loaders reads them from a local directory or
+the local Hugging Face hub cache. The FLUX_DEV / FLUX_SCHNELL / AE
+environment variables name a checkpoint file in place of the registry's."""
 
 from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
 
 from ..models.clip.text import CLIPTextConfig
 from ..models.flux.autoencoder import AutoEncoderConfig
@@ -28,13 +35,30 @@ _FLUX_BASE = dict(
     qkv_bias=True,
 )
 
-FLUX_FLOW_CONFIGS = {
-    "flux-dev": FluxConfig(guidance_embed=True, **_FLUX_BASE),
-    "flux-schnell": FluxConfig(guidance_embed=False, **_FLUX_BASE),
-}
 
-# T5 token padding length per model
-FLUX_T5_MAX_LENGTH = {"flux-dev": 512, "flux-schnell": 256}
+
+@dataclasses.dataclass(frozen=True)
+class FluxModelSpec:
+    repo_id: str
+    repo_flow: str  # the flow's file in the repo
+    repo_ae: str  # the autoencoder's
+    ckpt_env: Optional[str]  # environment variable naming a flow file in its place
+    flow: FluxConfig
+    ae: AutoEncoderConfig
+    t5_max_length: int  # T5 token padding length
+
+
+FLUX_MODELS = {
+    "flux-dev": FluxModelSpec(
+        repo_id="black-forest-labs/FLUX.1-dev", repo_flow="flux1-dev.safetensors", repo_ae="ae.safetensors",
+        ckpt_env="FLUX_DEV", flow=FluxConfig(guidance_embed=True, **_FLUX_BASE), ae=AutoEncoderConfig(),
+        t5_max_length=512),
+    "flux-schnell": FluxModelSpec(
+        repo_id="black-forest-labs/FLUX.1-schnell", repo_flow="flux1-schnell.safetensors",
+        repo_ae="ae.safetensors", ckpt_env="FLUX_SCHNELL", flow=FluxConfig(guidance_embed=False, **_FLUX_BASE),
+        ae=AutoEncoderConfig(), t5_max_length=256),
+}
+FLUX_T5_MAX_LENGTH = {name: spec.t5_max_length for name, spec in FLUX_MODELS.items()}
 
 # CLIP-L and T5-XXL as used by Flux
 FLUX_CLIP_CONFIG = CLIPTextConfig(
@@ -56,7 +80,18 @@ FLUX_T5_CONFIG = T5Config(
 
 def flux_configs(name: str):
     """(flow, autoencoder, CLIP, T5) configs of a Flux model name."""
-    return FLUX_FLOW_CONFIGS[name], AutoEncoderConfig(), FLUX_CLIP_CONFIG, FLUX_T5_CONFIG
+    spec = FLUX_MODELS[name]
+    return spec.flow, spec.ae, FLUX_CLIP_CONFIG, FLUX_T5_CONFIG
+
+
+def flux_ckpt_override(name: str) -> Optional[str]:
+    """The flow file named by the model's environment variable, if set."""
+    env = FLUX_MODELS[name].ckpt_env
+    return os.getenv(env) if env else None
+
+
+def ae_ckpt_override() -> Optional[str]:
+    return os.getenv("AE")
 
 
 # MusicGen-medium (facebook/musicgen-medium): 48 decoder layers, hidden 1536,

@@ -132,9 +132,9 @@ def _materialize(p: dict, dtype) -> torch.Tensor:
     return p["kernel"].to(dtype)
 
 
-def condition_text(params, t5_features):
+def condition_text(params, t5_features, w8a8=None):
     """Project T5 encoder output into the decoder width."""
-    return dense(params["text_proj"], t5_features)
+    return dense(params["text_proj"], t5_features, w8a8)
 
 
 def precompute_cross_kv(params, cfg: MusicGenConfig, conditioning):
@@ -198,12 +198,14 @@ def _logits(params, x):
 
 
 def decode_step(params, cfg: MusicGenConfig, tokens, cross_kv, k_cache, v_cache, offset: int,
-                cond_len=None):
+                cond_len=None, w8a8=None):
     """One AR step as a plain layer loop. tokens (B, 1, K); caches (L, B,
     S_max, heads, head_dim), written in place at row `offset`; cond_len an
     optional (B,) tensor masking text positions ≥ cond_len[b]. Self-attention
-    reads rows 0..offset only. Returns (logits (B, 1, V, K), k_cache,
-    v_cache)."""
+    reads rows 0..offset only. `w8a8` takes the dense projections (not the
+    cross-attention's q, which reads its kernel dequantized) through int8
+    activations, as the JAX package's `dense` does under set_w8a8. Returns
+    (logits (B, 1, V, K), k_cache, v_cache)."""
     nh = cfg.num_attention_heads
     hid = cfg.hidden_size
     x = _embed_tokens(params, cfg, tokens, offset)
@@ -218,22 +220,22 @@ def decode_step(params, cfg: MusicGenConfig, tokens, cross_kv, k_cache, v_cache,
     for li in range(cfg.num_hidden_layers):
         p = take_layer(params["layers"], li)
         y = layer_norm(x, p["norm1"])
-        qkv = dense(p["self_attn"]["qkv"], y)
+        qkv = dense(p["self_attn"]["qkv"], y, w8a8)
         q = _heads(qkv[..., :hid], nh)
         k_cache[li, :, offset] = _kv_store(_heads(qkv[..., hid:2 * hid], nh)[:, 0], k_cache.dtype)
         v_cache[li, :, offset] = _kv_store(_heads(qkv[..., 2 * hid:], nh)[:, 0], v_cache.dtype)
         kc = _kv_load(k_cache[li, :, :offset + 1], dtype)
         vc = _kv_load(v_cache[li, :, :offset + 1], dtype)
         attn = dot_product_attention(q, kc, vc)
-        x = x + dense(p["self_attn"]["o"], attn.reshape(b, 1, -1))
+        x = x + dense(p["self_attn"]["o"], attn.reshape(b, 1, -1), w8a8)
 
         y = layer_norm(x, p["norm_cross"])
         q = _heads(y @ _materialize(p["cross_attn"]["qkv"], y.dtype)[:, :hid], nh)
         attn = dot_product_attention(q, cross_k[li], cross_v[li], mask=cross_mask)
-        x = x + dense(p["cross_attn"]["o"], attn.reshape(b, 1, -1))
+        x = x + dense(p["cross_attn"]["o"], attn.reshape(b, 1, -1), w8a8)
 
         y = layer_norm(x, p["norm2"])
-        x = x + dense(p["linear2"], F.gelu(dense(p["linear1"], y), approximate="none"))
+        x = x + dense(p["linear2"], F.gelu(dense(p["linear1"], y, w8a8), approximate="none"), w8a8)
     return _logits(params, x), k_cache, v_cache
 
 
@@ -269,7 +271,7 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
              temperature: float = 1.0, guidance_coef: float = 3.0,
              generator: Optional[torch.Generator] = None, live_steps=None, cond_len=None,
              generators: Optional[Sequence[torch.Generator]] = None, kv_dtype: str = "bf16",
-             step_events: Optional[list] = None):
+             step_events: Optional[list] = None, w8a8: Optional[str] = None):
     """Delay-pattern codes for conditioning (n, S, H), n samples in one
     batched loop of exactly `max_steps` steps. Returns codes (n, K,
     max_steps - K + 1), delay undone.
@@ -283,7 +285,10 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
     kv_dtype: "bf16" (the activation dtype) or "f8" (e4m3 caches, the JAX
     package's FGT_MG_KV=f8), on either route.
     step_events: optional list (CUDA only) that receives a timing event
-    recorded before the loop and one after each step."""
+    recorded before the loop and one after each step.
+    w8a8: a W8A8 route of the plain layer loop's projections (decode_step);
+    the fused step reads its weights itself, as the JAX package's Pallas
+    step does, so the route does not change it."""
     device = conditioning.device
     K = cfg.num_codebooks
     n = conditioning.shape[0]
@@ -333,7 +338,7 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
                                                          v_cache, offset, cond_len=cl2)
         else:
             logits, k_cache, v_cache = decode_step(params, cfg, tok2, cross_kv, k_cache, v_cache,
-                                                   offset, cond_len=cl2)
+                                                   offset, cond_len=cl2, w8a8=w8a8)
         cond_l, uncond_l = logits[:n, 0], logits[n:, 0]  # (n, V, K)
         mixed = uncond_l + (cond_l - uncond_l) * guidance_coef
         sampled = top_k_sample(generator, mixed, top_k, temperature)  # (n, K)

@@ -10,6 +10,12 @@ leading axis, as the JAX tree stacks them for its `lax.scan`, and a loop runs
 them. Self-attention takes kernel A where the JAX package sends it to its
 Pallas kernel (`_self_attention`); cross-attention and the shorter
 self-attention sequences take the plain attention, as there.
+
+`w8a8` (a route of ops.linear.dense) and `attn_int8` ("", "qk" or "full",
+kernel A's int8 tiers) are the JAX package's process-wide `set_w8a8` and
+`set_attn_int8`, passed down every call: `w8a8` reaches every dense layer,
+`attn_int8` every self-attention that takes kernel A (the tier is dropped
+past 6144 tokens, as the JAX wrapper drops it).
 """
 
 from __future__ import annotations
@@ -160,68 +166,70 @@ def init_unet(generator: torch.Generator, cfg: UNetConfig, dtype=torch.float32, 
 # ------------------------------------------------------------ forward
 
 
-def _self_attention(q, k, v):
+def _self_attention(q, k, v, attn_int8: str = ""):
     """(B, L, H, D) self-attention: kernel A (its plain version on CPU
     tensors) where the JAX package takes its Pallas flash kernel, L ≥ 256
-    and D a multiple of 64; the plain attention otherwise."""
+    and D a multiple of 64, in the int8 tier `attn_int8` up to 6144 tokens;
+    the plain attention otherwise."""
     if q.shape[1] >= FLASH_MIN_LEN and q.shape[-1] % 64 == 0:
-        return fa.flash_attention(q, k, v)
+        return fa.flash_attention(q, k, v, int8=attn_int8)
     return dot_product_attention(q, k, v)
 
 
-def _transformer_block(p, x, memory, num_heads):
+def _transformer_block(p, x, memory, num_heads, w8a8=None, attn_int8=""):
     b, l, d = x.shape
     y = layer_norm(x, p["norm1"])
-    q = dense(p["attn1"]["q"], y).reshape(b, l, num_heads, -1)
-    k = dense(p["attn1"]["k"], y).reshape(b, l, num_heads, -1)
-    v = dense(p["attn1"]["v"], y).reshape(b, l, num_heads, -1)
-    x = x + dense(p["attn1"]["o"], _self_attention(q, k, v).reshape(b, l, d))
+    q = dense(p["attn1"]["q"], y, w8a8).reshape(b, l, num_heads, -1)
+    k = dense(p["attn1"]["k"], y, w8a8).reshape(b, l, num_heads, -1)
+    v = dense(p["attn1"]["v"], y, w8a8).reshape(b, l, num_heads, -1)
+    x = x + dense(p["attn1"]["o"], _self_attention(q, k, v, attn_int8).reshape(b, l, d), w8a8)
 
     y = layer_norm(x, p["norm2"])
     s = memory.shape[1]
-    q = dense(p["attn2"]["q"], y).reshape(b, l, num_heads, -1)
-    k = dense(p["attn2"]["k"], memory).reshape(b, s, num_heads, -1)
-    v = dense(p["attn2"]["v"], memory).reshape(b, s, num_heads, -1)
-    x = x + dense(p["attn2"]["o"], dot_product_attention(q, k, v).reshape(b, l, d))
+    q = dense(p["attn2"]["q"], y, w8a8).reshape(b, l, num_heads, -1)
+    k = dense(p["attn2"]["k"], memory, w8a8).reshape(b, s, num_heads, -1)
+    v = dense(p["attn2"]["v"], memory, w8a8).reshape(b, s, num_heads, -1)
+    x = x + dense(p["attn2"]["o"], dot_product_attention(q, k, v).reshape(b, l, d), w8a8)
 
     y = layer_norm(x, p["norm3"])
-    y = dense(p["linear1"], y) * F.gelu(dense(p["linear2"], y))
-    return x + dense(p["linear3"], y)
+    y = dense(p["linear1"], y, w8a8) * F.gelu(dense(p["linear2"], y, w8a8))
+    return x + dense(p["linear3"], y, w8a8)
 
 
-def _transformer2d(p, x, memory, num_heads, groups):
+def _transformer2d(p, x, memory, num_heads, groups, w8a8=None, attn_int8=""):
     b, h, w, c = x.shape
     # Transformer2D's GroupNorm takes eps 1e-6, the resnets' 1e-5, as the
     # weights' own convention (flux_generator_tpu/models/sd/unet.py:241-250)
     y = group_norm(x, p["norm"], groups, eps=1e-6).reshape(b, h * w, c)
-    y = dense(p["proj_in"], y)
+    y = dense(p["proj_in"], y, w8a8)
     blocks = p["blocks"]
     for i in range(num_layers(blocks)):
-        y = _transformer_block(take_layer(blocks, i), y, memory, num_heads)
-    y = dense(p["proj_out"], y)
+        y = _transformer_block(take_layer(blocks, i), y, memory, num_heads, w8a8, attn_int8)
+    y = dense(p["proj_out"], y, w8a8)
     return x + y.reshape(b, h, w, c)
 
 
-def _resnet(p, x, temb, groups):
+def _resnet(p, x, temb, groups, w8a8=None):
     y = F.silu(group_norm(x, p["norm1"], groups))
     y = conv2d(p["conv1"], y, padding=1)
     if temb is not None and "time_emb_proj" in p:
-        y = y + dense(p["time_emb_proj"], F.silu(temb))[:, None, None, :]
+        y = y + dense(p["time_emb_proj"], F.silu(temb), w8a8)[:, None, None, :]
     y = F.silu(group_norm(y, p["norm2"], groups))
     y = conv2d(p["conv2"], y, padding=1)
     if "conv_shortcut" in p:
-        x = dense(p["conv_shortcut"], x)
+        x = dense(p["conv_shortcut"], x, w8a8)
     return x + y
 
 
-def _unet_block(p, cfg: UNetConfig, i, x, memory, temb, residuals=None):
+def _unet_block(p, cfg: UNetConfig, i, x, memory, temb, residuals=None, w8a8=None, attn_int8=""):
     outputs = []
     for j, res in enumerate(p["resnets"]):
         if residuals is not None:
             x = torch.cat([x, residuals.pop()], dim=-1)
-        x = _resnet(res, x, temb, cfg.norm_num_groups)
+        x = _resnet(res, x, temb, cfg.norm_num_groups, w8a8)
         if "attentions" in p:
-            x = _transformer2d(p["attentions"][j], x, memory, cfg.num_attention_heads[i], cfg.norm_num_groups)
+            x = _transformer2d(p["attentions"][j], x, memory, cfg.num_attention_heads[i], cfg.norm_num_groups,
+                               w8a8, attn_int8)
         outputs.append(x)
     if "downsample" in p:
         x = conv2d(p["downsample"], x, stride=2, padding=1)
@@ -232,40 +240,42 @@ def _unet_block(p, cfg: UNetConfig, i, x, memory, temb, residuals=None):
     return x, outputs
 
 
-def compute_temb(params, cfg: UNetConfig, timestep, text_time, dtype):
+def compute_temb(params, cfg: UNetConfig, timestep, text_time, dtype, w8a8=None):
     """The time embedding, plus SDXL's text_time added embedding when
     `text_time` = (pooled text (B, P), time_ids (B, 6)) is given."""
     temb = timestep_embedding(timestep.float(), cfg.block_out_channels[0], time_factor=1.0).to(dtype)
     te = params["time_embedding"]
-    temb = dense(te["linear_2"], F.silu(dense(te["linear_1"], temb)))
+    temb = dense(te["linear_2"], F.silu(dense(te["linear_1"], temb, w8a8)), w8a8)
     if text_time is not None:
         text_emb, time_ids = text_time
         add = timestep_embedding(time_ids.float().reshape(-1), cfg.addition_time_embed_dim, time_factor=1.0)
         add = torch.cat([text_emb, add.reshape(time_ids.shape[0], -1).to(dtype)], dim=-1)
         ae = params["add_embedding"]
-        temb = temb + dense(ae["linear_2"], F.silu(dense(ae["linear_1"], add)))
+        temb = temb + dense(ae["linear_2"], F.silu(dense(ae["linear_1"], add, w8a8)), w8a8)
     return temb
 
 
-def unet_forward(params, cfg: UNetConfig, x, timestep, encoder_x, text_time=None):
+def unet_forward(params, cfg: UNetConfig, x, timestep, encoder_x, text_time=None, w8a8=None, attn_int8=""):
     """x (B, H, W, in) latents, timestep (B,), encoder_x (B, S, context) →
-    (B, H, W, out); `text_time` as in `compute_temb` (SDXL)."""
-    temb = compute_temb(params, cfg, timestep, text_time, x.dtype)
+    (B, H, W, out); `text_time` as in `compute_temb` (SDXL); `w8a8` and
+    `attn_int8` as in the module docstring."""
+    temb = compute_temb(params, cfg, timestep, text_time, x.dtype, w8a8)
     x = conv2d(params["conv_in"], x, padding=(cfg.conv_in_kernel - 1) // 2)
 
     residuals = [x]
     for i, blk in enumerate(params["down_blocks"]):
-        x, outs = _unet_block(blk, cfg, i, x, encoder_x, temb)
+        x, outs = _unet_block(blk, cfg, i, x, encoder_x, temb, w8a8=w8a8, attn_int8=attn_int8)
         residuals.extend(outs)
 
     groups = cfg.norm_num_groups
-    x = _resnet(params["mid_blocks"][0], x, temb, groups)
-    x = _transformer2d(params["mid_blocks"][1], x, encoder_x, cfg.num_attention_heads[-1], groups)
-    x = _resnet(params["mid_blocks"][2], x, temb, groups)
+    x = _resnet(params["mid_blocks"][0], x, temb, groups, w8a8)
+    x = _transformer2d(params["mid_blocks"][1], x, encoder_x, cfg.num_attention_heads[-1], groups, w8a8, attn_int8)
+    x = _resnet(params["mid_blocks"][2], x, temb, groups, w8a8)
 
     n = len(cfg.block_out_channels)
     for idx, blk in enumerate(params["up_blocks"]):
-        x, _ = _unet_block(blk, cfg, n - 1 - idx, x, encoder_x, temb, residuals=residuals)
+        x, _ = _unet_block(blk, cfg, n - 1 - idx, x, encoder_x, temb, residuals=residuals, w8a8=w8a8,
+                           attn_int8=attn_int8)
 
     x = F.silu(group_norm(x, params["conv_norm_out"], groups))
     return conv2d(params["conv_out"], x, padding=(cfg.conv_out_kernel - 1) // 2)

@@ -152,3 +152,33 @@ def to_k_major(tree):
         for v in tree:
             to_k_major(v)
     return tree
+
+
+def quantize_tree_to_device(params, predicate=default_predicate, bits: int = 8, group_size: int = None,
+                            pack: bool = False, dtype=None, device=None):
+    """`quantize_tree` of a host tree, streamed to `device` one tensor at a
+    time (the JAX package's quantize_tree_to_device): each accepted dense
+    kernel is quantized on the CPU and only its int8 or packed copy moves,
+    so the full-precision tree never lies on the card beside its quantized
+    copy. Floating leaves that are not quantized, and the biases of those
+    that are, are cast to `dtype` first; the scales stay f32."""
+
+    def put(x):
+        return x.to(device) if device is not None else x
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "kernel" in node and node["kernel"].ndim >= 2 and predicate(node):
+                gs = group_size if group_size and node["kernel"].shape[-2] % group_size == 0 else None
+                q = quantize_dense({k: v.cpu() for k, v in node.items()}, bits, group_size=gs, pack=pack)
+                if dtype is not None and "bias" in q:
+                    q["bias"] = q["bias"].to(dtype)
+                return {k: put(v) for k, v in q.items()}
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if dtype is not None and node.is_floating_point():
+            node = node.to(dtype)
+        return put(node)
+
+    return to_k_major(walk(params))

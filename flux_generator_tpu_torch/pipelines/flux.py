@@ -121,6 +121,16 @@ class FluxPipeline:
         return cls(name, params, flow_cfg, ae_cfg, clip_cfg, t5_cfg, dtype=dtype, w8a8=w8a8,
                    attn_int8=attn_int8)
 
+    @classmethod
+    def from_pretrained(cls, name: str = "flux-schnell", dtype=torch.bfloat16, device=None, **kwargs):
+        """The pipeline of a checkpoint (io/loaders.load_flux_pipeline): the
+        registry's repo in the local hub cache, or `local_dir=`; `quantize`
+        False, True / "int8" or "int4"; on `device` (the current CUDA device
+        when None)."""
+        from ..io.loaders import load_flux_pipeline
+
+        return load_flux_pipeline(name, dtype=dtype, device=device, **kwargs)
+
     # -------------------------------------------------- text conditioning
 
     def tokenize(self, text: str):
@@ -301,7 +311,13 @@ class FluxPipeline:
         n = len(texts)
         rows = [self.tokenize(text) for text in texts]
         t5_tokens = torch.cat([t5 for t5, _ in rows])
-        clip_tokens = torch.cat([clip for _, clip in rows])
+        # CLIP rows come padded to their own length: pad each to the longest
+        # with its last token (EOS), as the tokenizer pads a batch; CLIP is
+        # causal and pools at the first EOS, so a row's pooled output keeps
+        # its value
+        width = max(clip.shape[1] for _, clip in rows)
+        clip_tokens = torch.cat([torch.nn.functional.pad(clip, (0, width - clip.shape[1]), value=int(clip[0, -1]))
+                                 for _, clip in rows])
         priors = [sampler_mod.sample_prior(make_generator(device, None if s is None else int(s)),
                                            (1, h, w, self.ae_cfg.z_channels), self.dtype) for s in seeds]
         x_t = pack_latents(torch.cat(priors))

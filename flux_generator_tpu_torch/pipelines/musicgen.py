@@ -11,7 +11,10 @@ serve XLA's compile cache, which eager PyTorch does not have.
 `generate_requests` serves several users at once: their requests run in one
 batched AR loop, each with its own prompt, duration and seed. `kv_dtype`
 ("bf16" or "f8") picks the self-attention cache's storage, the JAX
-package's FGT_MG_KV.
+package's FGT_MG_KV. `w8a8` (a route of ops.linear.dense) is the JAX
+package's process-wide `set_w8a8(True)`: it reaches T5's and `text_proj`'s
+int8 per-channel dense layers and the plain decode step's projections; the
+fused step (kernel D) reads its weights itself and is not changed by it.
 """
 
 from __future__ import annotations
@@ -42,9 +45,10 @@ def _next_pow2_bucket(s: int, floor: int = 16) -> int:
 class MusicGenPipeline:
     def __init__(self, cfg: mg.MusicGenConfig, params: dict, t5_cfg: T5Config, t5_params: dict,
                  audio_decoder: EncodecModel, tokenizer=None, dtype=torch.float32,
-                 kv_dtype: str = "bf16"):
+                 kv_dtype: str = "bf16", w8a8: Optional[str] = None):
         mg.kv_cache_dtype(kv_dtype, dtype)  # raises for an unknown kv_dtype
         self.kv_dtype = kv_dtype
+        self.w8a8 = w8a8
         self.cfg = cfg
         self.params = params
         self.t5_cfg = t5_cfg
@@ -61,7 +65,7 @@ class MusicGenPipeline:
     @classmethod
     def random_init(cls, tiny: bool = True, dtype=torch.float32, device=None,
                     generator: Optional[torch.Generator] = None, kv_dtype: str = "bf16",
-                    **cfg_overrides):
+                    w8a8: Optional[str] = None, **cfg_overrides):
         """Randomly initialized pipeline on `device`, drawn from `generator`
         (seed 0 on `device` when None); with neither given, on the current
         CUDA device, raising where there is none. tiny=False draws MusicGen-medium,
@@ -93,7 +97,19 @@ class MusicGenPipeline:
             EncodecModel.random_init(enc_cfg, generator, torch.float32, device),
             dtype=dtype,
             kv_dtype=kv_dtype,
+            w8a8=w8a8,
         )
+
+    @classmethod
+    def from_pretrained(cls, repo: str = "facebook/musicgen-medium", dtype=torch.bfloat16, quantize: bool = False,
+                        device=None, **kwargs):
+        """The pipeline of a checkpoint (io/loaders.load_musicgen_pipeline):
+        the repo in the local hub cache, or `local_dir=`; on `device` (the
+        current CUDA device when None). `quantize` puts the decoder's and
+        T5's dense layers in int8."""
+        from ..io.loaders import load_musicgen_pipeline
+
+        return load_musicgen_pipeline(repo, dtype=dtype, quantize=quantize, device=device, **kwargs)
 
     def conditioning(self, text: str) -> torch.Tensor:
         """Prompt → projected T5 features (1, S, hidden) in the pipeline dtype."""
@@ -103,8 +119,8 @@ class MusicGenPipeline:
                               device=self.device)
         if tokens.dim() == 1:
             tokens = tokens[None]
-        feats = t5_encode(self.t5_params, self.t5_cfg, tokens).to(self.dtype)
-        return mg.condition_text(self.params, feats)
+        feats = t5_encode(self.t5_params, self.t5_cfg, tokens, self.w8a8).to(self.dtype)
+        return mg.condition_text(self.params, feats, self.w8a8)
 
     def _mark(self, trace, key, t0):
         """With a trace, the seconds since t0 under `key`, ended by a device
@@ -128,7 +144,7 @@ class MusicGenPipeline:
         generator = make_generator(conditioning.device, seed)
         return mg.generate(self.params, self.cfg, conditioning, int(max_steps), int(top_k),
                            float(temp), float(guidance_coef), generator, kv_dtype=self.kv_dtype,
-                           step_events=step_events)
+                           step_events=step_events, w8a8=self.w8a8)
 
     def _decode(self, codes):
         """codes (n, K, T) → waveforms (n, T·hop, C)."""
@@ -192,7 +208,7 @@ class MusicGenPipeline:
         codes = mg.generate(self.params, self.cfg, cond, max(steps), int(top_k), float(temp),
                             float(guidance_coef), live_steps=torch.tensor(steps, device=self.device),
                             cond_len=cond_len, generators=generators, kv_dtype=self.kv_dtype,
-                            step_events=events)
+                            step_events=events, w8a8=self.w8a8)
         t0 = self._mark(trace, "ar_s", t0)
         k = self.cfg.num_codebooks
         codes = [codes[i:i + 1, :, :st - k + 1] for i, st in enumerate(steps)]

@@ -16,6 +16,12 @@ img2img's noise) and then each ancestral step's noise, where the JAX package
 splits a key. PyTorch runs eagerly, so the JAX package's jitted step becomes
 a plain loop; the schedule and the sigma table live on the device, so a
 request queues its steps without a host synchronisation.
+
+`w8a8` and `attn_int8` are the W8A8 serving configuration, as on
+FluxPipeline: the JAX package's process-wide `set_w8a8(True)` (with
+FGT_W8A8_IMPL) and `set_attn_int8`, here attributes of the pipeline passed
+to every UNet and CLIP call (`w8a8` reaches their int8 per-channel dense
+layers, `attn_int8` the UNet's self-attentions that take kernel A).
 """
 
 from __future__ import annotations
@@ -53,8 +59,11 @@ class StableDiffusion:
     default_model = "stabilityai/stable-diffusion-2-1-base"
 
     def __init__(self, model: str, params: dict, unet_cfg: UNetConfig, ae_cfg: AutoencoderConfig, clip_cfgs,
-                 diffusion_cfg: DiffusionConfig = DiffusionConfig(), tokenizers=None, dtype=torch.bfloat16):
+                 diffusion_cfg: DiffusionConfig = DiffusionConfig(), tokenizers=None, dtype=torch.bfloat16,
+                 w8a8: Optional[str] = None, attn_int8: str = ""):
         self.model = model
+        self.w8a8 = w8a8
+        self.attn_int8 = attn_int8
         self.params = params
         self.unet_cfg = unet_cfg
         self.ae_cfg = ae_cfg
@@ -78,7 +87,8 @@ class StableDiffusion:
 
     @classmethod
     def random_init(cls, model: Optional[str] = None, tiny: bool = False, dtype=torch.bfloat16, device=None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, w8a8: Optional[str] = None,
+                    attn_int8: str = ""):
         """Randomly initialized pipeline on `device`, drawn from `generator`
         (seed 0 on `device` when None): the JAX package's tiny configs when
         `tiny`, else the full published configuration
@@ -104,7 +114,19 @@ class StableDiffusion:
         }
         if len(clip_cfgs) > 1:
             params["clip_2"] = init_clip_text(generator, clip_cfgs[1], dtype, device)
-        return cls(model, params, unet_cfg, ae_cfg, clip_cfgs, dtype=dtype)
+        return cls(model, params, unet_cfg, ae_cfg, clip_cfgs, dtype=dtype, w8a8=w8a8, attn_int8=attn_int8)
+
+    @classmethod
+    def from_pretrained(cls, model: Optional[str] = None, dtype=torch.bfloat16, quantize: bool = False,
+                        device=None, **kwargs):
+        """The pipeline of a checkpoint (io/loaders.load_sd_pipeline): a
+        diffusers repo in the local hub cache, or `local_dir=`; on `device`
+        (the current CUDA device when None). `quantize` puts the UNet's and
+        CLIP's dense layers in int8."""
+        from ..io.loaders import load_sd_pipeline
+
+        return load_sd_pipeline(model or cls.default_model, cls=cls, dtype=dtype, quantize=quantize,
+                                device=device, **kwargs)
 
     # -------------------------------------------------- conditioning
 
@@ -131,7 +153,7 @@ class StableDiffusion:
         return self._pad_rows(rows, tokenizer, cfg)
 
     def _text_encode(self, clip_params, tokens):
-        return clip_text_forward(clip_params, self.clip_cfgs[0], tokens)["last_hidden_state"]
+        return clip_text_forward(clip_params, self.clip_cfgs[0], tokens, self.w8a8)["last_hidden_state"]
 
     def get_text_conditioning(self, text, n_images=1, cfg_weight=7.5, negative_text=""):
         """(rows, 77, context) in the working dtype: the prompt's rows, then
@@ -151,7 +173,8 @@ class StableDiffusion:
     def _eps(self, x_t, t, conditioning, cfg_weight, cfg_on, text_time):
         x_in = torch.cat([x_t, x_t]) if cfg_on else x_t
         t_in = t.expand(x_in.shape[0])
-        eps = unet_forward(self.params["unet"], self.unet_cfg, x_in, t_in, conditioning, text_time=text_time)
+        eps = unet_forward(self.params["unet"], self.unet_cfg, x_in, t_in, conditioning, text_time=text_time,
+                           w8a8=self.w8a8, attn_int8=self.attn_int8)
         if cfg_on:
             eps_text, eps_neg = eps.chunk(2)
             # the weight rounded to eps's dtype first, as the JAX package casts it
@@ -345,8 +368,8 @@ class StableDiffusionXL(StableDiffusion):
         return unet_cfg, tiny_sd_ae_config(), [clip1, clip2]
 
     def _encode_both(self, toks1, toks2):
-        out1 = clip_text_forward(self.params["clip"], self.clip_cfgs[0], toks1)
-        out2 = clip_text_forward(self.params["clip_2"], self.clip_cfgs[1], toks2)
+        out1 = clip_text_forward(self.params["clip"], self.clip_cfgs[0], toks1, self.w8a8)
+        out2 = clip_text_forward(self.params["clip_2"], self.clip_cfgs[1], toks2, self.w8a8)
         conditioning = torch.cat([out1["hidden_states"][-2], out2["hidden_states"][-2]], dim=-1).to(self.dtype)
         return conditioning, out2["pooled_output"].to(self.dtype)
 

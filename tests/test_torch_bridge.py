@@ -133,7 +133,10 @@ _LOADED = ("[m for m in sys.modules if m in ('jax', 'flux_generator_tpu') "
 def test_pipeline_import_does_not_load_jax():
     proc = _run("import sys, flux_generator_tpu_torch.pipelines.flux, "
                 "flux_generator_tpu_torch.pipelines.musicgen, flux_generator_tpu_torch.pipelines.sd, "
-                "flux_generator_tpu_torch.training.dreambooth\n"
+                "flux_generator_tpu_torch.training.dreambooth, flux_generator_tpu_torch.server.app, "
+                "flux_generator_tpu_torch.server.api, flux_generator_tpu_torch.server.memory, "
+                "flux_generator_tpu_torch.io.loaders, flux_generator_tpu_torch.io.sanitize, "
+                "flux_generator_tpu_torch.runtime.profiling, flux_generator_tpu_torch.utils.audio\n"
                 f"loaded = {_LOADED}\n"
                 "assert not loaded, loaded")
     assert proc.returncode == 0, proc.stderr

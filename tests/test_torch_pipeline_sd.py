@@ -340,11 +340,12 @@ def test_pipeline_with_kernel_a_route_matches_jax(request, monkeypatch):
     pipe_t = _port_pipeline(pipe_j)
     calls = []
     real = fa.flash_attention
-    monkeypatch.setattr(fa, "flash_attention", lambda q, k, v: calls.append(tuple(q.shape)) or real(q, k, v))
+    monkeypatch.setattr(fa, "flash_attention",
+                        lambda q, k, v, int8="": calls.append(tuple(q.shape) + (int8,)) or real(q, k, v, int8=int8))
     request.getfixturevalue("draws").request(8, 0)  # after the JAX init, which draws normals
     kw = dict(num_steps=2, cfg_weight=4.0, latent_size=(16, 16), seed=8)
     _assert_steps_equal(pipe_t.generate_latents("a red fox", **kw), pipe_j.generate_latents("a red fox", **kw), 2)
-    assert calls == [(2, 256, 1, 64)] * 2
+    assert calls == [(2, 256, 1, 64, "")] * 2
 
 
 def test_random_init_tiny_configs_match_jax():

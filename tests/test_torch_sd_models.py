@@ -291,14 +291,16 @@ def test_self_attention_reaches_kernel_a_as_in_jax(name, monkeypatch):
                               addition_time_embed_dim=8 if full.addition_embed_type else None,
                               projection_class_embeddings_input_dim=8 + 6 * 8 if full.addition_embed_type else None)
     params = tunet.init_unet(torch.Generator().manual_seed(1), cfg)
-    calls = []
-    monkeypatch.setattr(fa, "flash_attention", lambda q, k, v: calls.append(q.shape[1]) or torch.zeros_like(q))
+    calls, tiers = [], []
+    monkeypatch.setattr(fa, "flash_attention",
+                        lambda q, k, v, int8="": calls.append(q.shape[1]) or tiers.append(int8) or torch.zeros_like(q))
     x, ctx = torch.zeros(1, 64, 64, 4), torch.zeros(1, 77, 16)
     tt = (torch.zeros(1, 8), torch.zeros(1, 6)) if full.addition_embed_type else None
     out = tunet.unet_forward(params, cfg, x, torch.tensor([999.0]), ctx, tt)
     assert out.shape == (1, 64, 64, 4)
     assert {length: calls.count(length) for length in set(calls)} == A_CALLS[name]
     assert len(calls) == (15 if name == "stable-diffusion-2-1-base" else 70)
+    assert set(tiers) == {""}  # no int8 tier unless the caller asks for one
 
 
 # ------------------------------------------------------------ VAE and CLIP
