@@ -155,6 +155,29 @@ Phases, each of which fails the run on error:
                       W8A8 route, its pipelines quantized as the loaders do:
                       one Flux, one SD 2.1 and one music request, each with
                       G or H launched.
+     main-cli       — the five CLIs (flux_generator_tpu_torch/cli) from
+                      synthetic caches at full published width, written in
+                      bf16 (t5-base and EnCodec in f32) by io/synthetic in
+                      the hub layout into a temporary HF_HUB_CACHE, one
+                      family at a time and deleted before the next: each
+                      family's write and its from_pretrained load timed
+                      with the host's peak RSS; each CLI's run(pipeline,
+                      args) against the same pipeline's direct call, the
+                      PNG or WAV equal byte for byte, with exact A, RoPE
+                      pre-pass, C and D launches (txt2image 2 images: 228
+                      and 228; sd_txt2image SD 2.1: 750, SDXL-Turbo batch
+                      4: 140, and with --quantize, int8 UNet and CLIPs:
+                      140; image2image on the SD 2.1 PNG: 70;
+                      musicgen_generate: C 2, D 500); the music CLI once
+                      more as a real `python -m` subprocess (50 steps: exit
+                      0, a WAV, no jax module imported); t5_generate's 64
+                      greedy tokens on the card equal to a CPU f32 run's.
+     main-codec     — EnCodec's encoder at full width on the card on that
+                      500-step WAV read back with `wave`: C's 2 launches, the
+                      embedding against the CPU's f32 plain path (rel-L2),
+                      the share of codes equal to the CPU's with a control
+                      that must miss (another seed's weights), decode of
+                      the codes, encode's time and C's share of it.
  11. small          — a small Flux config run on the card (bf16, kernels) and on
                       the CPU (f32, plain versions) from the same weights and noise.
      small-tiled    — the same config past the untiled sizes: a tiled decode
@@ -189,11 +212,14 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -3901,6 +3927,455 @@ def _profile_record(prof, per: int, wall_ms: float, tag: str, unit: str, note: s
                 top=[dict(name=k, ms=ms, calls=n // per) for k, (ms, n) in top])
 
 
+# ------------------------------------------------------------ the CLIs from checkpoints on disk
+
+CLI_PROMPT = "a photo of a cat on the mat"
+# The embedding before the RVQ, card (C) against the CPU's plain path: both
+# hold C's Wh and xw in bf16 at d 1024, the rest of the codec in f32. Both
+# controls (another seed's weights; the LSTM block skipped) must miss a limit.
+CODEC_REL_TOL = 1e-3
+CODES_MIN_SHARE = 0.99  # codes equal to the CPU's: the argmin's near ties may flip a few
+T5_LOGITS_REL_TOL = 1e-4  # t5_decode's cached logits, card against the CPU, both f32 with TF32 off
+
+
+class _RssPeak:
+    """The host's resident set, sampled every 10 ms from /proc/self/statm
+    while the block runs: `start` and `peak` in GiB."""
+
+    def __init__(self):
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self.start = self.peak = self._rss()
+
+    def _rss(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page / 2**30
+
+    def _poll(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _write_cache(tag: str, make) -> dict:
+    """make() writes one family's synthetic cache into $HF_HUB_CACHE: its
+    seconds, GB on disk and the host's peak RSS meanwhile."""
+    import torch
+
+    from flux_generator_tpu_torch.io import synthetic
+
+    hub = os.environ["HF_HUB_CACHE"]
+    before = synthetic.cache_bytes(hub)
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        make()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    gb = (synthetic.cache_bytes(hub) - before) / 1e9
+    log(f"[main-cli] {tag}: wrote {gb:.3f} GB in {seconds:.2f} s ({gb / seconds:.3f} GB/s), host peak RSS "
+        f"{rss.peak:.2f} GiB")
+    return dict(write_s=seconds, gb=gb, write_peak_rss_gib=rss.peak)
+
+
+def _load_timed(tag: str, load):
+    """load(), a CLI's own from_pretrained call: its seconds (ended by a
+    synchronize), the host's RSS before it and at its peak, and the card's
+    memory after it."""
+    import torch
+
+    _free()
+    torch.cuda.synchronize()
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        pipe = load()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    rec = dict(load_s=seconds, host_rss_before_gib=rss.start, host_peak_rss_gib=rss.peak,
+               resident_gib=torch.cuda.memory_allocated() / 2**30)
+    log(f"[main-cli] {tag}: loaded in {seconds:.2f} s | host RSS {rss.start:.2f} GiB before, peak {rss.peak:.2f} GiB "
+        f"| on the card {rec['resident_gib']:.2f} GiB")
+    return pipe, rec
+
+
+def _cli_vs_direct(tag: str, module, pipe, argv, out_flag: str, direct, out_name: str, expect: dict) -> dict:
+    """module.run(pipe, args) with every launch counter zeroed just before
+    and read just after, writing OUT/cli/out_name; then direct(path), the
+    same pipeline's direct call with the same seed, writing its file. The
+    two files equal byte for byte, and the run's launches equal `expect`
+    exactly (every counter not named there 0). The CLI's file is kept."""
+    import torch
+
+    out = OUT / "cli" / out_name
+    out.parent.mkdir(parents=True, exist_ok=True)
+    args = module.build_parser().parse_args(argv + [out_flag, str(out)])
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    module.run(pipe, args)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    counts = {k: v for k, v in _counts().items() if v}
+    ref = out.with_name("direct_" + out_name)
+    t0 = time.perf_counter()
+    direct(ref)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    equal = out.read_bytes() == ref.read_bytes()
+    rec = dict(argv=argv, latency_s=latency, direct_s=direct_s, launches=counts, bytes=out.stat().st_size,
+               equal=equal)
+    ref.unlink()
+    log(f"[main-cli] {tag}: run {latency:.4f} s, direct call {direct_s:.4f} s | {rec['bytes']} bytes, equal to the "
+        f"direct call's: {equal} | launches {counts} (gate {expect})")
+    if not equal:
+        raise AssertionError(f"{tag}: the CLI's file differs from the direct call's")
+    if counts != expect:
+        raise AssertionError(f"{tag}: launches {counts} != {expect}")
+    return rec
+
+
+def _save_grid(path, images):
+    from flux_generator_tpu_torch.utils.images import save_image_grid
+
+    save_image_grid(str(path), images, rows=1)
+
+
+def _sd_direct(pipe, n: int, steps: int, cfg: float, seed: int, image=None):
+    """The SD pipelines' direct call, as the CLIs make it: the last latent of
+    generate_latents (or of generate_latents_from_image at strength 0.9),
+    decoded an image at a time."""
+    import numpy as np
+
+    def write(path):
+        if image is None:
+            steps_ = pipe.generate_latents(CLI_PROMPT, n_images=n, num_steps=steps, cfg_weight=cfg, negative_text="",
+                                           seed=seed)
+        else:
+            steps_ = pipe.generate_latents_from_image(image, CLI_PROMPT, n_images=n, strength=0.9, num_steps=steps,
+                                                      cfg_weight=cfg, negative_text="", seed=seed)
+        x = None
+        for x in steps_:
+            pass
+        _save_grid(path, np.concatenate([pipe.decode_u8(x[i:i + 1]).cpu().numpy() for i in range(n)]))
+
+    return write
+
+
+def _cli_flux(rec: dict):
+    import numpy as np
+    import torch
+
+    from flux_generator_tpu_torch.cli import txt2image
+    from flux_generator_tpu_torch.io import registry, synthetic
+    from flux_generator_tpu_torch.pipelines.flux import FluxPipeline
+
+    rec["write"] = _write_cache("Flux-schnell cache", lambda: synthetic.make_flux_cache(
+        os.environ["HF_HUB_CACHE"], registry.flux_configs("flux-schnell"), dtype=torch.bfloat16, device="cuda",
+        hub=True))
+    pipe, rec["load"] = _load_timed("Flux-schnell", lambda: FluxPipeline.from_pretrained("flux-schnell"))
+
+    def direct(path):
+        _save_grid(path, np.concatenate([
+            pipe.generate_images(CLI_PROMPT, n_images=1, num_steps=2, guidance=4.0, latent_size=(64, 64), seed=7 + i,
+                                 as_uint8=True).cpu().numpy() for i in range(2)]))
+
+    # 2 images × 2 steps × 57 blocks, each with its RoPE pre-pass
+    rec["txt2image"] = _cli_vs_direct("txt2image", txt2image, pipe, [CLI_PROMPT, "--n-images", "2", "--seed", "7"],
+                                      "--output", direct, "txt2image.png",
+                                      {"flash_attention": 228, "flash_attention_rope": 228})
+    (OUT / "cli" / "txt2image.png").unlink()
+
+
+def _cli_sd(rec: dict):
+    import torch
+
+    from flux_generator_tpu_torch.cli import image2image, sd_txt2image
+    from flux_generator_tpu_torch.io import registry, synthetic
+    from flux_generator_tpu_torch.io.params import tree_leaves
+
+    hub = os.environ["HF_HUB_CACHE"]
+    rec["write_sd21"] = _write_cache("SD 2.1-base cache", lambda: synthetic.make_sd_cache(
+        hub, configs=registry.sd_configs("stable-diffusion-2-1-base"), dtype=torch.bfloat16, device="cuda", hub=True))
+    sd, rec["load_sd21"] = _load_timed("SD 2.1-base", lambda: sd_txt2image.load("sd"))
+    # CFG batch 2: 50 steps × 15 self-attentions of L ≥ 256
+    rec["sd_txt2image_sd21"] = _cli_vs_direct(
+        "sd_txt2image --model sd", sd_txt2image, sd, [CLI_PROMPT, "--model", "sd", "--n_images", "1", "--seed", "7"],
+        "--output", _sd_direct(sd, 1, 50, 7.5, 7), "sd21.png", {"flash_attention": 750})
+    del sd
+    _free()
+    rec["write_sdxl"] = _write_cache("SDXL-Turbo cache", lambda: synthetic.make_sd_cache(
+        hub, xl=True, configs=registry.sd_configs("sdxl-turbo"), dtype=torch.bfloat16, device="cuda", hub=True))
+    xl, rec["load_sdxl"] = _load_timed("SDXL-Turbo", lambda: sd_txt2image.load("sdxl"))
+    # 2 steps × 70 self-attentions of L ≥ 256 a UNet call
+    rec["sd_txt2image_sdxl"] = _cli_vs_direct(
+        "sd_txt2image (SDXL-Turbo)", sd_txt2image, xl, [CLI_PROMPT, "--n_images", "4", "--seed", "7"], "--output",
+        _sd_direct(xl, 4, 2, 0.0, 7), "sdxl.png", {"flash_attention": 140})
+    (OUT / "cli" / "sdxl.png").unlink()
+    # on the SD 2.1 image: int(2 · 0.9) = 1 step
+    sd21 = OUT / "cli" / "sd21.png"
+    rec["image2image_sdxl"] = _cli_vs_direct(
+        "image2image (SDXL-Turbo)", image2image, xl, [str(sd21), CLI_PROMPT, "--n_images", "1", "--seed", "7"],
+        "--output", _sd_direct(xl, 1, 2, 0.0, 7, image=image2image.read_image(sd21)), "img2img.png",
+        {"flash_attention": 70})
+    sd21.unlink()
+    (OUT / "cli" / "img2img.png").unlink()
+    del xl
+    _free()
+    xq, rec["load_sdxl_int8"] = _load_timed("SDXL-Turbo, then --quantize", lambda: sd_txt2image.load("sdxl", True))
+    rec["int8_tensors"] = {k: sum(t.dtype == torch.int8 for t in tree_leaves(xq.params[k]))
+                           for k in ("unet", "clip", "clip_2")}
+    log(f"[main-cli] SDXL-Turbo --quantize: int8 weight tensors {rec['int8_tensors']}")
+    if not all(rec["int8_tensors"].values()):
+        raise AssertionError(f"--quantize left a model without int8 weights: {rec['int8_tensors']}")
+    rec["sd_txt2image_sdxl_int8"] = _cli_vs_direct(
+        "sd_txt2image --quantize (SDXL-Turbo)", sd_txt2image, xq,
+        [CLI_PROMPT, "--n_images", "4", "--seed", "7", "--quantize"], "--output", _sd_direct(xq, 4, 2, 0.0, 7),
+        "sdxl_int8.png", {"flash_attention": 140})
+    (OUT / "cli" / "sdxl_int8.png").unlink()
+
+
+def _imported_jax(stderr: str) -> list:
+    """Modules of jax or of the JAX package in a `python -X importtime` log."""
+    names = [line.rsplit("|", 1)[-1].strip() for line in stderr.splitlines() if line.startswith("import time:")]
+    return [n for n in names if n in ("jax", "flux_generator_tpu") or n.startswith(("jax.", "flux_generator_tpu."))]
+
+
+def _tree_to(tree, device):
+    from flux_generator_tpu_torch.io.params import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _t5_cached_logits(params, cfg, tokenizer, tokens):
+    """t5_decode's logits on its cached path (as t5_generate decodes), fed
+    the start id 0 and then `tokens` one at a time: (len + 1, vocab) f32
+    on the CPU."""
+    import torch
+
+    from flux_generator_tpu_torch.models.t5.t5 import init_decode_cache, t5_decode, t5_encode
+
+    device = params["wte"].device
+    src = torch.tensor([tokenizer.tokenize(CLI_PROMPT, prepend_bos=False, append_eos=True, pad=False)],
+                       dtype=torch.long, device=device)
+    memory = t5_encode(params, cfg, src)
+    cache = init_decode_cache(cfg, 1, len(tokens) + 1, memory.dtype, device)
+    out = []
+    for tok in [0, *tokens]:
+        logits, cache = t5_decode(params, cfg, torch.tensor([[tok]], dtype=torch.long, device=device), memory, cache)
+        out.append(logits[0, -1].float().cpu())
+    return torch.stack(out)
+
+
+def _cli_musicgen(rec: dict):
+    """MusicGen-medium with its t5-base (a full T5, which t5_generate reads)
+    and EnCodec repos: the CLI against the direct call, the CLI as a real
+    subprocess, and T5's greedy tokens on the card against the CPU. Returns
+    the pipeline and the CLI's 500-step WAV, which main-codec reads."""
+    import torch
+
+    from flux_generator_tpu_torch.cli import musicgen_generate, t5_generate
+    from flux_generator_tpu_torch.io import registry, synthetic
+    from flux_generator_tpu_torch.pipelines.musicgen import MusicGenPipeline
+    from flux_generator_tpu_torch.utils.audio import save_audio
+
+    hub = os.environ["HF_HUB_CACHE"]
+    rec["write"] = _write_cache("MusicGen-medium, t5-base and EnCodec 32 kHz cache", lambda: synthetic.make_musicgen_cache(
+        hub, registry.musicgen_configs(), dtype=torch.bfloat16, device="cuda", hub=True))
+    pipe, rec["load"] = _load_timed("MusicGen-medium", lambda: MusicGenPipeline.from_pretrained())
+
+    def direct(path):
+        save_audio(path, pipe.generate("happy rock", max_steps=500, top_k=250, temp=1.0, guidance_coef=3.0, seed=7),
+                   pipe.sampling_rate)
+
+    rec["musicgen_generate"] = _cli_vs_direct("musicgen_generate", musicgen_generate, pipe, ["--seed", "7"],
+                                              "--output-path", direct, "musicgen.wav",
+                                              {"lstm": 2, "decode_step": 500})
+
+    out = OUT / "cli" / "subprocess.wav"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-m", "flux_generator_tpu_torch.cli.musicgen_generate",
+                           "--max-steps", "50", "--seed", "3", "--output-path", str(out)],
+                          cwd=ROOT, env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    samples = _wav_frames(out.read_bytes())[1].size if out.exists() else 0
+    imports = sum(1 for line in proc.stderr.splitlines() if line.startswith("import time:"))
+    jax_mods = _imported_jax(proc.stderr)
+    rec["subprocess"] = dict(returncode=proc.returncode, seconds=seconds, wav_samples=samples,
+                             modules_imported=imports, jax_modules=jax_mods, stdout=proc.stdout.strip())
+    log(f"[main-cli] python -m flux_generator_tpu_torch.cli.musicgen_generate --max-steps 50: exit "
+        f"{proc.returncode} in {seconds:.2f} s, a WAV of {samples} samples | {imports} modules imported, of jax or "
+        f"the JAX package: {jax_mods}")
+    if proc.returncode != 0 or samples == 0 or jax_mods or imports == 0:
+        raise AssertionError(f"the CLI subprocess failed: {proc.stderr[-3000:]}")
+    out.unlink()
+
+    t5m, rec["load_t5"] = _load_timed("t5-base (full, f32)", lambda: t5_generate.load("t5-base"))
+    args = t5_generate.build_parser().parse_args(["--prompt", CLI_PROMPT, "--max-tokens", "64"])
+    _zero_counts()
+    t0 = time.perf_counter()
+    t5_generate.run(t5m, args)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    counts = {k: v for k, v in _counts().items() if v}
+    card = t5_generate.greedy_tokens(t5m.params, t5m.cfg, t5m.tokenizer, CLI_PROMPT, 64)
+    cpu_params = _tree_to(t5m.params, "cpu")
+    t0 = time.perf_counter()
+    cpu = t5_generate.greedy_tokens(cpu_params, t5m.cfg, t5m.tokenizer, CLI_PROMPT, 64)
+    cpu_s = time.perf_counter() - t0
+    # random weights may settle greedy decoding on one id, so the cached
+    # path's logits are held too, fed the CPU's tokens on both sides
+    rel = _rel(_t5_cached_logits(t5m.params, t5m.cfg, t5m.tokenizer, cpu),
+               _t5_cached_logits(cpu_params, t5m.cfg, t5m.tokenizer, cpu))
+    rec["t5_generate"] = dict(latency_s=latency, cpu_s=cpu_s, tokens=len(card), distinct_ids=len(set(card)),
+                              equal=card == cpu, logits_rel_l2=rel, launches=counts)
+    log(f"[main-cli] t5_generate --max-tokens 64: run {latency:.4f} s | {len(card)} greedy tokens on the card "
+        f"({len(set(card))} distinct ids), equal to a CPU f32 run's ({cpu_s:.2f} s): {card == cpu} | cached "
+        f"logits over {len(cpu) + 1} steps, rel-L2 {rel:.3e} against the CPU (tol {T5_LOGITS_REL_TOL}) | "
+        f"launches {counts}")
+    if card != cpu or not rel <= T5_LOGITS_REL_TOL or counts:
+        raise AssertionError(f"t5_generate: tokens on the card {card} != on the CPU {cpu}, logits rel-L2 {rel}, "
+                             f"or launches {counts}")
+    return pipe, OUT / "cli" / "musicgen.wav"
+
+
+def phase_main_cli():
+    """Every CLI from synthetic full-width caches written in the hub layout
+    into a temporary directory named by HF_HUB_CACHE, one family at a time,
+    each cache deleted before the next; the directory goes even when a step
+    fails. Returns (record, the MusicGen pipeline, the CLI's WAV)."""
+    hub = tempfile.mkdtemp(prefix="fgt-hub-")
+    saved = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = hub
+    rec = {"disk_free_gb": shutil.disk_usage(hub).free / 1e9}
+    log(f"[main-cli] hub cache in {hub}: {rec['disk_free_gb']:.1f} GB free")
+    try:
+        for family, run in (("flux", _cli_flux), ("sd", _cli_sd)):
+            rec[family] = {}
+            run(rec[family])
+            _free()
+            shutil.rmtree(hub)
+            os.makedirs(hub)
+        rec["musicgen"] = {}
+        pipe, wav = _cli_musicgen(rec["musicgen"])
+    finally:
+        shutil.rmtree(hub, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = saved
+    return rec, pipe, wav
+
+
+def phase_main_codec(pipe, wav):
+    """EnCodec's encoder at full width on the card (32 kHz, d 1024, 2 LSTM
+    layers through C) on the music CLI's 10 s WAV read back with `wave`: C's
+    launches; the embedding before the RVQ against the CPU's plain f32 path
+    on the same weights (rel-L2); the share of codes equal to the CPU's;
+    two controls that must miss those limits, another seed's weights and
+    the encoder with its LSTM block skipped; decode of the codes; and
+    encode's time with C's share of it, by CUDA events."""
+    import numpy as np
+    import torch
+
+    from flux_generator_tpu_torch.models.musicgen import encodec as enc
+    from flux_generator_tpu_torch.ops.kernels import lstm as lk
+    from flux_generator_tpu_torch.runtime.device import make_generator
+
+    rate, pcm = _wav_frames(wav.read_bytes())
+    wav.unlink()
+    x, mask = enc.preprocess_audio(pcm.astype(np.float32) / 32767)
+    codec = pipe.audio_decoder
+    xc, mc = x.cuda(), mask.cuda()
+    lk.launches = 0
+    codes, scales = codec.encode(xc, mc)
+    torch.cuda.synchronize()
+    launches = lk.launches
+    emb = codec.embed(xc)
+    cpu_codec = enc.EncodecModel(codec.cfg, _tree_to(codec.params, "cpu"))
+    t0 = time.perf_counter()
+    cpu_emb = cpu_codec.embed(x)
+    cpu_codes = cpu_codec.encode(x, mask)[0]
+    cpu_s = time.perf_counter() - t0
+    rel = _rel(emb.float().cpu(), cpu_emb)
+    share = float((codes.cpu() == cpu_codes).float().mean())
+    other = enc.EncodecModel.random_init(codec.cfg, make_generator(xc.device, 1))
+    share_other = float((other.encode(xc, mc)[0].cpu() == cpu_codes).float().mean())
+    kept = [(p, e) for p, e in zip(codec.params["encoder"], codec._enc_spec) if e[0] != "lstm"]
+    emb_no_lstm = enc._run_spec([p for p, _ in kept], [e for _, e in kept], codec.cfg, xc)
+    nq = codec.num_quantizers_for_bandwidth(None)
+    share_no_lstm = float((enc.rvq_encode(codec.params["quantizer"], emb_no_lstm, nq).cpu() == cpu_codes[0])
+                          .float().mean())
+    rel_no_lstm = _rel(emb_no_lstm.float().cpu(), cpu_emb)
+    decoded = codec.decode(codes, scales, mc)
+    finite = bool(torch.isfinite(decoded).all())
+
+    # encode's device time, and C's launches in it, by CUDA events
+    spans, launch, reps = [], lk._launch, 5
+
+    def timed_launch(*a, **k):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = launch(*a, **k)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    codec.encode(xc, mc)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    lk._launch = timed_launch
+    try:
+        start.record()
+        for _ in range(reps):
+            codec.encode(xc, mc)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        lk._launch = launch
+    encode_ms = start.elapsed_time(end) / reps
+    c_ms = sum(s.elapsed_time(e) for s, e in spans) / reps
+    rec = dict(rate=rate, samples=int(pcm.size), codes_shape=list(codes.shape), launches={"lstm": launches},
+               emb_rel_l2=rel, codes_equal_share=share, control_other_seed_share=share_other,
+               lstm_skipped_share=share_no_lstm, lstm_skipped_emb_rel_l2=rel_no_lstm,
+               decoded_shape=list(decoded.shape), decoded_finite=finite, encode_ms=encode_ms, c_ms=c_ms,
+               c_share=c_ms / encode_ms, cpu_s=cpu_s)
+    log(f"[main-codec] {pcm.size} samples at {rate} Hz → codes {list(codes.shape)} | C launches {launches} | "
+        f"embedding rel-L2 {rel:.3e} against the CPU's f32 (tol {CODEC_REL_TOL}) | codes equal {share:.4f} "
+        f"(at least {CODES_MIN_SHARE}); controls, another seed's weights: {share_other:.4f}; the LSTM block "
+        f"skipped: {share_no_lstm:.4f}, rel-L2 {rel_no_lstm:.3e} | decode {list(decoded.shape)}, finite {finite} | "
+        f"encode {encode_ms:.3f} ms, C {c_ms:.3f} ms ({100 * c_ms / encode_ms:.1f}%) | the CPU {cpu_s:.2f} s")
+    if launches != 2:
+        raise AssertionError(f"encode launched C {launches} times, not 2")
+    if not rel <= CODEC_REL_TOL or share < CODES_MIN_SHARE:
+        raise AssertionError(f"encode: embedding rel-L2 {rel} or code share {share} out of bounds")
+    if share_other >= CODES_MIN_SHARE:
+        raise AssertionError(f"the other-seed control passed the code check: {share_other}")
+    if rel_no_lstm <= CODEC_REL_TOL or share_no_lstm >= CODES_MIN_SHARE:
+        raise AssertionError(f"the LSTM-skipped control passed a check: rel-L2 {rel_no_lstm}, "
+                             f"code share {share_no_lstm}")
+    if not finite or decoded.shape[1] != x.shape[1]:
+        raise AssertionError(f"decode of the codes: shape {list(decoded.shape)}, finite {finite}")
+    return rec
+
+
 def phase_profile_train():
     """One optimizer step of Flux-dev training (the main-train configuration:
     grad_accumulate micro-steps, the last with the Adam update) under
@@ -4019,6 +4494,11 @@ def main() -> int:
     del built
     gc.collect()
     torch.cuda.empty_cache()
+    main_cli, pipe, wav = phase_main_cli()
+    main_codec = run(lambda: phase_main_codec(pipe, wav))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     small = run(phase_small)
     small_tiled = run(phase_small_tiled)
     small_w8a8 = run(phase_small_w8a8)
@@ -4032,7 +4512,9 @@ def main() -> int:
             (fa, "flash_attention", "L1280_rope", main_run),
             (fa, "flash_attention_rope", "L1280_rope", main_run),
             (im, "int4_matmul", "qkvo_4096x4096_g128", main_run),
-            (lk, "lstm", "d1024_T497_bf16", main_music),
+            # C: the decoder's 2 a music request and the encoder's 2 an encode call
+            (lk, "lstm", "d1024_T497_bf16", dict(launches={"lstm": main_music["launches"]["lstm"]
+                                                           + main_codec["launches"]["lstm"]})),
             (ds, "decode_step", "int8_B2_W500_off250", main_music)):
         case = next(c for c in kernels[key] if c["case"] == main_case)
         entries.append(dict(name=key, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
@@ -4118,6 +4600,7 @@ def main() -> int:
                   main_w8a8=main_w8a8, main_2048=main_2048,
                   main_musicgen=main_music, main_musicgen_serve=main_serve, main_musicgen_long=main_long,
                   main_train=main_train, main_sd=main_sd, main_serve=served, main_serve_int8=served_int8,
+                  main_cli=main_cli, main_codec=main_codec,
                   small=small, small_tiled=small_tiled, small_w8a8=small_w8a8, small_musicgen=small_music,
                   small_train=small_train, small_sd=small_sd, small_serve=small_serve)
     OUT.mkdir(exist_ok=True)

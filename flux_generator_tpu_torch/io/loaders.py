@@ -7,7 +7,10 @@ Each loader reads safetensors files (sharded ones through their
 (io/params.unflatten), holds it against a template of the expected shapes,
 built by the port's own init functions on torch's "meta" device (no memory
 is allocated), then casts it to the pipeline's dtype, or quantizes it, one
-tensor at a time on the host before it moves to the device. A wrong or
+tensor at a time on the host before it moves to the device. Each model
+moves before the next file is read, so the host holds one model's mapped
+file and stacked layers at a time (the mapping lives as long as any
+tensor viewing it). A wrong or
 missing tensor fails at load with its path. The FLUX_DEV / FLUX_SCHNELL / AE
 environment variables name checkpoint files in place of the registry's.
 
@@ -142,18 +145,29 @@ def load_flux_pipeline(name: str = "flux-schnell", dtype=torch.bfloat16, local_d
     def repo_file(rel):
         return root / rel if root else hf_download(spec.repo_id, rel)
 
+    params = {}
     flow_file = registry.flux_ckpt_override(name) or repo_file(spec.repo_flow)
     flow = unflatten(sanitize.sanitize_flux(load_safetensors(flow_file)), sanitize.FLUX_STACKS)
     flow = conform_params(flow, init_flux(None, flow_cfg, device=META), "flux-flow")
+    # weight-only on the big matmuls, quantized before each tensor moves
+    if quantize == "int4":
+        params["flow"] = _quantized(flow, dtype, device, bits=4, group_size=128, pack=True)
+    else:
+        params["flow"] = _quantized(flow, dtype, device) if quantize else cast_tree(flow, dtype, device)
+    del flow
 
     ae_file = registry.ae_ckpt_override() or repo_file(spec.repo_ae)
     ae = unflatten(sanitize.sanitize_flux_ae(load_safetensors(ae_file)), ())
-    ae = conform_params(ae, init_autoencoder(None, ae_cfg, device=META), "flux-ae")
+    params["ae"] = cast_tree(conform_params(ae, init_autoencoder(None, ae_cfg, device=META), "flux-ae"), dtype,
+                             device)
+    del ae
 
     base = root or hf_snapshot(spec.repo_id)
     clip = unflatten(sanitize.sanitize_clip(load_safetensors(base / "text_encoder" / "model.safetensors")),
                      sanitize.CLIP_STACKS)
-    clip = conform_params(clip, init_clip_text(None, clip_cfg, device=META), "clip")
+    params["clip"] = cast_tree(conform_params(clip, init_clip_text(None, clip_cfg, device=META), "clip"), dtype,
+                               device)
+    del clip
     clip_tok = CLIPTokenizer.from_pretrained_dir(base / "tokenizer")
 
     t5_root = base / "text_encoder_2"
@@ -162,19 +176,12 @@ def load_flux_pipeline(name: str = "flux-schnell", dtype=torch.bfloat16, local_d
     else:
         raw = load_safetensors(t5_root / "model.safetensors")
     t5 = unflatten(sanitize.sanitize_t5(raw), sanitize.T5_STACKS)
+    del raw
     t5 = conform_params(t5, init_t5_encoder(None, t5_cfg, device=META), "t5")
+    params["t5"] = _quantized(t5, dtype, device) if quantize else cast_tree(t5, dtype, device)
+    del t5
     t5_tok = SentencePieceUnigramTokenizer.from_file(base / "tokenizer_2" / "spiece.model",
                                                      max_length=spec.t5_max_length)
-
-    if quantize:
-        # weight-only on the big matmuls, quantized before each tensor moves
-        flow_q = (_quantized(flow, dtype, device, bits=4, group_size=128, pack=True) if quantize == "int4"
-                  else _quantized(flow, dtype, device))
-        params = {"flow": flow_q, "ae": cast_tree(ae, dtype, device), "clip": cast_tree(clip, dtype, device),
-                  "t5": _quantized(t5, dtype, device)}
-    else:
-        params = {k: cast_tree(v, dtype, device) for k, v in (("flow", flow), ("ae", ae), ("clip", clip),
-                                                                ("t5", t5))}
     return FluxPipeline(name, params, flow_cfg, ae_cfg, clip_cfg, t5_cfg, clip_tokenizer=clip_tok,
                         t5_tokenizer=t5_tok, dtype=dtype, w8a8=w8a8, attn_int8=attn_int8)
 
@@ -244,11 +251,17 @@ def load_sd_pipeline(model: str = "stabilityai/stable-diffusion-2-1-base", cls=N
     is_xl = "xl" in model.lower()
     cls = cls or (StableDiffusionXL if is_xl else StableDiffusion)
 
+    def q(tree):
+        if quantize:
+            return _quantized(tree, dtype, device, predicate=_sd_quant_predicate)
+        return cast_tree(tree, dtype, device)
+
     with open(get("unet/config.json")) as f:
         unet_cfg = sd_unet_config(json.load(f))
     unet = unflatten(sanitize.sanitize_sd_unet(load_safetensors(get("unet/diffusion_pytorch_model.safetensors"))),
                      ("down_blocks.attentions.blocks", "up_blocks.attentions.blocks", "mid_blocks.blocks"))
-    unet = conform_params(unet, init_unet(None, unet_cfg, device=META), "sd-unet")
+    params = {"unet": q(conform_params(unet, init_unet(None, unet_cfg, device=META), "sd-unet"))}
+    del unet
 
     with open(get("vae/config.json")) as f:
         vc = json.load(f)
@@ -258,7 +271,8 @@ def load_sd_pipeline(model: str = "stabilityai/stable-diffusion-2-1-base", cls=N
         block_out_channels=tuple(vc["block_out_channels"]), layers_per_block=vc["layers_per_block"],
         norm_num_groups=vc["norm_num_groups"], scaling_factor=vc.get("scaling_factor", 0.18215))
     vae = unflatten(sanitize.sanitize_sd_vae(load_safetensors(get("vae/diffusion_pytorch_model.safetensors"))), ())
-    vae = conform_params(vae, init_sd_vae(None, ae_cfg, device=META), "sd-vae")
+    params["vae"] = cast_tree(conform_params(vae, init_sd_vae(None, ae_cfg, device=META), "sd-vae"), dtype, device)
+    del vae
 
     def load_text_encoder(sub, with_projection=False):
         with open(get(f"{sub}/config.json")) as f:
@@ -272,13 +286,8 @@ def load_sd_pipeline(model: str = "stabilityai/stable-diffusion-2-1-base", cls=N
         return conform_params(p, init_clip_text(None, cfg, device=META), "sd-clip"), cfg
 
     clip, clip_cfg = load_text_encoder("text_encoder")
-
-    def q(tree):
-        if quantize:
-            return _quantized(tree, dtype, device, predicate=_sd_quant_predicate)
-        return cast_tree(tree, dtype, device)
-
-    params = {"unet": q(unet), "vae": cast_tree(vae, dtype, device), "clip": q(clip)}
+    params["clip"] = q(clip)
+    del clip
     clip_cfgs = [clip_cfg]
     tokenizers = [CLIPTokenizer.from_files(get("tokenizer/vocab.json"), get("tokenizer/merges.txt"))]
     if is_xl:
@@ -348,14 +357,18 @@ def load_musicgen_pipeline(repo: str = "facebook/musicgen-medium", dtype=torch.b
         num_attention_heads=dec["num_attention_heads"], num_hidden_layers=dec["num_hidden_layers"],
         ffn_dim=dec["ffn_dim"], text_d_model=config["text_encoder"]["d_model"],
         sampling_rate=config["audio_encoder"]["sampling_rate"])
+    def place(tree):
+        return _quantized(tree, dtype, device) if quantize else cast_tree(tree, dtype, device)
+
     converted = path / "model.fgt.safetensors"
     if converted.exists():
         flat = load_safetensors(converted)
     else:
-        weights = torch.load(path / "state_dict.bin", weights_only=True, map_location="cpu")["best_state"]
-        flat = sanitize.sanitize_musicgen(weights)
+        flat = sanitize.sanitize_musicgen(torch.load(path / "state_dict.bin", weights_only=True,
+                                                     map_location="cpu")["best_state"])
     params = unflatten(flat, sanitize.MUSICGEN_STACKS)
-    params = conform_params(params, init_musicgen(None, cfg, device=META), "musicgen")
+    del flat
+    params = place(conform_params(params, init_musicgen(None, cfg, device=META), "musicgen"))
 
     t5_repo = config["text_encoder"]["_name_or_path"]
     t5_path = path / "text_encoder" if local_dir and (path / "text_encoder").exists() else hf_snapshot(t5_repo)
@@ -364,7 +377,7 @@ def load_musicgen_pipeline(repo: str = "facebook/musicgen-medium", dtype=torch.b
     t5 = unflatten(sanitize.sanitize_t5(load_safetensors(t5_path / "model.safetensors")), sanitize.T5_STACKS)
     t5.pop("decoder", None)
     t5.pop("lm_head", None)
-    t5 = conform_params(t5, init_t5_encoder(None, t5_cfg, device=META), "t5")
+    t5 = place(conform_params(t5, init_t5_encoder(None, t5_cfg, device=META), "t5"))
     tokenizer = SentencePieceUnigramTokenizer.from_file(t5_path / "spiece.model")
 
     enc_name = config["audio_encoder"]["_name_or_path"].split("/")[-1].replace("_", "-")
@@ -376,9 +389,4 @@ def load_musicgen_pipeline(repo: str = "facebook/musicgen-medium", dtype=torch.b
                                          encoder_spec(enc_cfg), decoder_spec(enc_cfg))
     enc_params = conform_params(unflatten(enc_flat, ()), init_encodec(None, enc_cfg, device=META), "encodec")
     codec = EncodecModel(enc_cfg, cast_tree(enc_params, torch.float32, device))
-
-    if quantize:
-        params, t5 = _quantized(params, dtype, device), _quantized(t5, dtype, device)
-    else:
-        params, t5 = cast_tree(params, dtype, device), cast_tree(t5, dtype, device)
     return MusicGenPipeline(cfg, params, t5_cfg, t5, codec, tokenizer=tokenizer, dtype=dtype, w8a8=w8a8)

@@ -1,18 +1,18 @@
-"""EnCodec neural audio codec, decode side (counterpart of
+"""EnCodec neural audio codec (counterpart of
 flux_generator_tpu/models/musicgen/encodec.py).
 
-SEANet decoder with asymmetric reflect-padded convs, the 2-layer LSTM
-bottleneck (kernel C on CUDA tensors, ops/kernels/lstm.py), transposed convs,
-residual vector quantization decode, and chunked decode with linear
-overlap-add. Layer sequences come from config as static specs, and init
+SEANet encoder and decoder with asymmetric reflect-padded convs, the 2-layer
+LSTM bottleneck of each (kernel C on CUDA tensors, ops/kernels/lstm.py),
+transposed convs, residual vector quantization (encode: the nearest code of
+each residual in turn; decode: the sum of the codes' vectors), the chunked
+encode and decode protocols (decode with linear overlap-add) and audio
+preprocessing (pad to a chunk boundary, with its mask). Layer sequences come from config as static specs, and init
 builds both halves, so the param tree matches the JAX one: convs (k, in,
 out) HIO with a bias, LSTM {wx, wh (d, 4d), bias (4d,)} with gate order
 (i, f, g, o), quantizer codebooks (codebook_size, codebook_dim).
 
 Activations are (B, T, C). The JAX decode runs as two jitted programs split
 after the LSTM only to fit the TPU's VMEM; here it is one eager pass.
-`encode`, `rvq_encode` and `preprocess_audio` are not ported: no MusicGen
-path calls them.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.kernels.lstm import lstm
-from ...ops.linear import _rand_uniform
+from ...ops.linear import _rand_uniform, conv1d, conv_transpose1d
 from ...ops.norms import group_norm
 from ...runtime.device import as_device, make_generator
 
@@ -226,13 +226,6 @@ def _pad1d(x: torch.Tensor, pad: Tuple[int, int], mode: str) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-def _conv1d(p: dict, x: torch.Tensor, stride: int = 1, dilation: int = 1) -> torch.Tensor:
-    """Valid conv of (B, T, Cin) with an HIO (k, Cin, Cout) kernel."""
-    w = p["kernel"].to(x.dtype).permute(2, 1, 0)
-    y = F.conv1d(x.transpose(1, 2), w, p["bias"].to(x.dtype), stride=stride, dilation=dilation)
-    return y.transpose(1, 2)
-
-
 def _enc_conv(p, cfg: EncodecConfig, x, k, stride, dilation):
     eff_k = (k - 1) * dilation + 1
     pad_total = k - stride
@@ -245,19 +238,16 @@ def _enc_conv(p, cfg: EncodecConfig, x, k, stride, dilation):
     else:
         pr = pad_total // 2
         x = _pad1d(x, (pad_total - pr, pr + extra), cfg.pad_mode)
-    y = _conv1d(p["conv"], x, stride, dilation)
+    y = conv1d(p["conv"], x, stride, dilation=dilation)
     if "norm" in p:
         y = group_norm(y, p["norm"], groups=1)
     return y
 
 
 def _dec_convtr(p, cfg: EncodecConfig, x, k, stride):
-    """The JAX package's lhs-dilated conv over a kernel time-flipped at load
-    (HIO), which is torch's ConvTranspose1d with that kernel flipped back,
-    then pl/pr trimmed off."""
-    w = p["conv"]["kernel"].to(x.dtype).flip(0).permute(1, 2, 0)  # (Cin, Cout, k)
-    y = F.conv_transpose1d(x.transpose(1, 2), w, p["conv"]["bias"].to(x.dtype), stride=stride)
-    y = y.transpose(1, 2)
+    """The transposed conv over a kernel time-flipped at load (HIO), then
+    pl/pr trimmed off."""
+    y = conv_transpose1d(p["conv"], x, stride)
     if "norm" in p:
         y = group_norm(y, p["norm"], groups=1)
     pad_total = k - stride
@@ -298,6 +288,23 @@ def _run_spec(params, spec, cfg: EncodecConfig, x):
     return x
 
 
+def rvq_encode(quantizer, embeddings: torch.Tensor, num_quantizers: int) -> torch.Tensor:
+    """embeddings (B, T, D) → codes (B, nq, T): at each of the first
+    `num_quantizers` codebooks the nearest code to the residual by squared
+    distance (|r|² − 2 r·e + |e|², the first index on a tie), whose vector
+    is then taken off the residual."""
+    residual = embeddings
+    codes = []
+    for layer in quantizer[:num_quantizers]:
+        embed = layer["embed"].to(embeddings.dtype)  # (K, D)
+        dist = ((residual ** 2).sum(-1, keepdim=True) - 2 * residual @ embed.t()
+                + (embed ** 2).sum(-1))
+        idx = dist.argmin(dim=-1)
+        codes.append(idx)
+        residual = residual - embed[idx]
+    return torch.stack(codes, dim=1)
+
+
 def rvq_decode(quantizer, codes: torch.Tensor) -> torch.Tensor:
     """codes (B, nq, T) → summed codebook vectors (B, T, D)."""
     out = None
@@ -314,6 +321,7 @@ class EncodecModel:
     def __init__(self, cfg: EncodecConfig, params: dict):
         self.cfg = cfg
         self.params = params
+        self._enc_spec = encoder_spec(cfg)
         self._dec_spec = decoder_spec(cfg)
 
     @classmethod
@@ -327,6 +335,56 @@ class EncodecModel:
                            else (generator.device if generator is not None else None))
         generator = generator if generator is not None else make_generator(device, 0)
         return cls(cfg, init_encodec(generator, cfg, dtype, device))
+
+    def num_quantizers_for_bandwidth(self, bandwidth: Optional[float]) -> int:
+        bw_per_q = math.log2(self.cfg.codebook_size) * self.cfg.frame_rate
+        if bandwidth is not None and bandwidth > 0:
+            return max(1, math.floor(bandwidth * 1000 / bw_per_q))
+        return self.cfg.num_quantizers
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder's output before quantization: (B, T, C) audio →
+        (B, frames, hidden)."""
+        return _run_spec(self.params["encoder"], self._enc_spec, self.cfg, x)
+
+    def _encode_frame(self, x, mask, nq: int):
+        scale = None
+        if self.cfg.normalize:
+            x = x * mask[..., None]
+            mono = x.sum(dim=2, keepdim=True) / x.shape[2]
+            scale = torch.sqrt((mono ** 2).mean(dim=1, keepdim=True)) + 1e-8
+            x = x / scale
+        return rvq_encode(self.params["quantizer"], self.embed(x), nq), scale
+
+    def encode(self, input_values: torch.Tensor, padding_mask=None, bandwidth: Optional[float] = None):
+        """input_values (B, T, C) → (codes (frames, B, nq, T'), [scale of each
+        frame, or None]): the chunked protocol (one frame when the config
+        has no chunk length), at `bandwidth` (the first target bandwidth
+        when None). Raises for a bandwidth the config does not list, for
+        other than 1 or 2 channels, and for input not padded to the chunk
+        stride (preprocess_audio pads it)."""
+        if bandwidth is None:
+            bandwidth = self.cfg.target_bandwidths[0]
+        if bandwidth not in self.cfg.target_bandwidths:
+            raise ValueError(f"unsupported bandwidth {bandwidth}; pick from {self.cfg.target_bandwidths}")
+        nq = self.num_quantizers_for_bandwidth(bandwidth)
+        _, length, channels = input_values.shape
+        if not 1 <= channels <= 2:
+            raise ValueError("audio must have 1 or 2 channels")
+        chunk_length = self.cfg.chunk_length or length
+        stride = self.cfg.chunk_stride or length
+        if padding_mask is None:
+            padding_mask = torch.ones(input_values.shape[:2], dtype=torch.bool, device=input_values.device)
+        step = chunk_length - stride
+        if (length % stride) != step:
+            raise ValueError("input not padded for chunked encoding")
+        frames, scales = [], []
+        for offset in range(0, length - step, stride):
+            codes, scale = self._encode_frame(input_values[:, offset:offset + chunk_length],
+                                              padding_mask[:, offset:offset + chunk_length], nq)
+            frames.append(codes)
+            scales.append(scale)
+        return torch.stack(frames), scales
 
     def _decode_frame(self, codes, scale=None):
         emb = rvq_decode(self.params["quantizer"], codes)
@@ -364,3 +422,28 @@ class EncodecModel:
         if padding_mask is not None and padding_mask.shape[1] < audio.shape[1]:
             audio = audio[:, :padding_mask.shape[1]]
         return audio
+
+
+def preprocess_audio(raw_audio, sampling_rate=24000, chunk_length=None, chunk_stride=None):
+    """Pad a waveform, or a list of them ((T,) or (T, C), arrays or tensors),
+    to the longest (and then to a chunk boundary when `chunk_length` is
+    given) → (audio (B, T, C), mask (B, T) bool) as CPU tensors; 64-bit
+    audio comes back in 32 bits, as the JAX package's arrays do."""
+    if not isinstance(raw_audio, list):
+        raw_audio = [raw_audio]
+    raw_audio = [x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in raw_audio]
+    raw_audio = [x[..., None] if x.ndim == 1 else x for x in raw_audio]
+    max_length = max(x.shape[0] for x in raw_audio)
+    if chunk_length is not None:
+        max_length += chunk_length - (max_length % chunk_stride)
+    inputs, masks = [], []
+    for x in raw_audio:
+        mask = np.ones(x.shape[0], bool)
+        diff = max_length - x.shape[0]
+        if diff > 0:
+            mask = np.pad(mask, (0, diff))
+            x = np.pad(x, ((0, diff), (0, 0)))
+        inputs.append(x.astype({np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}.get(x.dtype, x.dtype)))
+        masks.append(mask)
+    return (torch.stack([torch.from_numpy(np.ascontiguousarray(x)) for x in inputs]),
+            torch.stack([torch.from_numpy(m) for m in masks]))

@@ -1,9 +1,13 @@
-"""T5 encoder (counterpart of the encoder half of
+"""T5 encoder and decoder (counterpart of
 flux_generator_tpu/models/t5/t5.py): relative-position-bias attention with
-scale 1.0 and no projection biases, gated-gelu feed-forward (tanh GELU),
-RMSNorm pre-norm. Layers are stacked on a leading axis and run by a loop.
-Its dense layers run the int4 kernel when the tree is int4-packed; `w8a8`
-takes an int8 per-channel tree through int8 activations (ops.linear.dense)."""
+scale 1.0 and no projection biases, gated or plain feed-forward (tanh GELU,
+ReLU or SiLU), RMSNorm pre-norm, and an LM head that is the tied embedding
+(the hidden state scaled by d_model^-0.5) or its own dense. Layers are
+stacked on a leading axis and run by a loop. The decoder runs whole (causal
+self-attention over the tokens given) or step by step on a preallocated KV
+cache. Dense layers run the int4 kernel when the tree is int4-packed;
+`w8a8` takes an int8 per-channel tree through int8 activations
+(ops.linear.dense)."""
 
 from __future__ import annotations
 
@@ -120,6 +124,18 @@ def _init_enc_layer(g, cfg: T5Config, dtype, device):
     }
 
 
+def _init_dec_layer(g, cfg: T5Config, dtype, device):
+    d = cfg.d_model
+    return {
+        "ln1": {"scale": torch.ones((d,), dtype=dtype, device=device)},
+        "self_attention": _init_attn(g, cfg, dtype, device),
+        "ln2": {"scale": torch.ones((d,), dtype=dtype, device=device)},
+        "cross_attention": _init_attn(g, cfg, dtype, device),
+        "ln3": {"scale": torch.ones((d,), dtype=dtype, device=device)},
+        "dense": _init_dense_act(g, cfg, dtype, device),
+    }
+
+
 def init_t5_encoder(generator: torch.Generator, cfg: T5Config, dtype=torch.float32, device=None):
     """Random encoder params in the JAX tree layout, drawn from `generator`."""
     return {
@@ -132,6 +148,23 @@ def init_t5_encoder(generator: torch.Generator, cfg: T5Config, dtype=torch.float
                                 0.02, dtype, device),
         },
     }
+
+
+def init_t5(generator: torch.Generator, cfg: T5Config, dtype=torch.float32, device=None):
+    """Random encoder-decoder params: the encoder's, a decoder of
+    `num_decoder_layers` (else `num_layers`) layers, and an `lm_head` dense
+    unless the embeddings are tied."""
+    p = init_t5_encoder(generator, cfg, dtype, device)
+    p["decoder"] = {
+        "layers": stack_layers(lambda: _init_dec_layer(generator, cfg, dtype, device),
+                               cfg.num_decoder_layers or cfg.num_layers),
+        "ln": {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)},
+        "rel_bias": rand_normal(generator, (cfg.relative_attention_num_buckets, cfg.num_heads),
+                                0.02, dtype, device),
+    }
+    if not cfg.tie_word_embeddings:
+        p["lm_head"] = init_dense(generator, cfg.d_model, cfg.vocab_size, bias=False, dtype=dtype, device=device)
+    return p
 
 
 def _attn(p, q_in, kv_in, cfg: T5Config, bias=None, mask=None, w8a8=None):
@@ -175,3 +208,71 @@ def t5_encode(params, cfg: T5Config, tokens: torch.Tensor, w8a8=None) -> torch.T
         y = rms_norm(x, p["ln2"], cfg.layer_norm_epsilon)
         x = x + _dense_act(p["dense"], y, cfg, w8a8)
     return rms_norm(x, enc["ln"], cfg.layer_norm_epsilon)
+
+
+def init_decode_cache(cfg: T5Config, batch: int, max_len: int, dtype=torch.float32, device=None):
+    """The decoder's KV cache: k and v (layers, batch, max_len, heads, d_kv)
+    zeroed, and the number of positions written so far."""
+    shape = (cfg.num_decoder_layers or cfg.num_layers, batch, max_len, cfg.num_heads, cfg.d_kv)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "offset": 0}
+
+
+def t5_decode(params, cfg: T5Config, tokens: torch.Tensor, memory: torch.Tensor, cache=None, w8a8=None):
+    """Decoder forward: tokens (B, T), memory (B, S, d) from t5_encode →
+    (logits (B, T, vocab), cache).
+
+    Without a cache, causal self-attention over the T tokens, and the cache
+    returned is None. With one, the T tokens' keys and values are written at
+    cache["offset"] (in place) and attention spans the whole preallocated
+    length: the unidirectional relative bias over every key position,
+    masked to the positions at or before each query's; the cache comes
+    back with its offset advanced by T."""
+    dec = params["decoder"]
+    x = params["wte"][tokens]
+    b, t = tokens.shape
+    h = cfg.num_heads
+    eps = cfg.layer_norm_epsilon
+    layers = dec["layers"]
+    if cache is None:
+        bias = relative_bias(dec["rel_bias"], cfg, t, t, bidirectional=False).to(x.dtype)
+        causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()[None, None]
+        for i in range(num_layers(layers)):
+            p = take_layer(layers, i)
+            y = rms_norm(x, p["ln1"], eps)
+            x = x + _attn(p["self_attention"], y, y, cfg, bias=bias, mask=causal, w8a8=w8a8)
+            y = rms_norm(x, p["ln2"], eps)
+            x = x + _attn(p["cross_attention"], y, memory, cfg, w8a8=w8a8)
+            y = rms_norm(x, p["ln3"], eps)
+            x = x + _dense_act(p["dense"], y, cfg, w8a8)
+    else:
+        s_max = cache["k"].shape[2]
+        offset = int(cache["offset"])
+        if offset + t > s_max:
+            raise ValueError(f"the cache holds {s_max} positions; {offset} written and {t} more given")
+        ctx = torch.arange(t, device=x.device)[:, None] + offset
+        mem_pos = torch.arange(s_max, device=x.device)[None, :]
+        buckets = _relative_position_bucket(mem_pos - ctx, False, cfg.relative_attention_num_buckets,
+                                            cfg.relative_attention_max_distance)
+        bias = dec["rel_bias"][buckets].permute(2, 0, 1)[None].to(x.dtype)
+        mask = (mem_pos <= ctx)[None, None]  # causal, and only the positions written so far
+        for i in range(num_layers(layers)):
+            p = take_layer(layers, i)
+            sa = p["self_attention"]
+            y = rms_norm(x, p["ln1"], eps)
+            q = dense(sa["q"], y, w8a8).reshape(b, t, h, -1)
+            cache["k"][i, :, offset:offset + t] = dense(sa["k"], y, w8a8).reshape(b, t, h, -1)
+            cache["v"][i, :, offset:offset + t] = dense(sa["v"], y, w8a8).reshape(b, t, h, -1)
+            attn = dot_product_attention(q, cache["k"][i], cache["v"][i], bias=bias, mask=mask, scale=1.0)
+            x = x + dense(sa["o"], attn.reshape(b, t, -1), w8a8)
+            y = rms_norm(x, p["ln2"], eps)
+            x = x + _attn(p["cross_attention"], y, memory, cfg, w8a8=w8a8)
+            y = rms_norm(x, p["ln3"], eps)
+            x = x + _dense_act(p["dense"], y, cfg, w8a8)
+        cache["offset"] = offset + t
+    x = rms_norm(x, dec["ln"], eps)
+    if cfg.tie_word_embeddings:
+        logits = (x * cfg.d_model ** -0.5) @ params["wte"].t().to(x.dtype)
+    else:
+        logits = dense(params["lm_head"], x, w8a8)
+    return logits, cache

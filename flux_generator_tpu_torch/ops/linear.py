@@ -2,10 +2,10 @@
 flux_generator_tpu/ops/linear.py).
 
 Layouts are the JAX package's, kept at every public function: dense kernels
-are (in_features, out_features), convs take NHWC activations and HWIO
-kernels. `conv2d` transposes to torch's NCHW/OIHW inside; an NHWC tensor
-permuted to NCHW is torch's channels_last layout, so cuDNN runs it without a
-copy.
+are (in_features, out_features), 2-D convs take NHWC activations and HWIO
+kernels, 1-D convs NHC activations and HIO kernels. The convs transpose to
+torch's channels-first layouts inside; an NHWC tensor permuted to NCHW is
+torch's channels_last layout, so cuDNN runs it without a copy.
 """
 
 from __future__ import annotations
@@ -203,3 +203,32 @@ def conv2d(p: dict, x: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
     bias = p["bias"].to(x.dtype) if "bias" in p else None
     y = F.conv2d(xc, w, bias, stride=stride, padding=pad)
     return y.permute(0, 2, 3, 1)
+
+
+def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding=0, groups: int = 1,
+           dilation: int = 1) -> torch.Tensor:
+    """x: (B, T, C) NHC; kernel (k, in/groups, out) HIO → (B, T', out).
+    `padding` is an int, a (left, right) pair or [(left, right)]."""
+    if isinstance(padding, int):
+        left = right = padding
+    else:
+        left, right = padding[0] if isinstance(padding[0], (tuple, list)) else padding
+    xc = x.transpose(1, 2)
+    if left != right:
+        xc = F.pad(xc, (left, right))
+        left = 0
+    w = p["kernel"].to(x.dtype).permute(2, 1, 0)
+    bias = p["bias"].to(x.dtype) if "bias" in p else None
+    y = F.conv1d(xc, w, bias, stride=stride, padding=left, dilation=dilation, groups=groups)
+    return y.transpose(1, 2)
+
+
+def conv_transpose1d(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """The JAX package's transposed 1-D conv: x (B, T, C) dilated by
+    `stride`, padded by k - 1 on both sides and convolved with the HIO
+    kernel (k, in, out) as stored → (B, (T - 1)·stride + k, out). That is
+    torch's ConvTranspose1d with the kernel flipped in time (checkpoint
+    kernels are flipped at load, io/params.t_convtr1d)."""
+    w = p["kernel"].to(x.dtype).flip(0).permute(1, 2, 0)  # (in, out, k)
+    bias = p["bias"].to(x.dtype) if "bias" in p else None
+    return F.conv_transpose1d(x.transpose(1, 2), w, bias, stride=stride).transpose(1, 2)

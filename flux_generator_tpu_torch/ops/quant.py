@@ -128,6 +128,32 @@ def quantize_tree(params, predicate=default_predicate, bits: int = 8,
     return walk(params)
 
 
+def quantize_pipeline(pipeline, predicate=default_predicate, bits: int = 8,
+                      text_encoder_bits: int = None):
+    """Quantize the big matmul weights of a pipeline in place: the flow or
+    the UNet at `bits`, then T5 and the CLIP encoders at `text_encoder_bits`
+    (`bits` when None). The reference's "4-bit text encoders + 8-bit unet"
+    is bits=8, text_encoder_bits=4.
+
+    Dense kernels only: a 4-D conv kernel stays as it is. The JAX package
+    hands every kernel to `predicate`, so a UNet conv with 2560 inputs
+    (SDXL's up path) is quantized there and its conv then finds no
+    "kernel"; the port keeps convs out, as the SD loader's int8 policy
+    does."""
+
+    def dense_only(p):
+        return p["kernel"].ndim <= 3 and predicate(p)
+
+    for name in ("flow", "unet"):
+        if name in pipeline.params:
+            pipeline.params[name] = quantize_tree(pipeline.params[name], dense_only, bits)
+    te_bits = text_encoder_bits or bits
+    for name in ("t5", "clip", "clip_2"):
+        if name in pipeline.params:
+            pipeline.params[name] = quantize_tree(pipeline.params[name], dense_only, te_bits)
+    return pipeline
+
+
 def is_k_major(q: torch.Tensor) -> bool:
     """(…, K, N) stored K-contiguous: strides (…, 1, K) (any stride where a
     dim is 1)."""

@@ -3,28 +3,23 @@ flux_generator_tpu/training/checkpoints.py).
 
 Adapter files are safetensors holding the stacked LoRA tensors in f32 under
 their dotted paths ("double_blocks.img_attn.qkv.lora_a"), with the metadata
-lora_rank, lora_blocks and format, as the JAX package writes them. The
-layout is written and read here by hand — an 8-byte little-endian header
-length, a JSON header, then the raw little-endian tensor bytes — so the port
-needs no safetensors package. Train state (step, LoRA tree, optimizer
-state) goes through torch.save where the JAX package uses orbax.
+lora_rank, lora_blocks and format, as the JAX package writes them, through
+the port's own safetensors reader and writer (io/safetensors.py). Train
+state (step, LoRA tree, optimizer state) goes through torch.save where the
+JAX package uses orbax.
 """
 
 from __future__ import annotations
 
 import json
-import struct
 from pathlib import Path
 
-import numpy as np
 import torch
 
+from ..io import safetensors as st
 from ..io.params import tree_leaves, tree_map
 
 FORMAT = "flux_generator_tpu.stacked.v1"
-_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64,
-           "I32": np.int32, "I16": np.int16, "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_}
-_CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 
 def _flatten(tree, prefix=""):
@@ -45,53 +40,15 @@ def extract_lora_flat(flow_params) -> dict:
     return {k: v for k, v in _flatten(flow_params).items() if k.endswith((".lora_a", ".lora_b"))}
 
 
-def save_safetensors(path, tensors: dict, metadata: dict) -> None:
-    """Write {name: numpy array} and string metadata in the safetensors layout."""
-    header = {"__metadata__": {str(k): str(v) for k, v in metadata.items()}}
-    offset = 0
-    arrays = []
-    for name in sorted(tensors):
-        a = np.ascontiguousarray(tensors[name])
-        a = a.astype(a.dtype.newbyteorder("<"), copy=False)
-        header[name] = {"dtype": _CODES[a.dtype.newbyteorder("=")], "shape": list(a.shape),
-                        "data_offsets": [offset, offset + a.nbytes]}
-        offset += a.nbytes
-        arrays.append(a)
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)  # the data starts 8-byte aligned
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for a in arrays:
-            f.write(a.tobytes())
-
-
 def load_safetensors(path):
-    """→ ({name: numpy array}, metadata dict) from a safetensors file."""
-    data = Path(path).read_bytes()
-    if len(data) < 8:
-        raise ValueError(f"{path}: not a safetensors file")
-    (n,) = struct.unpack("<Q", data[:8])
-    if 8 + n > len(data):
-        raise ValueError(f"{path}: header length {n} past the end of the file")
-    header = json.loads(data[8 : 8 + n])
-    meta = header.pop("__metadata__", None) or {}
-    body = memoryview(data)[8 + n :]
-    tensors = {}
-    for name, info in header.items():
-        begin, end = info["data_offsets"]
-        dt = np.dtype(_DTYPES[info["dtype"]]).newbyteorder("<")
-        if not 0 <= begin <= end <= len(body):
-            raise ValueError(f"{path}: tensor {name} lies outside the file")
-        a = np.frombuffer(body[begin:end], dtype=dt).reshape(info["shape"])
-        tensors[name] = a.astype(a.dtype.newbyteorder("="))
-    return tensors, meta
+    """→ ({name: tensor}, metadata dict) of an adapter file."""
+    return st.load_safetensors(path), st.read_header(path)[2]
 
 
 def save_adapter(path, flow_params, rank: int, num_blocks: int):
     """Write the LoRA adapter safetensors (f32) with its metadata."""
-    flat = {k: v.detach().float().cpu().numpy() for k, v in extract_lora_flat(flow_params).items()}
-    save_safetensors(path, flat, {"lora_rank": rank, "lora_blocks": num_blocks, "format": FORMAT})
+    flat = {k: v.detach().float() for k, v in extract_lora_flat(flow_params).items()}
+    st.save_safetensors(path, flat, {"lora_rank": rank, "lora_blocks": num_blocks, "format": FORMAT})
 
 
 def load_adapter_file(pipeline, path, fuse: bool = False):
@@ -112,7 +69,7 @@ def load_adapter_file(pipeline, path, fuse: bool = False):
             for k, v in node.items():
                 full = f"{prefix}{k}"
                 if k in ("lora_a", "lora_b") and full in tensors:
-                    out[k] = torch.from_numpy(tensors[full]).to(v.device, v.dtype)
+                    out[k] = tensors[full].to(v.device, v.dtype)
                 else:
                     out[k] = walk(v, full + ".")
             return out

@@ -18,6 +18,13 @@ def _to_u8(images) -> np.ndarray:
     return (np.clip(arr.astype(np.float32), 0, 1) * 255).astype(np.uint8)
 
 
+def to_pil(images):
+    """(B, H, W, 3) float [0, 1] or uint8 → list of PIL Images."""
+    from PIL import Image
+
+    return [Image.fromarray(a) for a in _to_u8(images)]
+
+
 def save_image_grid(path: str, images, rows: int = 1):
     """Assemble a rows × cols grid PNG from (B, H, W, 3) float or uint8 images."""
     from PIL import Image

@@ -17,7 +17,7 @@ from flux_generator_tpu.models.flux.autoencoder import init_autoencoder, tiny_ae
 from flux_generator_tpu.models.flux.model import init_flux, tiny_flux_config
 from flux_generator_tpu.models.musicgen.encodec import init_encodec, tiny_encodec_config
 from flux_generator_tpu.models.musicgen.model import init_musicgen, tiny_musicgen_config
-from flux_generator_tpu.models.t5.t5 import init_t5_encoder, tiny_t5_config
+from flux_generator_tpu.models.t5.t5 import init_t5, init_t5_encoder, tiny_t5_config
 from flux_generator_tpu.ops.quant import quantize_tree
 from flux_generator_tpu_torch.io.params import (
     num_layers, stack_layers, take_layer, to_numpy, to_torch, tree_leaves,
@@ -48,13 +48,16 @@ def _trees():
         "flow": flow,
         "flow_bf16": init_flux(k[0], tiny_flux_config(), jnp.bfloat16),
         "t5": t5,
+        # encoder, decoder and lm_head (t5_generate's tree)
+        "t5_full": init_t5(k[1], tiny_t5_config(tie_word_embeddings=False)),
         "clip": init_clip_text(k[2], tiny_clip_config()),
         "ae": init_autoencoder(k[3], tiny_ae_config()),
         "flow_int8": quantize_tree(flow, all_layers, bits=8),
         "flow_int8_grouped": quantize_tree(flow, all_layers, bits=8, group_size=8),
         "t5_int4_grouped": quantize_tree(t5, all_layers, bits=4, group_size=4, pack=True),
         "t5_int4_channel": quantize_tree(t5, all_layers, bits=4, pack=True),
-        # EnCodec: lists of per-layer dicts (lists again inside resnet/lstm)
+        # EnCodec, encoder and decoder: lists of per-layer dicts (lists again
+        # inside resnet/lstm)
         "encodec": encodec,
         # MusicGen: 3-D emb and linears leaves beside the stacked layers
         "musicgen": musicgen,
@@ -63,7 +66,7 @@ def _trees():
     }
 
 
-TREES = ["flow", "flow_bf16", "t5", "clip", "ae", "flow_int8", "flow_int8_grouped",
+TREES = ["flow", "flow_bf16", "t5", "t5_full", "clip", "ae", "flow_int8", "flow_int8_grouped",
          "t5_int4_grouped", "t5_int4_channel", "encodec", "musicgen", "musicgen_int8_bf16"]
 
 
