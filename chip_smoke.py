@@ -93,6 +93,16 @@ Phases, each of which fails the run on error:
                       SDPA; the streamed "full" at L 1280 in groups of 64 and
                       1024, in turns likewise; then the probe's entry
                       point, scripts/prof_attn_int8.run (8 steps).
+     kernels-parallel — A through the model's route at Flux-schnell's
+                      tensor-parallel head shards (L 1280, H 12 and 6) against
+                      its plain version by rel-L2 with a dropped-keys control,
+                      in turns with SDPA's forward; the ring's fold-and-merge
+                      (parallel/ring_attention) at 2048² (L 16640) over 2 and
+                      4 shards in one process against A over the whole
+                      sequence, with a dropped-shard control, each fold and
+                      merge timed; B on T5-XXL's column and row shards at
+                      n = 2 and 4 (M 256, g128, cut by parallel/sharding),
+                      in turns with the whole weight's product.
   7. main           — Flux-schnell at full width on random weights (flow int8
                       per channel, T5-XXL int4 g=128), three 512², 4-step
                       requests through FluxPipeline.generate_images; checks the
@@ -114,6 +124,18 @@ Phases, each of which fails the run on error:
                       the request under torch.profiler; at 512²
                       generate_images_fused equal to generate_images byte for
                       byte, with no host synchronisation inside it.
+     main-parallel  — the parallel entry points at world 1 under an NCCL
+                      group of one process, on the same pipeline: a 512²
+                      request after shard() and one after
+                      enable_pipeline_parallel(), each equal byte for byte to
+                      main's at its seed with 228 A and 168 B launches; a
+                      2048² request with enable_ring_attention(threshold=
+                      16384) against main-2048's latent (rel-L2, and byte
+                      for byte: a ring of one fold is exact); a small-depth
+                      Flux-dev dreambooth.train step under the group equal to
+                      the step before it; main's prompts through the native
+                      and Python tokenizer engines (ids equal, host µs a
+                      prompt). The group is destroyed at the end.
   9. main-musicgen  — MusicGen-medium at full width on random weights (decoder
                       and T5-base int8 per channel, EnCodec f32), three
                       500-step requests through MusicGenPipeline.generate;
@@ -129,7 +151,10 @@ Phases, each of which fails the run on error:
                       random weights through training.dreambooth.train: 3
                       optimizer steps of 4 micro-steps on two seeded images;
                       checks losses, the adapters and the launch counts (A,
-                      its RoPE pre-pass, E, F and B).
+                      its RoPE pre-pass, E, F and B); then one optimizer step
+                      under each --remat-policy in turns (block, dots, dots,
+                      block) from the trained LoRA on the same batches:
+                      losses equal, step time, peak memory, E and F launches.
      main-sd        — SD 2.1-base and SDXL-Turbo at full width on random
                       weights (bf16), 512², through generate_latents_batch
                       + decode_u8: SD 2.1 at 50 steps, cfg 4.0, two
@@ -1460,6 +1485,7 @@ def phase_main_2048(pipe):
         pipe, pipe.generate_latents(prompt, num_steps=STEPS, latent_size=latent, seed=seed), latent,
         "conditioning_s")
     check("txt2img 2048² 4 steps", img, x_t, split, blocks * STEPS)
+    latent_2048 = x_t
 
     image = img.float() / 127.5 - 1  # the request's image in [-1, 1]
     strength = 0.5
@@ -1521,8 +1547,350 @@ def phase_main_2048(pipe):
         raise AssertionError("main-2048: " + "; ".join(failures))
     return dict(requests=requests, profile=profile_rec,
                 fused=dict(equal=equal, host_syncs=len(syncs), enqueue_s=enqueue_s, wall_s=fused_s),
-                launches={"flash_attention": blocks * STEPS, "int4_matmul": 24 * 7})
+                launches={"flash_attention": blocks * STEPS, "int4_matmul": 24 * 7}), latent_2048
 
+
+
+# ------------------------------------------------------------ the parallel layer (world 1 on one card)
+
+# Flux-schnell's attention at 512² on 2 and 4 tensor-parallel ranks: each rank
+# runs 24/n heads of the 1280-token joint sequence
+TP_HEAD_SHARDS = ((2, 12), (4, 6))
+RING_LENGTH = 16640  # a 2048² request's joint sequence: 16384 image + 256 text tokens
+RING_SHARDS = (2, 4)
+# the ring's merged output against A over the whole sequence, rel-L2: each
+# fold rounds its output to bf16 before the f32 merge (A's own bf16 output
+# rounding, 2^-9 relative, a fold); dropping one of n shards moves it by
+# O(1/n) of itself
+RING_REL_TOL = 1e-2
+
+
+def phase_kernels_parallel():
+    """The kernels on the parallel paths' shapes, at full width. A through
+    the model's route (RoPE pre-pass, then the kernel) at Flux-schnell's
+    tensor-parallel head shards (L 1280, H 12 and 6), held to its plain
+    version by rel-L2 with a dropped-keys control, in turns with SDPA's
+    forward; the ring's fold-and-merge (parallel/ring_attention.
+    fold_and_merge) at 2048² (L 16640) over 2 and 4 shards in one process,
+    every rank's folds against A over the whole sequence, with a
+    dropped-shard control, each fold and merge timed; B on T5-XXL's col and
+    row shards at n = 2 and 4 (rank 0's shard cut by parallel/sharding from
+    the whole quantized weight), held to its plain version, timed in turns
+    with the whole weight's product."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+    from flux_generator_tpu_torch.ops.quant import quantize_dense
+    from flux_generator_tpu_torch.parallel.ring_attention import fold_and_merge, merge_fold
+    from flux_generator_tpu_torch.parallel.sharding import shard_dense
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2718)
+    t_phase = time.perf_counter()
+    rows, ring_rows, b_rows = [], [], []
+
+    # A at the head shards: the model's route (flash_attention with tables)
+    cos, sin = _flux_rope_tables(1280)
+    tol_out, tol_lse = SD_FLASH_TOL
+    for n, heads in TP_HEAD_SHARDS:
+        q, k, v = (torch.randn((1, 1280, heads, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        out, lse = fa.flash_attention(q, k, v, cos, sin, return_lse=True)
+        # the plain function in f32: RoPE, then attention; the control drops
+        # the last 64 rotated keys
+        qf, kf = fa.rope_rotate_reference(q.float(), k.float(), cos.float(), sin.float())
+        ref, ref_lse = fa.flash_attention_reference(qf, kf, v.float())
+        rel, lse_err = _rel(out.float(), ref), (lse - ref_lse).abs().max().item()
+        dropped, _ = fa.flash_attention_reference(qf, kf[:, :-64], v[:, :-64].float())
+        control = _rel(dropped, ref)
+        qr, kr = fa.rope_rotate(q, k, cos, sin)
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qr, kr, v))
+        turns = in_turns({"route": lambda: fa.flash_attention(q, k, v, cos, sin),
+                          "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)})
+        ms = time_ms_queued(lambda: fa.flash_attention_sm90(qr, kr, v))
+        plain_ms = time_ms(lambda: fa.flash_attention_reference(qr, kr, v), iters=5)
+        flops = 4 * 1280 * 1280 * 128 * heads
+        bound = bound_ms(flops, 4 * q.numel() * 2 + 1280 * heads * 4)
+        row = dict(case=f"L1280_H{heads}_tp{n}", n=n, heads=heads, max_abs_err=(out.float() - ref).abs().max().item(),
+                   out_rel_l2=rel, lse_max_abs_err=lse_err, control_last_64_keys_dropped_out_rel_l2=control,
+                   ms=ms, route_ms=statistics.mean(turns["route"]), plain_ms=plain_ms,
+                   library_ms=statistics.mean(turns["sdpa"]), turns_ms=turns, bound_ms=bound[0], bound_by=bound[1],
+                   bound_share=bound[0] / ms)
+        log(f"[kernels-parallel] A route at the TP{n} head shard (L 1280, H {heads}, D 128, RoPE): out rel-L2 "
+            f"{rel:.3e} (tol {tol_out}), lse max|Δ| {lse_err:.3e} (tol {tol_lse}) | control, last 64 keys dropped: "
+            f"{control:.3e} (must exceed {tol_out}) | kernel {ms:.4f} ms ({100 * bound[0] / ms:.1f}% of the bound "
+            f"{bound[0]:.4f} ms, {bound[1]}) | in turns: route {' '.join(f'{t:.4f}' for t in turns['route'])}, SDPA "
+            f"fwd {' '.join(f'{t:.4f}' for t in turns['sdpa'])} ms | plain {plain_ms:.4f} ms")
+        if not (rel <= tol_out and lse_err <= tol_lse):
+            raise AssertionError(f"A at H {heads} disagrees with its plain version: rel-L2 {rel}, lse {lse_err}")
+        if not control > tol_out:
+            raise AssertionError(f"A at H {heads}: the dropped-keys control passes ({control})")
+        rows.append(row)
+        del q, k, v, qs, ks, vs, qr, kr, ref, dropped, qf, kf
+
+    # the ring's folds at 2048²: RoPE once over the whole sequence, then every
+    # rank's L/n queries against each K/V shard, merged in f32
+    # (q and k stand for the rotated ones: the ring rotates the whole
+    # sequence before it splits it)
+    q, k, v = (torch.randn((1, RING_LENGTH, 24, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    whole, _ = fa.flash_attention_sm90(q, k, v)
+    whole_ms = time_ms_queued(lambda: fa.flash_attention_sm90(q, k, v), iters=10)
+    for n in RING_SHARDS:
+        c = RING_LENGTH // n
+        ks, vs = k.split(c, 1), v.split(c, 1)
+        shards = list(zip(ks, vs))
+        outs = [fold_and_merge(q[:, i * c:(i + 1) * c].contiguous(), shards) for i in range(n)]
+        merged = torch.cat(outs, 1)
+        rel = _rel(merged.float(), whole.float())
+        control = _rel(torch.cat([fold_and_merge(q[:, i * c:(i + 1) * c].contiguous(), shards[:-1])
+                                  for i in range(n)], 1).float(), whole.float())
+        q0 = q[:, :c].contiguous()
+        fold = fa.flash_attention_sm90(q0, ks[0].contiguous(), vs[0].contiguous())
+        k0, v0 = ks[0].contiguous(), vs[0].contiguous()
+        fold_ms = time_ms_queued(lambda: fa.flash_attention_sm90(q0, k0, v0), iters=10)
+        state = merge_fold(None, *fold)
+        merge_ms = time_ms_queued(lambda: merge_fold(state, *fold), iters=10)
+        rank_ms = time_ms_queued(lambda: fold_and_merge(q0, shards), iters=5)
+        flops = 4 * c * c * 128 * 24
+        bound = bound_ms(flops, 4 * q0.numel() * 2 + c * 24 * 4)
+        row = dict(case=f"L{RING_LENGTH}_ring{n}", n=n, shard_length=c, out_rel_l2=rel,
+                   control_last_shard_dropped_out_rel_l2=control, fold_ms=fold_ms, merge_ms=merge_ms,
+                   rank_ms=rank_ms, whole_ms=whole_ms, overhead=rank_ms / (whole_ms / n),
+                   fold_bound_ms=bound[0], fold_bound_by=bound[1])
+        log(f"[kernels-parallel] ring fold-and-merge at L {RING_LENGTH} over {n} shards of {c}: out rel-L2 against "
+            f"A over the whole sequence {rel:.3e} (tol {RING_REL_TOL}) | control, last shard dropped: {control:.3e} "
+            f"(must exceed it) | a fold (A at L {c}) {fold_ms:.4f} ms (bound {bound[0]:.4f} ms, {bound[1]}), a "
+            f"merge {merge_ms:.4f} ms, a rank's {n} folds and merges {rank_ms:.4f} ms against A over the whole "
+            f"sequence {whole_ms:.4f} ms / {n} = {whole_ms / n:.4f} ms ({rank_ms / (whole_ms / n):.3f}x)")
+        if not rel <= RING_REL_TOL:
+            raise AssertionError(f"ring over {n} shards disagrees with A over the whole sequence: {rel}")
+        if not control > RING_REL_TOL:
+            raise AssertionError(f"ring over {n} shards: the dropped-shard control passes ({control})")
+        ring_rows.append(row)
+        del outs, merged, shards, ks, vs, q0, k0, v0, fold, state
+    del q, k, v, whole
+
+    # B on T5-XXL's tensor-parallel shards: q/k/v and wi column-split, o and
+    # wo row-split (M 256, g128); rank 0's shard, as parallel/sharding cuts it
+    for label, key, role, k_dim, n_dim in (("qkvo_col", "q", "col", 4096, 4096), ("wi_col", "wi_0", "col", 4096, 10240),
+                                           ("qkvo_row", "o", "row", 4096, 4096), ("wo_row", "wo", "row", 10240, 4096)):
+        w = torch.randn((k_dim, n_dim), generator=g, device=dev) / k_dim ** 0.5
+        whole = quantize_dense({"kernel": w}, bits=4, group_size=128, pack=True)
+        del w
+        xw = torch.randn((256, k_dim), generator=g, device=dev).to(torch.bfloat16)
+        whole_ms = None
+        for n in (2, 4):
+            p = shard_dense(whole, key, role, n, 0)
+            x = xw if role == "col" else xw[:, :k_dim // n].contiguous()
+            kk = x.shape[1]
+            if not im.supported(kk, p["kernel_scale"]):
+                raise AssertionError(f"B does not take the {label} shard at n {n} ({kk}, {p['kernel_scale'].shape})")
+            out = im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"])
+            ref = im.int4_matmul_reference(x.float(), p["kernel_q4"], p["kernel_scale"])
+            err = (out.float() - ref).abs().max().item()
+            tol = INT4_REL_TOL * ref.abs().max().item()
+            turns = in_turns({"shard": lambda: im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"]),
+                              "whole": lambda: im.int4_matmul(xw, whole["kernel_q4"], whole["kernel_scale"])})
+            ms, full_ms = statistics.mean(turns["shard"]), statistics.mean(turns["whole"])
+            plain_ms = time_ms(lambda: im.int4_matmul_reference(x, p["kernel_q4"], p["kernel_scale"]))
+            nn_ = p["kernel_q4"].shape[1]
+            bound = bound_ms(2 * 256 * kk * nn_, 2 * 256 * (kk + nn_) + p["kernel_q4"].numel()
+                             + p["kernel_scale"].numel() * 4)
+            row = dict(case=f"{label}_n{n}", k=kk, n=nn_, max_abs_err=err, tol=tol, ms=ms, whole_ms=full_ms,
+                       turns_ms=turns, plain_ms=plain_ms, library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+                       bound_share=bound[0] / ms, whole_share=ms / full_ms)
+            log(f"[kernels-parallel] B {label} shard n {n} (M 256, K {kk}, N {nn_}, g128): max|Δ| {err:.3e} (tol "
+                f"{tol:.3e}) | in turns: shard {' '.join(f'{t:.4f}' for t in turns['shard'])}, whole weight "
+                f"{' '.join(f'{t:.4f}' for t in turns['whole'])} ms ({ms / full_ms:.3f} of it, 1/{n} = {1 / n:.3f}) | "
+                f"{100 * bound[0] / ms:.1f}% of the bound {bound[0]:.4f} ms ({bound[1]}) | plain {plain_ms:.4f} ms")
+            if not err <= tol:
+                raise AssertionError(f"B {label} shard n {n} disagrees with its plain version: {err} > {tol}")
+            b_rows.append(row)
+        del whole, xw
+    seconds = time.perf_counter() - t_phase
+    log(f"[kernels-parallel] {seconds:.1f} s")
+    return {"flash_attention_tp": rows, "ring_fold_merge": ring_rows, "int4_matmul_tp": b_rows,
+            "kernels_parallel_s": seconds}
+
+
+def _tokenize_us(tok, prompts, reps: int = 50) -> float:
+    """Host µs a prompt of tok.encode, warm (the Python BPE keeps a word cache)."""
+    for text in prompts:
+        tok.encode(text)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for text in prompts:
+            tok.encode(text)
+    return (time.perf_counter() - t0) * 1e6 / (reps * len(prompts))
+
+
+def _small_dev_pipeline(pipe, t5_tok, clip_tok):
+    """Flux-dev's flow at full width cut to 2 + 2 blocks, on random weights,
+    with main's T5-XXL (int4), CLIP-L and VAE."""
+    import dataclasses
+
+    import torch
+
+    from flux_generator_tpu_torch.io.registry import flux_configs
+    from flux_generator_tpu_torch.models.flux.model import init_flux
+    from flux_generator_tpu_torch.pipelines.flux import FluxPipeline
+
+    cfg = dataclasses.replace(flux_configs("flux-dev")[0], depth=2, depth_single_blocks=2)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    params = dict(pipe.params, flow=init_flux(g, cfg, torch.bfloat16, torch.device("cuda")))
+    return FluxPipeline("flux-dev", params, cfg, pipe.ae_cfg, pipe.clip_cfg, pipe.t5_cfg, clip_tok, t5_tok)
+
+
+def _train_small(pipe, out_dir):
+    """One optimizer step (4 micro-steps) of main-train's arguments on the
+    small-depth pipeline → (losses, LoRA tensors)."""
+    import numpy as np
+
+    from flux_generator_tpu_torch.io.params import tree_leaves
+    from flux_generator_tpu_torch.training.dreambooth import build_parser, train
+    from flux_generator_tpu_torch.training.lora import extract_lora
+
+    args = build_parser().parse_args([out_dir, *TRAIN_ARGS, "--output-dir", out_dir, "--iterations", "1",
+                                      "--checkpoint-every", "0"])
+    rng = np.random.default_rng(77)
+    dataset = [(rng.integers(0, 256, (576, 640, 3), dtype=np.uint8), p) for p in TRAIN_PROMPTS]
+    trace = {}
+    trained = train(args, pipeline=pipe, dataset=dataset, trace=trace)
+    return trace["losses"], [t.detach().clone() for t in tree_leaves(extract_lora(trained.params["flow"]))]
+
+
+def phase_main_parallel(pipe, latents, latent_2048):
+    """The parallel entry points at world 1 on main's full-width pipeline
+    (int8 flow, int4 T5-XXL), under an NCCL group of one process: a 512²
+    request after shard() (tensor parallel over a model axis of 1: every
+    row-parallel dense's sum and each modulation's gather go through NCCL)
+    and one after enable_pipeline_parallel() (one stage), each equal byte
+    for byte to main's request at its seed with 228 A and 168 B launches; a
+    2048² request with enable_ring_attention(threshold=16384) (every
+    attention of the request, L 16640, as a ring of one fold) against
+    main-2048's latent; a small-depth Flux-dev dreambooth.train step under
+    the group against the same step before it; main's prompts through the
+    native and the Python tokenizer engines. The group is destroyed at the
+    end."""
+    import tempfile
+
+    import torch
+
+    from flux_generator_tpu_torch.io.registry import FLUX_T5_MAX_LENGTH
+    from flux_generator_tpu_torch.io.tokenizers import load_clip_tokenizer, load_t5_tokenizer
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+    from flux_generator_tpu_torch.ops.kernels import int4_matmul as im
+    from flux_generator_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    failures, rec = [], {"launches": {"flash_attention": 0, "flash_attention_rope": 0, "int4_matmul": 0}}
+    blocks = pipe.flow_cfg.depth + pipe.flow_cfg.depth_single_blocks
+    seed, prompt = PROMPTS[0]
+
+    # the tokenizer engines on main's prompts
+    t5_max = FLUX_T5_MAX_LENGTH["flux-schnell"]
+    engines = {}
+    for engine in ("native", "python"):
+        t0 = time.perf_counter()
+        t5 = load_t5_tokenizer(ROOT / "tests/assets/spiece/t5_like.model", max_length=t5_max, engine=engine)
+        clip = load_clip_tokenizer(ROOT / "tests/assets/clip_tokenizer/vocab.json",
+                                   ROOT / "tests/assets/clip_tokenizer/merges.txt", engine=engine)
+        engines[engine] = dict(t5=t5, clip=clip, load_s=time.perf_counter() - t0)
+    texts = [p for _, p in PROMPTS]
+    same = all(engines["native"][m].encode(t) == engines["python"][m].encode(t) for m in ("t5", "clip") for t in texts)
+    tok = {engine: {m: _tokenize_us(e[m], texts) for m in ("t5", "clip")} | {"load_s": e["load_s"]}
+           for engine, e in engines.items()}
+    log(f"[main-parallel] tokenizers on main's {len(texts)} prompts: native ids equal to the Python engine's "
+        f"{same} | host µs a prompt, warm: T5 native {tok['native']['t5']:.1f}, Python {tok['python']['t5']:.1f}; "
+        f"CLIP native {tok['native']['clip']:.1f}, Python {tok['python']['clip']:.1f} | load (the native library "
+        f"built or loaded first) {tok['native']['load_s']:.3f} s against {tok['python']['load_s']:.3f} s")
+    if not same:
+        failures.append("the native tokenizers' ids differ from the Python engines'")
+    rec["tokenizers"] = dict(equal=same, **tok)
+
+    # the training step before the group exists
+    small = _small_dev_pipeline(pipe, engines["native"]["t5"], engines["native"]["clip"])
+    with tempfile.TemporaryDirectory() as out_dir:
+        ungrouped = _train_small(small, out_dir)
+    del small
+
+    with tempfile.TemporaryDirectory() as init_dir:
+        t0 = time.perf_counter()
+        distributed.initialize_multihost(init_method=f"file://{init_dir}/group", num_processes=1, process_id=0)
+        rec["init_s"] = time.perf_counter() - t0
+        try:
+            info = distributed.process_info()
+            backend = torch.distributed.get_backend()
+            log(f"[main-parallel] process group: {backend}, {info} ({rec['init_s']:.3f} s)")
+            if backend != "nccl":
+                failures.append(f"backend {backend}, want nccl")
+
+            def request(tag):
+                fa.launches = fa.rope_launches = im.launches = 0
+                img, trace, latency = _flux_request(pipe, seed, prompt)
+                n = {"flash_attention": fa.launches, "int4_matmul": im.launches}
+                equal = torch.equal(trace["latent"], latents[seed])
+                log(f"[main-parallel] {tag} 512² seed {seed}: {latency:.4f} s | launches A {n['flash_attention']} "
+                    f"B {n['int4_matmul']} (want {blocks * STEPS}, 168) | final latent equal to main's byte for "
+                    f"byte {equal}")
+                if not equal:
+                    failures.append(f"{tag}: the latent differs from main's")
+                if n != {"flash_attention": blocks * STEPS, "int4_matmul": 24 * 7}:
+                    failures.append(f"{tag}: launches {n}")
+                rec[tag] = dict(latency_s=latency, launches=n, equal_to_main=equal)
+                for key, count in dict(n, flash_attention_rope=fa.rope_launches).items():
+                    rec["launches"][key] += count
+
+            pipe.shard()
+            _flux_request(pipe, seed, prompt)  # warm-up: NCCL sets up its communicator at the first collective
+            request("shard")
+            pipe.tp = None
+            pipe.enable_pipeline_parallel()
+            request("pipeline_parallel")
+            pipe.pp = None
+
+            pipe.enable_ring_attention(threshold=16384)
+            fa.launches = fa.rope_launches = im.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            img, x_t, split = _timed_request_2048(
+                pipe, pipe.generate_latents("an aerial photograph of a harbour town at golden hour",
+                                            num_steps=STEPS, latent_size=(256, 256), seed=21), (256, 256),
+                "conditioning_s")
+            pipe.ring = None
+            n = {"flash_attention": fa.launches, "flash_attention_rope": fa.rope_launches, "int4_matmul": im.launches}
+            rel = _rel(x_t.float(), latent_2048.float())
+            equal = torch.equal(x_t, latent_2048)
+            log(f"[main-parallel] ring 2048² (threshold 16384, one fold): wall {split['wall_s']:.4f} s (denoise "
+                f"{split['denoise_s']:.4f}) | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
+                f"{n} | final latent against main-2048's: rel-L2 {rel:.3e}, byte for byte {equal}")
+            if not equal:
+                failures.append(f"ring 2048²: the latent differs from main-2048's (rel-L2 {rel})")
+            if n != {"flash_attention": blocks * STEPS, "flash_attention_rope": blocks * STEPS, "int4_matmul": 168}:
+                failures.append(f"ring 2048²: launches {n}")
+            rec["ring_2048"] = dict(split, launches=n, rel_l2=rel, equal_to_main_2048=equal)
+            for key, count in n.items():
+                rec["launches"][key] += count
+
+            small = _small_dev_pipeline(pipe, engines["native"]["t5"], engines["native"]["clip"])
+            with tempfile.TemporaryDirectory() as out_dir:
+                grouped = _train_small(small, out_dir)
+            del small
+            same_loss = ungrouped[0] == grouped[0]
+            same_lora = all(torch.equal(a, b) for a, b in zip(ungrouped[1], grouped[1]))
+            log(f"[main-parallel] dreambooth.train, Flux-dev 2 + 2 blocks, one step of 4 micro-steps: losses "
+                f"{' '.join(f'{x:.6f}' for x in grouped[0])} under the group, equal to the step before it "
+                f"{same_loss}; adapters equal byte for byte {same_lora}")
+            if not (same_loss and same_lora):
+                failures.append(f"train under the group: losses equal {same_loss}, adapters equal {same_lora}")
+            rec["train"] = dict(losses=grouped[0], equal_losses=same_loss, equal_adapters=same_lora)
+        finally:
+            pipe.tp = pipe.pp = pipe.ring = None
+            distributed.shutdown()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[main-parallel] {rec['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("main-parallel: " + "; ".join(failures))
+    return rec
 
 
 def _to_device(tree, device, dtype):
@@ -3793,9 +4161,79 @@ def phase_main_train():
             f"{len(trained)} LoRA tensors, {sum(t.numel() for t in trained) / 1e6:.2f} M params")
         if not same or "0000003_adapters.safetensors" not in written:
             raise AssertionError("the adapter files were not written or do not read back")
+        policies = _train_policies(pipe, args, dataset)
     return dict(init_s=init_s, train_s=total_s, encode_s=trace["encode_s"], micro_step_s=steps,
                 losses=trace["losses"], peak_gib=peak, launches=launches,
-                launches_per_micro_step=per_step)
+                launches_per_micro_step=per_step, remat_policies=policies)
+
+
+def _train_policies(pipe, args, dataset):
+    """One optimizer step (grad_accumulate micro-steps, the last with the
+    Adam update) of the trained pipeline under each recomputation policy of
+    the trainer's --remat-policy, in turns (block, dots, dots, block), each
+    from the same LoRA on the same micro-batches and draws: the losses
+    ("dots" equal to "block"), the step's time, its peak memory above what
+    was resident, and E's and F's launches."""
+    import torch
+
+    from flux_generator_tpu_torch.io.params import tree_leaves, tree_map
+    from flux_generator_tpu_torch.ops.kernels import flash_attention_bwd as fb
+    from flux_generator_tpu_torch.training.dreambooth import build_optimizer, make_train_step
+    from flux_generator_tpu_torch.training.lora import extract_lora
+    from flux_generator_tpu_torch.training.trainer import Trainer
+
+    dev = torch.device("cuda")
+    flow = pipe.params["flow"]
+    start = extract_lora(flow)
+    trainer = Trainer(pipe, dataset, resolution=args.resolution, num_augmentations=args.num_augmentations)
+    trainer.encode_dataset()
+    batches = trainer.iterate(args.batch_size)
+    batches = [next(batches) for _ in range(args.grad_accumulate)]
+    guidance = torch.full((args.batch_size,), args.guidance, dtype=pipe.dtype, device=dev)
+    blocks = pipe.flow_cfg.depth + pipe.flow_cfg.depth_single_blocks
+    runs = {"block": [], "dots": []}
+    for policy in ("block", "dots", "dots", "block"):
+        lora = tree_map(lambda t: t.detach().clone().requires_grad_(True), start)
+        optimizer = build_optimizer(args.learning_rate, args.warmup_steps, args.iterations)
+        step_fn = make_train_step(pipe, optimizer, flow, args.grad_accumulate, remat=policy)
+        opt, accum = optimizer.init(lora), None
+        g = torch.Generator(device=dev).manual_seed(5)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        fb.dq_launches = fb.dkv_launches = 0
+        losses = []
+        t0 = time.perf_counter()
+        for i, (x0, t5f, clipf) in enumerate(batches):
+            loss, lora, opt, accum = step_fn(lora, opt, accum, g, x0, t5f, clipf, guidance, is_first=i == 0,
+                                             should_step=i == len(batches) - 1)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        runs[policy].append(dict(step_s=time.perf_counter() - t0, losses=losses,
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, resident_gib=resident,
+                                 launches={"flash_attention_bwd_dq": fb.dq_launches,
+                                           "flash_attention_bwd_dkv": fb.dkv_launches},
+                                 lora=[t.detach() for t in tree_leaves(lora)]))
+        del lora, opt, accum, step_fn
+    for policy, rs in runs.items():
+        log(f"[main-train] --remat-policy {policy}: optimizer step (4 micro-steps) in turns "
+            + " ".join(f"{r['step_s']:.4f}" for r in rs) + " s | peak " + " ".join(f"{r['peak_gib']:.2f}" for r in rs)
+            + f" GiB, {rs[0]['peak_gib'] - rs[0]['resident_gib']:.2f} above the resident "
+            f"{rs[0]['resident_gib']:.2f} | losses {' '.join(f'{x:.6f}' for x in rs[0]['losses'])} | launches "
+            f"{rs[0]['launches']}")
+    same_losses = all(r["losses"] == runs["block"][0]["losses"] for r in runs["block"] + runs["dots"])
+    lora_diff = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(runs["block"][0]["lora"], runs["dots"][0]["lora"]))
+    want = {"flash_attention_bwd_dq": blocks * len(batches), "flash_attention_bwd_dkv": blocks * len(batches)}
+    log(f"[main-train] dots against block: losses equal {same_losses}; the LoRA after the step max|Δ| "
+        f"{lora_diff:.3e}; E and F launches {runs['dots'][0]['launches']} (want {want})")
+    if not same_losses:
+        raise AssertionError("--remat-policy dots: the losses differ from block's")
+    if any(r["launches"] != want for r in runs["block"] + runs["dots"]):
+        raise AssertionError(f"E/F launches under the policies: {[r['launches'] for r in runs['dots']]}, want {want}")
+    return {policy: [{k: v for k, v in r.items() if k != "lora"} for r in rs] for policy, rs in runs.items()} | {
+        "lora_max_abs_diff": lora_diff}
 
 
 def _named(tree, prefix=""):
@@ -4477,10 +4915,12 @@ def main() -> int:
     kernels.update(run(phase_kernels_bare_dot))
     streamed = run(phase_kernels_flash_streamed)
     kernels.update(flash_attention_streamed=streamed["flash_attention_streamed"])
+    kernels.update(run(phase_kernels_parallel))
     main_run, pipe, latents = phase_main()
     main_w8a8 = run(lambda: phase_main_w8a8(pipe, latents))
-    main_2048 = run(lambda: phase_main_2048(pipe))
-    del pipe, latents
+    main_2048, latent_2048 = run(lambda: phase_main_2048(pipe))
+    main_parallel = run(lambda: phase_main_parallel(pipe, latents, latent_2048))
+    del pipe, latents, latent_2048
     main_music, pipe = phase_main_musicgen()
     main_serve = run(lambda: phase_main_musicgen_serve(pipe))
     main_long = run(lambda: phase_main_musicgen_long(pipe))
@@ -4517,8 +4957,10 @@ def main() -> int:
                                                            + main_codec["launches"]["lstm"]})),
             (ds, "decode_step", "int8_B2_W500_off250", main_music)):
         case = next(c for c in kernels[key] if c["case"] == main_case)
+        # A's, its pre-pass's and B's launches on the main path and on the parallel paths
+        launches = path["launches"][key] + (main_parallel["launches"][key] if path is main_run else 0)
         entries.append(dict(name=key, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
-                            launches=path["launches"][key],
+                            launches=launches,
                             max_abs_err=max(c["max_abs_err"] for c in kernels[key]),
                             ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
                             bound_by=case["bound_by"], library_ms=case["library_ms"]))
@@ -4597,7 +5039,7 @@ def main() -> int:
         raise AssertionError(f"kernels that their paths never launched: {unlaunched}")
     record = dict(device=smi, build=build_info, kernels=kernels, prof_attn_int8=streamed["prof_attn_int8"],
                   main=main_run,
-                  main_w8a8=main_w8a8, main_2048=main_2048,
+                  main_w8a8=main_w8a8, main_2048=main_2048, main_parallel=main_parallel,
                   main_musicgen=main_music, main_musicgen_serve=main_serve, main_musicgen_long=main_long,
                   main_train=main_train, main_sd=main_sd, main_serve=served, main_serve_int8=served_int8,
                   main_cli=main_cli, main_codec=main_codec,

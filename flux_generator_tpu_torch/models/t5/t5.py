@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ...io.params import num_layers, stack_layers, take_layer
 from ...ops.attention import dot_product_attention
-from ...ops.linear import dense, init_dense, rand_normal
+from ...ops.linear import dense, dense_parallel, init_dense, rand_normal
 from ...ops.norms import rms_norm
 
 
@@ -167,15 +167,18 @@ def init_t5(generator: torch.Generator, cfg: T5Config, dtype=torch.float32, devi
     return p
 
 
-def _attn(p, q_in, kv_in, cfg: T5Config, bias=None, mask=None, w8a8=None):
+def _attn(p, q_in, kv_in, cfg: T5Config, bias=None, mask=None, w8a8=None, tp=None):
+    """Attention over this rank's heads under tensor parallelism (tp, a
+    parallel.mesh.Mesh: q, k and v column-split by head, o row-split and
+    summed across ranks; the bias table split by head alike)."""
     b, lq, _ = q_in.shape
     lk = kv_in.shape[1]
-    h = cfg.num_heads
-    q = dense(p["q"], q_in, w8a8).reshape(b, lq, h, -1)
-    k = dense(p["k"], kv_in, w8a8).reshape(b, lk, h, -1)
-    v = dense(p["v"], kv_in, w8a8).reshape(b, lk, h, -1)
+    d = cfg.d_kv
+    q = dense(p["q"], q_in, w8a8).reshape(b, lq, -1, d)
+    k = dense(p["k"], kv_in, w8a8).reshape(b, lk, -1, d)
+    v = dense(p["v"], kv_in, w8a8).reshape(b, lk, -1, d)
     out = dot_product_attention(q, k, v, bias=bias, mask=mask, scale=1.0)
-    return dense(p["o"], out.reshape(b, lq, -1), w8a8)
+    return dense_parallel(p["o"], out.reshape(b, lq, -1), tp, "row", w8a8)
 
 
 _ACTS = {
@@ -185,17 +188,19 @@ _ACTS = {
 }
 
 
-def _dense_act(p, x, cfg: T5Config, w8a8=None):
+def _dense_act(p, x, cfg: T5Config, w8a8=None, tp=None):
     act = _ACTS[cfg.feed_forward_proj.removeprefix("gated-")]
     if "wi_0" in p:
         x = act(dense(p["wi_0"], x, w8a8)) * dense(p["wi_1"], x, w8a8)
     else:
         x = act(dense(p["wi"], x, w8a8))
-    return dense(p["wo"], x, w8a8)
+    return dense_parallel(p["wo"], x, tp, "row", w8a8)
 
 
-def t5_encode(params, cfg: T5Config, tokens: torch.Tensor, w8a8=None) -> torch.Tensor:
-    """tokens (B, L) int → (B, L, d_model) in the params' dtype."""
+def t5_encode(params, cfg: T5Config, tokens: torch.Tensor, w8a8=None, tp=None) -> torch.Tensor:
+    """tokens (B, L) int → (B, L, d_model) in the params' dtype. With tp (a
+    parallel.mesh.Mesh), the encoder runs tensor-parallel over its "model"
+    axis on this rank's shard of the params (parallel/sharding)."""
     enc = params["encoder"]
     x = params["wte"][tokens]
     length = tokens.shape[1]
@@ -204,9 +209,9 @@ def t5_encode(params, cfg: T5Config, tokens: torch.Tensor, w8a8=None) -> torch.T
     for i in range(num_layers(layers)):
         p = take_layer(layers, i)
         y = rms_norm(x, p["ln1"], cfg.layer_norm_epsilon)
-        x = x + _attn(p["attention"], y, y, cfg, bias=bias, w8a8=w8a8)
+        x = x + _attn(p["attention"], y, y, cfg, bias=bias, w8a8=w8a8, tp=tp)
         y = rms_norm(x, p["ln2"], cfg.layer_norm_epsilon)
-        x = x + _dense_act(p["dense"], y, cfg, w8a8)
+        x = x + _dense_act(p["dense"], y, cfg, w8a8, tp)
     return rms_norm(x, enc["ln"], cfg.layer_norm_epsilon)
 
 

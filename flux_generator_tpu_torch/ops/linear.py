@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import MODEL_AXIS, all_gather, all_reduce
 from .kernels import w8a8_matmul as w8a8_kernels
 from .kernels import int4_matmul as int4_kernels
 from .quant import INT4_MARK, is_k_major
@@ -182,6 +183,25 @@ def dense(p: dict, x: torch.Tensor, w8a8: Optional[str] = None) -> torch.Tensor:
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
+
+
+def dense_parallel(p: dict, x: torch.Tensor, tp, role: str, w8a8: Optional[str] = None) -> torch.Tensor:
+    """`dense` on this rank's shard of a tensor-parallel module
+    (parallel/sharding.TP_PLAN) over the "model" axis of mesh `tp`: "col"
+    gives this rank's output slice; "row" sums the ranks' partial products,
+    then adds the bias once; "gather" concatenates the ranks' output slices
+    in rank order. With tp None, `dense` itself."""
+    if tp is None or role == "col":
+        return dense(p, x, w8a8)
+    if role == "gather":
+        return all_gather(dense(p, x, w8a8), tp, MODEL_AXIS, dim=-1)
+    if role != "row":
+        raise ValueError(f"role must be col, row or gather, got {role!r}")
+    if w8a8 and tp.size(MODEL_AXIS) > 1:
+        # int8 activations take a row's scale over the whole K, which no rank holds
+        raise NotImplementedError("W8A8 on a row-parallel dense: the activation scale spans the split K")
+    y = all_reduce(dense({k: v for k, v in p.items() if k != "bias"}, x, w8a8), tp, MODEL_AXIS)
+    return y + p["bias"].to(y.dtype) if "bias" in p else y
 
 
 def conv2d(p: dict, x: torch.Tensor, stride=1, padding=0) -> torch.Tensor:

@@ -85,6 +85,11 @@ class FluxPipeline:
         self.schnell = "schnell" in name
         self.w8a8 = w8a8
         self.attn_int8 = attn_int8
+        # the parallel layouts set by shard, enable_pipeline_parallel and
+        # enable_ring_attention, passed to every flow (and T5) call
+        self.tp = None
+        self.pp = None
+        self.ring = None
 
     @property
     def device(self) -> torch.device:
@@ -131,6 +136,67 @@ class FluxPipeline:
 
         return load_flux_pipeline(name, dtype=dtype, device=device, **kwargs)
 
+    # -------------------------------------------------- parallel layouts
+
+    def shard(self, mesh=None):
+        """Tensor-parallel the flow and T5 over the "model" axis of a ("data",
+        "model") mesh (every rank of the process group on "model" when None):
+        each rank keeps its shard of their weights (parallel/sharding.TP_PLAN)
+        and runs its heads; CLIP and the autoencoder stay whole, the same on
+        every rank. Every rank runs the same requests. Call once after load
+        (and after quantizing)."""
+        from ..parallel.mesh import create_mesh
+        from ..parallel.sharding import replicate, shard_params
+
+        if mesh is None:
+            from ..parallel.distributed import world_size
+
+            mesh = create_mesh(data=1, model=world_size())
+        self.mesh = self.tp = mesh
+        self.params["flow"] = shard_params(self.params["flow"], mesh)
+        self.params["t5"] = shard_params(self.params["t5"], mesh)
+        self.params["clip"] = replicate(self.params["clip"], mesh)
+        self.params["ae"] = replicate(self.params["ae"], mesh)
+        return self
+
+    def enable_pipeline_parallel(self, mesh=None, axis: str = "pipe", microbatches: Optional[int] = None):
+        """Pipeline-parallel the flow over the `mesh.size(axis)` stages of
+        `axis` (every rank of the process group when mesh is None): each rank
+        keeps a contiguous chunk of the double and single blocks, and
+        microbatches stream through the stages GPipe-style
+        (parallel/pipeline.py). The stacks are zero-padded to a stage
+        multiple (zero blocks are exact identities). Enable after quantizing
+        or fusing LoRA, before the first request."""
+        from ..parallel.mesh import Mesh
+        from ..parallel.pipeline import pad_stack, shard_pipeline_params
+
+        if mesh is None:
+            from ..parallel.distributed import world_size
+
+            mesh = Mesh({axis: world_size()})
+        flow = self.params["flow"]
+        for name in ("double_blocks", "single_blocks"):
+            padded, _ = pad_stack(flow[name], mesh.size(axis))
+            flow[name] = shard_pipeline_params(padded, mesh, axis)
+        self.pp = (mesh, axis, microbatches)
+        return self
+
+    def enable_ring_attention(self, mesh=None, axis: str = "model", threshold: int = 32768):
+        """Sequence-parallel attention for very large images: every attention
+        of length ≥ threshold that divides over `axis` of `mesh` (every rank
+        of the process group when None) runs as ring attention
+        (parallel/ring_attention.py), rotating K/V shards around the axis;
+        shorter ones keep the one-device path. The switch is this
+        pipeline's, passed to each flow call."""
+        from ..parallel.mesh import create_mesh
+
+        if mesh is None:
+            from ..parallel.distributed import world_size
+
+            mesh = create_mesh(data=1, model=world_size())
+        self.ring = (mesh, axis, threshold)
+        return self
+
     # -------------------------------------------------- text conditioning
 
     def tokenize(self, text: str):
@@ -142,7 +208,7 @@ class FluxPipeline:
         return t5_tokens, clip_tokens
 
     def prepare_conditioning(self, n_images: int, t5_tokens, clip_tokens):
-        txt = t5_encode(self.params["t5"], self.t5_cfg, t5_tokens, self.w8a8).to(self.dtype)
+        txt = t5_encode(self.params["t5"], self.t5_cfg, t5_tokens, self.w8a8, self.tp).to(self.dtype)
         if txt.shape[0] == 1 and n_images > 1:
             txt = txt.expand(n_images, *txt.shape[1:])
         txt_ids = torch.zeros((n_images, txt.shape[1], 3), dtype=torch.int32, device=txt.device)
@@ -164,7 +230,7 @@ class FluxPipeline:
             self.params["flow"], self.flow_cfg, img=x_t, img_ids=x_ids, txt=txt,
             txt_ids=txt_ids, timesteps=t.expand(b), y=vec,
             guidance=guidance.expand(b) if self.flow_cfg.guidance_embed else None,
-            w8a8=self.w8a8, attn_int8=self.attn_int8,
+            w8a8=self.w8a8, attn_int8=self.attn_int8, tp=self.tp, pp=self.pp, ring=self.ring,
         )
         # t_prev − t is taken in the schedule's dtype, then promoted to x_t's
         return sampler_mod.flux_step(pred, x_t, t, t_prev)
@@ -370,21 +436,29 @@ class FluxPipeline:
     # -------------------------------------------------- training
 
     def training_loss(self, flow_params, generator: torch.Generator, x_0, t5_features,
-                      clip_features, guidance):
+                      clip_features, guidance, rows: Optional[slice] = None, remat: str = "block"):
         """Flow-matching loss with timesteps from the schnell/dev schedule
-        and noise, both drawn from `generator`: see `_training_loss_at`."""
+        and noise, both drawn from `generator` for the whole batch: see
+        `_training_loss_at`. `rows` takes the loss over those rows of the
+        batch only (a data-parallel rank's share of the global batch, with
+        the global batch's draws)."""
         b, h, w, c = x_0.shape
         t = sampler_mod.random_timesteps(generator, b, h * w // 4, self.schnell)
         eps = torch.randn((b, h * w // 4, 4 * c), generator=generator, device=generator.device,
                           dtype=torch.float32)
-        return self._training_loss_at(flow_params, x_0, t.to(x_0.device), eps.to(x_0.device, x_0.dtype),
-                                      t5_features, clip_features, guidance)
+        t, eps = t.to(x_0.device), eps.to(x_0.device, x_0.dtype)
+        if rows is not None:
+            x_0, t, eps, t5_features, clip_features = (v[rows] for v in (x_0, t, eps, t5_features, clip_features))
+            guidance = None if guidance is None else guidance[rows]
+        return self._training_loss_at(flow_params, x_0, t, eps, t5_features, clip_features, guidance, remat)
 
-    def _training_loss_at(self, flow_params, x_0, t, eps, t5_features, clip_features, guidance):
+    def _training_loss_at(self, flow_params, x_0, t, eps, t5_features, clip_features, guidance,
+                          remat: str = "block"):
         """mean((pred + x_0 − eps)²) in f32 at given timesteps t (B,) f32 and
         packed noise eps (B, h·w/4, 4c): x_0 (B, h, w, c) latents are packed,
         noised to x_t = (1 − t)·x_0 + t·eps (detached, no gradient through
-        it), and the flow runs with per-block recomputation."""
+        it), and the flow runs with per-block recomputation by the `remat`
+        policy ("block" or "dots", see models.flux.model.flux_forward)."""
         txt = t5_features
         txt_ids = torch.zeros((*txt.shape[:-1], 3), dtype=torch.int32, device=txt.device)
         x_ids = latent_ids(*x_0.shape[:3], device=x_0.device)
@@ -393,6 +467,6 @@ class FluxPipeline:
         pred = flux_forward(
             flow_params, self.flow_cfg, img=x_t, img_ids=x_ids, txt=txt, txt_ids=txt_ids,
             timesteps=t.to(self.dtype), y=clip_features,
-            guidance=guidance if self.flow_cfg.guidance_embed else None, remat=True,
+            guidance=guidance if self.flow_cfg.guidance_embed else None, remat=remat,
         )
         return torch.mean((pred + x_0 - eps).float() ** 2)

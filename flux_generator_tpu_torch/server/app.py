@@ -6,7 +6,8 @@
 Checkpoints load on first use from the local Hugging Face hub cache
 ($HF_HUB_CACHE, else $HF_HOME/hub, else ~/.cache/huggingface/hub; see
 io/loaders); FLUX_SCHNELL / FLUX_DEV / AE name Flux files in place of it.
-The server runs on the current CUDA device.
+The server runs on the current CUDA device; started by torchrun, each
+process first joins the process group (parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -44,6 +45,14 @@ def get_app(pipeline_factory=None, sd_factory=None, **kwargs):
 
 
 def main(argv=None):
+    # several processes (torchrun): join the group before any device query;
+    # a no-op in a single process
+    from ..parallel.distributed import initialize_multihost, process_info
+
+    initialize_multihost()
+    pinfo = process_info()
+    if pinfo["process_count"] > 1:
+        print(f"multi-process serving: {pinfo}", flush=True)
     parser = argparse.ArgumentParser(description="Flux Generator server (PyTorch, CUDA)")
     parser.add_argument("--port", type=int, default=7860)
     parser.add_argument("--listen-all", action="store_true", help="listen on all interfaces (0.0.0.0)")

@@ -1,8 +1,10 @@
-"""CLIP byte-pair-encoding tokenizer in pure Python (the port's own copy of
-flux_generator_tpu/tokenizers/clip_bpe.py, without its optional ctypes
-engine).
+"""CLIP byte-pair-encoding tokenizer (the port's own copy of
+flux_generator_tpu/tokenizers/clip_bpe.py).
 
-Lowercase + whitespace collapse, CLIP word-split regex, per-word BPE with
+The per-word merge loop runs in the native engine (tokenizers/native.py,
+built from csrc/clip_bpe.cpp at first use) by default, or in Python with
+engine="python"; a word whose ids overflow the native buffer takes the
+Python loop. Lowercase + whitespace collapse, CLIP word-split regex, per-word BPE with
 `</w>` end marker, 77-token cap with forced EOS, EOS-padded batch encode,
 and the byte→unicode mapping so non-ASCII prompts round-trip. Needs the
 `regex` module, imported when a tokenizer is built.
@@ -14,6 +16,8 @@ import functools
 import gzip
 import json
 from pathlib import Path
+
+from .native import NativeBpe, check_engine
 
 BOS = "<|startoftext|>"
 EOS = "<|endoftext|>"
@@ -40,11 +44,13 @@ def bytes_to_unicode():
 
 
 class CLIPTokenizer:
-    def __init__(self, vocab: dict, merges: list, max_length: int = 77):
-        """vocab: token→id; merges: list of (a, b) pairs in rank order.
-        Raises ImportError where the `regex` module is missing."""
+    def __init__(self, vocab: dict, merges: list, max_length: int = 77, engine: str = "native"):
+        """vocab: token→id; merges: list of (a, b) pairs in rank order;
+        engine "native" or "python" (tokenizers/native.py). Raises
+        ImportError where the `regex` module is missing."""
         import regex
 
+        check_engine(engine)
         self._regex = regex
         self._word_pat = regex.compile(_WORD_PAT, regex.IGNORECASE)
         self.max_length = max_length
@@ -53,11 +59,14 @@ class CLIPTokenizer:
         self.bpe_ranks = {tuple(m): i for i, m in enumerate(merges)}
         self.byte_encoder = bytes_to_unicode()
         self._cache = {BOS: [BOS], EOS: [EOS]}
+        self.engine = engine
+        self._native = NativeBpe(vocab, list(map(tuple, merges)), vocab.get(EOS, 0)) \
+            if engine == "native" else None
 
     # -------------------------------------------------- constructors
 
     @classmethod
-    def from_files(cls, vocab_file, merges_file, max_length: int = 77):
+    def from_files(cls, vocab_file, merges_file, max_length: int = 77, engine: str = "native"):
         """HF-format vocab.json + merges.txt."""
         with open(vocab_file) as f:
             vocab = json.load(f)
@@ -68,10 +77,10 @@ class CLIPTokenizer:
                 if not line or line.startswith("#version"):
                     continue
                 merges.append(tuple(line.split()))
-        return cls(vocab, merges, max_length)
+        return cls(vocab, merges, max_length, engine)
 
     @classmethod
-    def from_openai_bpe(cls, bpe_path, max_length: int = 77):
+    def from_openai_bpe(cls, bpe_path, max_length: int = 77, engine: str = "native"):
         """OpenAI bpe_simple_vocab_16e6.txt(.gz): merges imply the vocab."""
         opener = gzip.open if str(bpe_path).endswith(".gz") else open
         with opener(bpe_path, "rt", encoding="utf-8") as f:
@@ -82,16 +91,16 @@ class CLIPTokenizer:
         tokens += ["".join(m) for m in merges]
         tokens += [BOS, EOS]
         vocab = {t: i for i, t in enumerate(tokens)}
-        return cls(vocab, merges, max_length)
+        return cls(vocab, merges, max_length, engine)
 
     @classmethod
-    def from_pretrained_dir(cls, path, max_length: int = 77):
+    def from_pretrained_dir(cls, path, max_length: int = 77, engine: str = "native"):
         path = Path(path)
         if (path / "vocab.json").exists():
-            return cls.from_files(path / "vocab.json", path / "merges.txt", max_length)
+            return cls.from_files(path / "vocab.json", path / "merges.txt", max_length, engine)
         for name in ("bpe_simple_vocab_16e6.txt.gz", "bpe_simple_vocab_16e6.txt"):
             if (path / name).exists():
-                return cls.from_openai_bpe(path / name, max_length)
+                return cls.from_openai_bpe(path / name, max_length, engine)
         raise FileNotFoundError(f"no CLIP tokenizer files in {path}")
 
     # -------------------------------------------------- properties
@@ -147,6 +156,11 @@ class CLIPTokenizer:
         for w in words:
             if w not in (BOS, EOS):
                 w = "".join(self.byte_encoder[b] for b in w.encode("utf-8"))
+                if self._native is not None:
+                    native_ids = self._native.encode_word(w)
+                    if native_ids is not None:  # None: overflow, the Python loop takes the word
+                        ids.extend(native_ids)
+                        continue
             for piece in self._bpe(w):
                 ids.append(self.vocab.get(piece, unk))
 

@@ -1,6 +1,10 @@
-"""SentencePiece unigram tokenizer in pure Python (the port's own copy of
-flux_generator_tpu/tokenizers/sentencepiece_unigram.py, without its optional
-ctypes engine).
+"""SentencePiece unigram tokenizer (the port's own copy of
+flux_generator_tpu/tokenizers/sentencepiece_unigram.py).
+
+The Viterbi segmentation runs in the native engine (tokenizers/native.py,
+built from csrc/spm_unigram.cpp at first use) by default, or in Python with
+engine="python"; a text whose pieces overflow the native buffer takes the
+Python Viterbi.
 
 Parses the `.model` protobuf with a minimal wire-format reader and runs
 Viterbi unigram segmentation directly. Covers what T5 needs: NFKC-ish
@@ -12,6 +16,8 @@ from __future__ import annotations
 
 import struct
 import unicodedata
+
+from .native import NativeUnigram, check_engine
 
 SPACE = "▁"  # ▁
 
@@ -101,7 +107,9 @@ _NORMAL, _UNKNOWN, _CONTROL, _USER_DEFINED, _BYTE, _UNUSED = 1, 2, 3, 4, 6, 5
 
 
 class SentencePieceUnigramTokenizer:
-    def __init__(self, pieces, trainer=None, normalizer=None, max_length: int = 512):
+    def __init__(self, pieces, trainer=None, normalizer=None, max_length: int = 512,
+                 engine: str = "native"):
+        check_engine(engine)
         self.max_length = max_length
         self.pieces = pieces
         self.scores = {}
@@ -124,13 +132,16 @@ class SentencePieceUnigramTokenizer:
             self.scores[piece] = score
             self.ids[piece] = i
             self._max_piece_len = max(self._max_piece_len, len(piece))
+        self.engine = engine
+        self._native = NativeUnigram(self.scores, self.ids, self.byte_pieces, self.unk_id) \
+            if engine == "native" else None
 
     @classmethod
-    def from_file(cls, model_file, max_length: int = 512):
+    def from_file(cls, model_file, max_length: int = 512, engine: str = "native"):
         with open(model_file, "rb") as f:
             data = f.read()
         pieces, trainer, normalizer = parse_model_proto(data)
-        return cls(pieces, trainer, normalizer, max_length)
+        return cls(pieces, trainer, normalizer, max_length, engine)
 
     @property
     def vocab_size(self) -> int:
@@ -161,6 +172,14 @@ class SentencePieceUnigramTokenizer:
 
     def _segment(self, text: str) -> list:
         """Unigram Viterbi over the normalized string → piece ids."""
+        if self._native is not None:
+            try:
+                return self._native.segment(text)
+            except ValueError:
+                pass  # more pieces than the native buffer holds: the unbounded Python Viterbi
+        return self._segment_py(text)
+
+    def _segment_py(self, text: str) -> list:
         n = len(text)
         NEG = float("-inf")
         best = [NEG] * (n + 1)

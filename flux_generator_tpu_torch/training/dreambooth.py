@@ -1,20 +1,27 @@
 """DreamBooth LoRA fine-tuning of Flux (counterpart of
 flux_generator_tpu/training/dreambooth.py, with the same flags).
 
-One device, the one the pipeline lies on (the card unless the caller built
-the pipeline on the CPU). Gradients are taken over the extracted LoRA tree
-only: the base (bf16 or int8 with --quantize-base) never requires grad.
-Adam with optax's defaults on a linear-warmup → cosine schedule, gradient
-accumulation over --grad-accumulate micro-steps, an optional last-N-blocks
-mask, adapter safetensors and torch.save train-state checkpoints. The mesh,
-multi-process and multi-host paths of the JAX trainer are not ported yet,
-nor is loading Flux checkpoints: from the command line the trainer runs on
-seeded random weights at the model's full width (--random-weights), with
-the tokenizers read from files.
+Gradients are taken over the extracted LoRA tree only: the base (bf16 or
+int8 with --quantize-base) never requires grad. Adam with optax's defaults
+on a linear-warmup → cosine schedule, gradient accumulation over
+--grad-accumulate micro-steps, an optional last-N-blocks mask, the "block"
+or "dots" recomputation policy (--remat-policy), adapter safetensors and
+torch.save train-state checkpoints.
+
+Data-parallel over processes: under `torchrun` (or after
+parallel.distributed.initialize_multihost) every process iterates the same
+global batch and takes its rows of it, the LoRA gradients are averaged
+across the processes (all_reduce, then divided by their number), and
+process 0 alone writes files. Each process runs on the device its pipeline
+lies on (the card unless the caller built the pipeline on the CPU).
+Loading Flux checkpoints is not ported here: from the command line the
+trainer runs on seeded random weights at the model's full width
+(--random-weights), with the tokenizers read from files.
 
     python -m flux_generator_tpu_torch.training.dreambooth DATASET --model dev \
         --random-weights --t5-tokenizer spiece.model --clip-tokenizer DIR \
         --quantize-base ...
+    torchrun --nproc-per-node 4 -m flux_generator_tpu_torch.training.dreambooth DATASET ...
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from ..io.params import tree_leaves, tree_map
+from ..parallel.mesh import DATA_AXIS, all_reduce, create_mesh
 from .lora import merge_lora
 
 
@@ -81,20 +89,53 @@ def build_optimizer(learning_rate: float, warmup: int, total: int) -> Adam:
     return Adam(warmup_cosine(learning_rate, warmup, total))
 
 
-def make_train_step(pipeline, optimizer: Adam, base_params, grad_accumulate: int, block_mask=None):
+def _mean_over_data(tensors: list, mesh) -> list:
+    """Each tensor averaged over the mesh's "data" axis: summed (gloo has no
+    average) in one flat buffer a dtype, then divided by the axis size."""
+    n = mesh.size(DATA_AXIS)
+    out = list(tensors)
+    for dtype in {t.dtype for t in tensors}:
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        all_reduce(flat, mesh, DATA_AXIS)
+        flat = flat / n
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view_as(tensors[i])
+    return out
+
+
+def make_train_step(pipeline, optimizer: Adam, base_params, grad_accumulate: int, block_mask=None,
+                    remat: str = "block", mesh=None):
     """A step over the extracted LoRA tree: the loss of one micro-batch and
     its gradients with respect to the LoRA leaves only, times `block_mask`
     (per-leaf 0/1 multipliers over the stacked layer axis) when given,
     summed into `accum`; on `should_step` one optimizer update on
-    accum / grad_accumulate, and accum starts again at zero."""
+    accum / grad_accumulate, and accum starts again at zero. The flow
+    recomputes its blocks by the `remat` policy.
+
+    With a mesh whose "data" axis has more than one rank, every rank gets
+    the same global batch, takes the loss over its rows of it, and the loss
+    and gradients are averaged over the axis, so every rank steps alike."""
     mask = tree_leaves(block_mask) if block_mask is not None else None
+    n_data = 1 if mesh is None else mesh.size(DATA_AXIS)
 
     def step(lora_params, opt_state, accum, generator, x0, t5f, clipf, guidance,
              is_first: bool, should_step: bool):
         leaves = tree_leaves(lora_params)
+        # only what differs from training_loss's defaults: a pipeline with the
+        # six-argument training_loss trains as before
+        kw = {} if remat == "block" else {"remat": remat}
+        if n_data > 1:
+            if x0.shape[0] % n_data:
+                raise ValueError(f"a batch of {x0.shape[0]} rows does not split over {n_data} processes")
+            per = x0.shape[0] // n_data
+            kw["rows"] = slice(mesh.index(DATA_AXIS) * per, (mesh.index(DATA_AXIS) + 1) * per)
         loss = pipeline.training_loss(merge_lora(base_params, lora_params), generator, x0, t5f,
-                                      clipf, guidance)
+                                      clipf, guidance, **kw)
         grads = list(torch.autograd.grad(loss, leaves))
+        loss = loss.detach()
+        if n_data > 1:
+            loss, *grads = _mean_over_data([loss, *grads], mesh)
         if mask is not None:
             grads = [g * m for g, m in zip(grads, mask)]
         if is_first or accum is None:
@@ -106,7 +147,7 @@ def make_train_step(pipeline, optimizer: Adam, base_params, grad_accumulate: int
             opt_state = optimizer.update(tree_map(lambda _: next(it), lora_params), opt_state,
                                          lora_params)
             accum = [torch.zeros_like(a) for a in accum]
-        return loss.detach(), lora_params, opt_state, accum
+        return loss, lora_params, opt_state, accum
 
     return step
 
@@ -158,22 +199,31 @@ def train(args, pipeline=None, dataset=None, trace: Optional[dict] = None):
     encode ("encode_s") and of each micro-step ("micro_step_s"), each ended
     by a device synchronize, and the losses."""
     from ..ops.quant import quantize_tree
+    from ..parallel.distributed import initialize_multihost, process_info
     from ..runtime.device import synchronize
     from .checkpoints import load_train_state, save_adapter, save_config, save_train_state
     from .datasets import load_dataset
     from .lora import apply_lora_to_flux, extract_lora, lora_block_mask
     from .trainer import Trainer
 
+    # join the other processes (a no-op in a single process) before the
+    # pipeline is built on this process's device
+    initialize_multihost(device=pipeline.device if pipeline is not None else args.device)
+    pinfo = process_info()
+    if pinfo["process_count"] > 1:
+        print(f"multi-process training: {pinfo}", flush=True)
+    is_main = pinfo["process_index"] == 0  # process 0 owns all file output
     if pipeline is None:
         pipeline = random_pipeline(args)
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    save_config(output_dir / "adapter_config.json", vars(args))
+    if is_main:
+        save_config(output_dir / "adapter_config.json", vars(args))
     if dataset is None:
         dataset = load_dataset(args.dataset)
     device = pipeline.device
 
-    # deterministic LoRA init from a fixed seed
+    # deterministic LoRA init from a fixed seed, alike on every process
     flow = apply_lora_to_flux(pipeline.params["flow"], rank=args.lora_rank,
                               generator=torch.Generator(device=device).manual_seed(0x0F0F0F0F))
     if getattr(args, "quantize_base", False):
@@ -195,9 +245,20 @@ def train(args, pipeline=None, dataset=None, trace: Optional[dict] = None):
             print(f"Resumed from step {start_iter}", flush=True)
     for p in tree_leaves(lora):
         p.requires_grad_(True)
+
+    # the data axis must divide the global batch: processes past it sit out
+    # (the reference requires the same, one batch shard a rank)
+    world = pinfo["process_count"]
+    n_data = math.gcd(args.batch_size, world)
+    if n_data < world:
+        print(f"WARNING: batch size {args.batch_size} not divisible by {world} processes; "
+              f"training on {n_data}", flush=True)
+    mesh = create_mesh(data=n_data, model=1, devices=range(n_data))
+    training = mesh.coords is not None
     step_fn = make_train_step(
         pipeline, optimizer, flow, args.grad_accumulate,
         block_mask=extract_lora(block_mask) if args.lora_blocks > 0 else None,
+        remat=args.remat_policy, mesh=mesh,
     )
 
     trainer = Trainer(pipeline, dataset, resolution=args.resolution,
@@ -214,10 +275,8 @@ def train(args, pipeline=None, dataset=None, trace: Optional[dict] = None):
     generator = torch.Generator(device=device).manual_seed(0xF0F0F0F0)
 
     losses, tic = [], time.time()
-    for i, (x0, t5f, clipf) in zip(
-        range(start_iter * args.grad_accumulate, args.iterations * args.grad_accumulate),
-        trainer.iterate(args.batch_size),
-    ):
+    steps = range(start_iter * args.grad_accumulate, args.iterations * args.grad_accumulate)
+    for i, (x0, t5f, clipf) in zip(steps if training else (), trainer.iterate(args.batch_size)):
         t0 = time.perf_counter()
         is_first = (i % args.grad_accumulate) == 0
         should_step = (i % args.grad_accumulate) == (args.grad_accumulate - 1)
@@ -237,15 +296,22 @@ def train(args, pipeline=None, dataset=None, trace: Optional[dict] = None):
             print(f"Iter: {opt_step} Loss: {np.mean(losses):.5f} "
                   f"It/s: {10 * args.grad_accumulate / (toc - tic):.3f}", flush=True)
             losses, tic = [], toc
-        if should_step and args.progress_every > 0 and opt_step % args.progress_every == 0:
+        if is_main and should_step and args.progress_every > 0 and opt_step % args.progress_every == 0:
             generate_progress_images(pipeline, args.progress_prompt, output_dir, opt_step)
-        if should_step and args.checkpoint_every > 0 and opt_step % args.checkpoint_every == 0:
+        if is_main and should_step and args.checkpoint_every > 0 and opt_step % args.checkpoint_every == 0:
             save_adapter(output_dir / f"{opt_step:07d}_adapters.safetensors",
                          merge_lora(flow, lora), args.lora_rank, args.lora_blocks)
             if getattr(args, "resume", False) or getattr(args, "save_state", False):
                 save_train_state(output_dir / "ckpt", opt_step, lora, opt_state)
-    save_adapter(output_dir / "final_adapters.safetensors", merge_lora(flow, lora),
-                 args.lora_rank, args.lora_blocks)
+    if n_data < world:
+        # the processes that sat out take the trained adapters of process 0
+        with torch.no_grad():
+            for p in tree_leaves(lora):
+                torch.distributed.broadcast(p, src=0)
+        pipeline.params["flow"] = merge_lora(flow, lora)
+    if is_main:
+        save_adapter(output_dir / "final_adapters.safetensors", merge_lora(flow, lora),
+                     args.lora_rank, args.lora_blocks)
     return pipeline
 
 
@@ -274,6 +340,9 @@ def build_parser():
                         help="write train-state checkpoints alongside adapters")
     parser.add_argument("--quantize-base", action="store_true",
                         help="int8-quantize the frozen base weights")
+    parser.add_argument("--remat-policy", default="block", choices=["block", "dots"],
+                        help="recompute each flow block whole in the backward pass (block), or save the "
+                             "outputs of its 2-D matmuls and recompute the rest (dots)")
     # the port's own: checkpoint loading is not ported yet, so this flag is
     # required; it stands as a guard that the caller knows the weights are random
     parser.add_argument("--random-weights", action="store_true",
