@@ -10,14 +10,17 @@ Phases, each of which fails the run on error:
                       chain-bisect probe #12 and the bare-dot probe #13) from
                       csrc/ with nvcc, all at once, with the ptxas report of
                       each and the registers, local memory, shared memory and
-                      blocks an SM of the wgmma kernels: A's bf16 kernel, A's
+                      blocks an SM of the wgmma kernels: A's bf16 kernel (at
+                      D 128, and at D 64 in both geometries: warpgroups, the
+                      setmaxnreg split and rows a block), A's
                       int8 kernel (eight instantiations) and its pre-pass, B's
                       five instantiations (with their ring stages and tiles),
                       E and F, G's GEMM and #13's bf16 kernel, and of D's four
                       instantiations with its ring stages, grid syncs a
-                      layer and SASS size; A's int8 kernel and pre-pass, B,
-                      E, F, G, #13 and D must not spill nor have their wgmma
-                      serialized (C7512, C7515).
+                      layer and SASS size; A's bf16 kernel (both head dims),
+                      A's int8 kernel and pre-pass, B, E, F, G, #13 and D
+                      must not spill nor have their wgmma serialized (C7512,
+                      C7515).
   3. kernels        — flash attention (A: its RoPE pre-pass and its bf16
                       kernel) and the int4 matmul (B) against their plain
                       PyTorch versions at the shapes of the Flux-schnell 512²
@@ -35,7 +38,9 @@ Phases, each of which fails the run on error:
                       version, in turns with SDPA's forward, with each
                       request's sums; and at SD 2.1's first level past 512²
                       (L 6400 at 640², 16384 at 1024²), the plain version a
-                      head at a time.
+                      head at a time. Beside each: the geometry the launch
+                      picks (d64_geometry: 2 or 3 consumer warpgroups), its
+                      blocks and rounds, and the exp floor.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
                       plain versions at MusicGen-medium shapes, with times:
                       C at a 500-step and a 2500-step request's length (T 497,
@@ -100,9 +105,11 @@ Phases, each of which fails the run on error:
                       (parallel/ring_attention) at 2048² (L 16640) over 2 and
                       4 shards in one process against A over the whole
                       sequence, with a dropped-shard control, each fold and
-                      merge timed; B on T5-XXL's column and row shards at
+                      merge timed, a fold in turns with SDPA's forward on the
+                      same shard; B on T5-XXL's column and row shards at
                       n = 2 and 4 (M 256, g128, cut by parallel/sharding),
-                      in turns with the whole weight's product.
+                      in turns with the whole weight's product and with
+                      tinygemm on the shard.
   7. main           — Flux-schnell at full width on random weights (flow int8
                       per channel, T5-XXL int4 g=128), three 512², 4-step
                       requests through FluxPipeline.generate_images; checks the
@@ -516,13 +523,14 @@ def phase_build():
         for line in report.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "C7512", "arning")):
                 log(f"[build]   {line.strip()}")
-    info = {d: fa.sm90_kernel_info(d) for d in fa.HEAD_DIMS}
-    for d, rec in info.items():
-        log(f"[build] flash_attention_sm90 D {d}: {rec['registers']} registers a thread at launch "
-            f"(setmaxnreg: 40 producer, 232 consumers), {rec['spill_bytes']} bytes of local memory, "
-            f"{rec['smem_bytes']} bytes of shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
-    if any("C7512" in line for line in _build.BUILD_INFO["flash_attention_sm90"][1].splitlines()):
-        log("[build] WARNING: ptxas serialized flash_attention_sm90's wgmma (C7512)")
+    info = {f"D {d}" + (f", {w} consumer warpgroups" if d == 64 else ""): fa.sm90_kernel_info(d, w)
+            for d in fa.HEAD_DIMS for w in (fa.WARPGROUPS_D64 if d == 64 else (2,))}
+    for key, rec in info.items():
+        log(f"[build] flash_attention_sm90 {key}: {rec['warpgroups']} warpgroups (a producer and "
+            f"{rec['warpgroups'] - 1} consumers), {rec['row_block']} query rows a block, {rec['registers']} "
+            f"registers a thread at launch (setmaxnreg: {rec['setmaxnreg'][0]} producer, {rec['setmaxnreg'][1]} "
+            f"consumers), {rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} bytes of shared memory a "
+            f"block, {rec['blocks_per_sm']} block(s) an SM")
     int8_info = {f"D {d}, {mode}, {tile}-key tiles": fa.int8_kernel_info(d, mode, tile) for d in fa.HEAD_DIMS
                  for mode, tile in (("qk", 128), ("full", 128), ("full_streamed", 128), ("full_streamed", 64))}
     for key, rec in int8_info.items():
@@ -574,12 +582,13 @@ def phase_build():
                                                     if re.match(r"\s+/\*[0-9a-f]{4,}\*/", line))
     log("[build] decode_step D code: " + ", ".join(f"{n} instructions ({n * 16 // 1024} KB)" for n in
                                                       d_code.values()) + " an instantiation")
-    # A's int8 kernel, B, E, F, G's GEMM and #13's bf16 kernel keep their products asynchronous and
-    # in registers; none of them, nor A's int8 pre-pass or D, spills
-    serialized = [line.strip() for name in ("flash_attention", "int4_matmul", "flash_attention_bwd", "w8a8_matmul",
-                                            "bare_dot", "decode_step")
+    # A's bf16 and int8 kernels, B, E, F, G's GEMM and #13's bf16 kernel keep their products
+    # asynchronous and in registers; none of them, nor A's int8 pre-pass or D, spills
+    serialized = [line.strip() for name in ("flash_attention_sm90", "flash_attention", "int4_matmul",
+                                            "flash_attention_bwd", "w8a8_matmul", "bare_dot", "decode_step")
                   for line in _build.BUILD_INFO[name][1].splitlines() if "C7512" in line or "C7515" in line]
     spills = {(d, w): r["spill_bytes"] for d, recs in bwd_info.items() for w, r in recs.items() if r["spill_bytes"]}
+    spills.update({("A bf16", d): r["spill_bytes"] for d, r in info.items() if r["spill_bytes"]})
     spills.update({("G", key): r["spill_bytes"] for key, r in g_info.items() if r["spill_bytes"]})
     spills.update({("B", key): r["spill_bytes"] for key, r in b_info.items() if r["spill_bytes"]})
     spills.update({("bare_dot_bf16", k): r["spill_bytes"] for k, r in dot_info.items() if r["spill_bytes"]})
@@ -587,7 +596,8 @@ def phase_build():
     spills.update({("A int8 pre-pass", k): r["spill_bytes"] for k, r in pre_info.items() if r["spill_bytes"]})
     # D's phases are calls with a stack: its spills are ptxas's, for the kernels and every function;
     # C holds Wh in registers and H a row's chunks: their spills are ptxas's too
-    for label, name in (("D", "decode_step"), ("C", "lstm"), ("G and H", "w8a8_matmul")):
+    for label, name in (("D", "decode_step"), ("C", "lstm"), ("G and H", "w8a8_matmul"),
+                        ("A bf16", "flash_attention_sm90")):
         found = [int(n) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                                _build.BUILD_INFO[name][1]) for n in pair]
         if any(found):
@@ -1573,10 +1583,11 @@ def phase_kernels_parallel():
     forward; the ring's fold-and-merge (parallel/ring_attention.
     fold_and_merge) at 2048² (L 16640) over 2 and 4 shards in one process,
     every rank's folds against A over the whole sequence, with a
-    dropped-shard control, each fold and merge timed; B on T5-XXL's col and
-    row shards at n = 2 and 4 (rank 0's shard cut by parallel/sharding from
-    the whole quantized weight), held to its plain version, timed in turns
-    with the whole weight's product."""
+    dropped-shard control, each fold and merge timed, a fold in turns with
+    SDPA's forward on the same shard; B on T5-XXL's col and row shards at n
+    = 2 and 4 (rank 0's shard cut by parallel/sharding from the whole
+    quantized weight), held to its plain version, timed in turns with the
+    whole weight's product and with tinygemm on the shard."""
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
@@ -1648,6 +1659,10 @@ def phase_kernels_parallel():
         fold = fa.flash_attention_sm90(q0, ks[0].contiguous(), vs[0].contiguous())
         k0, v0 = ks[0].contiguous(), vs[0].contiguous()
         fold_ms = time_ms_queued(lambda: fa.flash_attention_sm90(q0, k0, v0), iters=10)
+        q0s, k0s, v0s = (x.transpose(1, 2).contiguous() for x in (q0, k0, v0))
+        fold_turns = in_turns({"fold": lambda: fa.flash_attention_sm90(q0, k0, v0),
+                               "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q0s, k0s, v0s)},
+                              iters=10)
         state = merge_fold(None, *fold)
         merge_ms = time_ms_queued(lambda: merge_fold(state, *fold), iters=10)
         rank_ms = time_ms_queued(lambda: fold_and_merge(q0, shards), iters=5)
@@ -1656,18 +1671,21 @@ def phase_kernels_parallel():
         row = dict(case=f"L{RING_LENGTH}_ring{n}", n=n, shard_length=c, out_rel_l2=rel,
                    control_last_shard_dropped_out_rel_l2=control, fold_ms=fold_ms, merge_ms=merge_ms,
                    rank_ms=rank_ms, whole_ms=whole_ms, overhead=rank_ms / (whole_ms / n),
-                   fold_bound_ms=bound[0], fold_bound_by=bound[1])
+                   fold_bound_ms=bound[0], fold_bound_by=bound[1], fold_turns_ms=fold_turns,
+                   fold_library_ms=statistics.mean(fold_turns["sdpa"]))
         log(f"[kernels-parallel] ring fold-and-merge at L {RING_LENGTH} over {n} shards of {c}: out rel-L2 against "
             f"A over the whole sequence {rel:.3e} (tol {RING_REL_TOL}) | control, last shard dropped: {control:.3e} "
             f"(must exceed it) | a fold (A at L {c}) {fold_ms:.4f} ms (bound {bound[0]:.4f} ms, {bound[1]}), a "
             f"merge {merge_ms:.4f} ms, a rank's {n} folds and merges {rank_ms:.4f} ms against A over the whole "
-            f"sequence {whole_ms:.4f} ms / {n} = {whole_ms / n:.4f} ms ({rank_ms / (whole_ms / n):.3f}x)")
+            f"sequence {whole_ms:.4f} ms / {n} = {whole_ms / n:.4f} ms ({rank_ms / (whole_ms / n):.3f}x) | a fold "
+            f"in turns {' '.join(f'{t:.4f}' for t in fold_turns['fold'])}, SDPA fwd on it "
+            f"{' '.join(f'{t:.4f}' for t in fold_turns['sdpa'])} ms")
         if not rel <= RING_REL_TOL:
             raise AssertionError(f"ring over {n} shards disagrees with A over the whole sequence: {rel}")
         if not control > RING_REL_TOL:
             raise AssertionError(f"ring over {n} shards: the dropped-shard control passes ({control})")
         ring_rows.append(row)
-        del outs, merged, shards, ks, vs, q0, k0, v0, fold, state
+        del outs, merged, shards, ks, vs, q0, k0, v0, q0s, k0s, v0s, fold, state
     del q, k, v, whole
 
     # B on T5-XXL's tensor-parallel shards: q/k/v and wi column-split, o and
@@ -1689,23 +1707,28 @@ def phase_kernels_parallel():
             ref = im.int4_matmul_reference(x.float(), p["kernel_q4"], p["kernel_scale"])
             err = (out.float() - ref).abs().max().item()
             tol = INT4_REL_TOL * ref.abs().max().item()
+            lw, lgs, ltable = _tinygemm_operands(p["kernel_q4"], p["kernel_scale"])
             turns = in_turns({"shard": lambda: im.int4_matmul(x, p["kernel_q4"], p["kernel_scale"]),
-                              "whole": lambda: im.int4_matmul(xw, whole["kernel_q4"], whole["kernel_scale"])})
+                              "whole": lambda: im.int4_matmul(xw, whole["kernel_q4"], whole["kernel_scale"]),
+                              "tinygemm": lambda: torch._weight_int4pack_mm(x, lw, lgs, ltable)})
             ms, full_ms = statistics.mean(turns["shard"]), statistics.mean(turns["whole"])
+            library_ms = statistics.mean(turns["tinygemm"])
             plain_ms = time_ms(lambda: im.int4_matmul_reference(x, p["kernel_q4"], p["kernel_scale"]))
             nn_ = p["kernel_q4"].shape[1]
             bound = bound_ms(2 * 256 * kk * nn_, 2 * 256 * (kk + nn_) + p["kernel_q4"].numel()
                              + p["kernel_scale"].numel() * 4)
             row = dict(case=f"{label}_n{n}", k=kk, n=nn_, max_abs_err=err, tol=tol, ms=ms, whole_ms=full_ms,
-                       turns_ms=turns, plain_ms=plain_ms, library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+                       turns_ms=turns, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1],
                        bound_share=bound[0] / ms, whole_share=ms / full_ms)
             log(f"[kernels-parallel] B {label} shard n {n} (M 256, K {kk}, N {nn_}, g128): max|Δ| {err:.3e} (tol "
                 f"{tol:.3e}) | in turns: shard {' '.join(f'{t:.4f}' for t in turns['shard'])}, whole weight "
-                f"{' '.join(f'{t:.4f}' for t in turns['whole'])} ms ({ms / full_ms:.3f} of it, 1/{n} = {1 / n:.3f}) | "
+                f"{' '.join(f'{t:.4f}' for t in turns['whole'])} ms ({ms / full_ms:.3f} of it, 1/{n} = {1 / n:.3f}), "
+                f"tinygemm on the shard {' '.join(f'{t:.4f}' for t in turns['tinygemm'])} ms | "
                 f"{100 * bound[0] / ms:.1f}% of the bound {bound[0]:.4f} ms ({bound[1]}) | plain {plain_ms:.4f} ms")
             if not err <= tol:
                 raise AssertionError(f"B {label} shard n {n} disagrees with its plain version: {err} > {tol}")
             b_rows.append(row)
+            del lw, ltable
         del whole, xw
     seconds = time.perf_counter() - t_phase
     log(f"[kernels-parallel] {seconds:.1f} s")
@@ -2796,6 +2819,20 @@ def phase_small_musicgen():
 # ------------------------------------------------------------ SD 2.1 and SDXL-Turbo
 
 
+def _d64_geometry(fa, b: int, length: int, h: int) -> dict:
+    """Kernel A's launch at head dim 64 on this card: the consumer
+    warpgroups that `d64_geometry` picks, its blocks (units: row blocks of
+    64 rows a warpgroup), the rounds they take (units over the SMs, one
+    block an SM) and the exp floor (B·H·L² exponentials at PEAK_EXP_S)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(torch.device("cuda")).multi_processor_count
+    w = fa.d64_geometry(b * h, length, sms)
+    units = b * h * -(-length // (64 * w))
+    return dict(warpgroups=w, units=units, rounds=units / sms,
+                exp_floor_ms=b * h * length * length / PEAK_EXP_S * 1e3)
+
+
 def phase_kernels_sd():
     """Kernel A's bf16 mode at head dim 64 without RoPE, at the UNet
     self-attention shapes of a 512² request (SD_ATTN_SHAPES): held to its
@@ -2829,17 +2866,21 @@ def phase_kernels_sd():
         flops = 4 * b * h * length * length * 64
         # q, k, v and out in bf16, lse in f32
         bound = bound_ms(flops, 4 * q.numel() * 2 + b * h * length * 4)
+        geo = _d64_geometry(fa, b, length, h)
         row = dict(case=label, b=b, l=length, h=h, max_abs_err=err, out_rel_l2=rel, out_max_abs_err=out_abs,
                    lse_max_abs_err=lse_err, control_last_64_keys_dropped_out_rel_l2=control_rel, ms=ms,
                    route_ms=route_ms, plain_ms=plain_ms, library_ms=library_ms, turns_ms=turns, bound_ms=bound[0],
                    bound_by=bound[1], tflops=flops / 1e9 / ms, bound_share=bound[0] / ms,
-                   launches_a_request=per_request)
+                   launches_a_request=per_request, **geo)
         tol_out, tol_lse = SD_FLASH_TOL
         log(f"[kernels-sd] flash {label} (B {b}, L {length}, H {h}, D 64): out rel-L2 {rel:.3e} (tol {tol_out}), "
             f"max|Δ| {out_abs:.3e} of max|out| {out.float().abs().max().item():.3e} | lse max|Δ| {lse_err:.3e} "
             f"(tol {tol_lse}) | control, last 64 keys dropped: out rel-L2 {control_rel:.3e} (must exceed "
-            f"{tol_out}) | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of the "
-            f"bound {bound[0]:.4f} ms, {bound[1]}) | route {route_ms:.4f} ms | plain {plain_ms:.4f} ms | in turns: "
+            f"{tol_out}) | {geo['warpgroups']} consumer warpgroups: {geo['units']} blocks, "
+            f"{geo['rounds']:.2f} rounds | kernel "
+            f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of the bound "
+            f"{bound[0]:.4f} ms, {bound[1]}; exp floor {geo['exp_floor_ms']:.4f} ms) | route {route_ms:.4f} ms | "
+            f"plain {plain_ms:.4f} ms | in turns: "
             f"route {' '.join(f'{t:.4f}' for t in turns['route'])}, SDPA fwd "
             f"{' '.join(f'{t:.4f}' for t in turns['sdpa'])} ms | {per_request} a request")
         if not (rel <= tol_out and lse_err <= tol_lse):
@@ -3172,16 +3213,20 @@ def phase_kernels_sd_long():
         library_ms = statistics.mean(turns["sdpa"])
         flops = 4 * b * h * length * length * 64
         bound = bound_ms(flops, 4 * q.numel() * 2 + b * h * length * 4)
+        geo = _d64_geometry(fa, b, length, h)
         row = dict(case=label, b=b, l=length, h=h, max_abs_err=max(out_abs, lse_err), out_rel_l2=rel,
                    out_max_abs_err=out_abs, lse_max_abs_err=lse_err,
                    control_last_64_keys_dropped_out_rel_l2=control_rel, ms=ms, route_ms=route_ms, plain_ms=plain_ms,
                    library_ms=library_ms, turns_ms=turns, bound_ms=bound[0], bound_by=bound[1],
-                   tflops=flops / 1e9 / ms, bound_share=bound[0] / ms, launches_a_request=per_request)
+                   tflops=flops / 1e9 / ms, bound_share=bound[0] / ms, launches_a_request=per_request, **geo)
         tol_out, tol_lse = SD_FLASH_TOL
         log(f"[kernels-sd] flash {label} (B {b}, L {length}, H {h}, D 64): out rel-L2 {rel:.3e} (tol {tol_out}) | "
             f"lse max|Δ| {lse_err:.3e} (tol {tol_lse}) | control, last 64 keys dropped: out rel-L2 "
-            f"{control_rel:.3e} (must exceed {tol_out}) | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
-            f"{100 * row['bound_share']:.1f}% of the bound {bound[0]:.4f} ms, {bound[1]}) | route {route_ms:.4f} ms | "
+            f"{control_rel:.3e} (must exceed {tol_out}) | {geo['warpgroups']} consumer warpgroups: "
+            f"{geo['units']} blocks, "
+            f"{geo['rounds']:.2f} rounds | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+            f"{100 * row['bound_share']:.1f}% of the bound {bound[0]:.4f} ms, {bound[1]}; exp floor "
+            f"{geo['exp_floor_ms']:.4f} ms) | route {route_ms:.4f} ms | "
             f"plain (a head at a time) {plain_ms:.3f} ms | in turns: route "
             f"{' '.join(f'{t:.4f}' for t in turns['route'])}, SDPA fwd {' '.join(f'{t:.4f}' for t in turns['sdpa'])} "
             f"ms | {per_request} a request at this level (750 A calls a request in all)")
@@ -4305,7 +4350,8 @@ def phase_small_train():
 
 def _kernel_group(name: str) -> str:
     """Coarse group of a CUDA kernel by its name, for the profiles."""
-    for key, group in (("flash_fwd_sm90", "A flash forward"), ("rope_rotate", "A RoPE pre-pass"),
+    for key, group in (("flash_fwd_sm90", "A flash forward"), ("flash_fwd_d64", "A flash forward"),
+                       ("rope_rotate", "A RoPE pre-pass"),
                        ("attn_int8_kernel", "A int8 flash forward"), ("flash_bwd_dq", "E flash dQ"),
                        ("flash_bwd_dkv", "F flash dK/dV"), ("int4_matmul", "B int4 matmul"),
                        ("w8a8_gemm_sm90", "G W8A8 matmul"), ("quantize_blocks_kernel", "G quantizer pass"),

@@ -49,7 +49,9 @@
 // registers, O is stored from registers), so no fence.proxy.async is needed;
 // the empty barriers order each stage's wgmma reads before TMA overwrites it.
 // Shared memory: 160 KB at D 128 (one block an SM), 80 KB at D 64. Not yet
-// done: a persistent tile scheduler, a TMA store of O. The mbarrier, TMA,
+// done: a persistent tile scheduler, a TMA store of O. Head dim 64 has a
+// three-warpgroup kernel of its own for heads of many key tiles
+// (flash_fwd_d64_kernel, below). The mbarrier, TMA,
 // wgmma and tensor-map helpers are in sm90_common.cuh, shared with kernels E
 // and F (flash_attention_bwd.cu).
 
@@ -386,6 +388,339 @@ cudaError_t info(int* regs, int* spill_bytes, int* smem_bytes, int* blocks_per_s
                                                        Layout<D>::ALLOC);
 }
 
+// ------------------------------------------------------------- head dim 64
+//
+// The SD 2.1 and SDXL UNet self-attention (B, L, H, 64) without RoPE has a
+// kernel of its own where a head has many key tiles. At D 64 a warpgroup's
+// 128-key tile is 512 cycles of tensor-core work (S = Q·K^T and P·V, 2 MFLOP),
+// but its softmax is a long dependent chain on one warp a quarter of the SM:
+// in the design above (two consumer warpgroups taking turns) a tile took
+// ~2,300 cycles, ~1,100 of them the softmax, and the tensor cores were busy
+// 45% of the time (clock64 stamps on an H100). The design:
+// - Three consumer warpgroups (192 query rows a block, FlashAttention-3's
+//   tile at head dim 64) and no turns: each warpgroup issues S_j and
+//   P_{j−1}·V_{j−1} together, runs S_j's softmax while P_{j−1}·V_{j−1} is in
+//   flight, and the three run apart, so one's softmax also overlaps the
+//   others' products (3 tiles in ~3,100 cycles: 50% busy). 128·24 + 384·160 =
+//   64,512 of the SM's 65,536 registers (setmaxnreg 24 and 160): S (64), P
+//   (32) and O (32) a thread are live through the softmax, which keeps two
+//   running maxima and sums a row, not trees, to stay inside 160, and takes
+//   exp2 as `ex2.approx.ftz` (the library's exp2f adds a range test and two
+//   multiplies for subnormal results, which P, rounded to bf16 against a row
+//   maximum of 1, does not need); P is packed a pair a cvt.rn.bf16x2.f32
+//   (pack_frag). Fewer, larger blocks also fill the card's rounds better at
+//   the SD shapes.
+// - A block of three warpgroups costs about 3.3 key tiles beyond its own
+//   (prologue and epilogue; two warpgroups about 2.8) and more in the first
+//   round, so where a head has few key tiles the wrapper's `d64_geometry`
+//   launches flash_fwd_sm90_kernel<64> (above) instead. Q and K_0 are
+//   requested as soon as the barriers exist, before the block's first
+//   __syncthreads.
+// - O is divided by its row sum as the reciprocal's product with one FMA
+//   correction (Markstein's: the quotient to the last bit but in rare cases),
+//   not by 64 IEEE divisions a thread.
+// - The grid is (row blocks, B·H), the row blocks of a head adjacent so that
+//   they share its K and V in L2, with B·H past 65,535 continued in its third
+//   dimension, so B·H is not capped; no integer division stands before a
+//   block's first load (a one-dimensional grid's decode cost 0.1-0.2 µs a
+//   launch at L 256).
+// Shared memory: Q (24 KB) and a K/V ring of 2 stages of 128 keys (64 KB);
+// one block an SM (registers).
+struct D64 {
+  static constexpr int D = 64;
+  static constexpr int BM = 192;  // query rows a block: three consumer warpgroups of 64
+  static constexpr int THREADS = 512;
+  static constexpr int CONSUMERS = 384;
+  static constexpr int STAGES = 2;  // 3 measured slower (PERF.md)
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int TILE_BYTES = BN * D * 2;  // one K or V tile: 16 KB
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
+  // + the 9 barriers, + slack to align the base to the 1024 bytes of a 128-byte swizzle atom
+  static constexpr int ALLOC = BAR_OFF + 128 + 1024;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = 160;
+  // setmaxnreg moves registers inside the block's allocation (see REG_POOL)
+  static constexpr int REG_POOL = 128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS;
+  static_assert(REG_POOL <= 65536, "the register split must fit the SM");
+};
+
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// softmax_tile for three warpgroups' registers (a 64 × 128 tile: 64 logits a
+// thread, rows g and g + 8, n8 column group i/4): two running maxima and
+// sums a row, ex2.approx.ftz, masked keys' p zeroed after the exponentials.
+__device__ __forceinline__ void softmax_d64(float (&sc)[64], int k0, int L, int t, float sl2, float& m0, float& m1,
+                                            float& l0, float& l1, float& alpha0, float& alpha1) {
+  const bool ragged = k0 + 128 > L;
+  if (ragged) {  // keys past the real length
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (k0 + (i / 4) * 8 + t * 2 + (i & 1) >= L) sc[i] = -INFINITY;
+    }
+  }
+  float a0 = fmaxf(m0, sc[0]), b0 = sc[1], a1 = fmaxf(m1, sc[2]), b1 = sc[3];
+#pragma unroll
+  for (int i = 4; i < 64; i += 4) {
+    a0 = fmaxf(a0, sc[i]);
+    b0 = fmaxf(b0, sc[i + 1]);
+    a1 = fmaxf(a1, sc[i + 2]);
+    b1 = fmaxf(b1, sc[i + 3]);
+  }
+  float mx0 = fmaxf(a0, b0), mx1 = fmaxf(a1, b1);
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  alpha0 = ex2_ftz((m0 - mx0) * sl2);  // 0 at the first tile (m = −inf)
+  alpha1 = ex2_ftz((m1 - mx1) * sl2);
+  m0 = mx0;
+  m1 = mx1;
+  const float mb0 = mx0 * sl2;
+  const float mb1 = mx1 * sl2;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = ex2_ftz(fmaf(sc[i], sl2, (i & 2) ? -mb1 : -mb0));
+  if (ragged) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (k0 + (i / 4) * 8 + t * 2 + (i & 1) >= L) sc[i] = 0.f;
+    }
+  }
+  a0 = sc[0];
+  b0 = sc[1];
+  a1 = sc[2];
+  b1 = sc[3];
+#pragma unroll
+  for (int i = 4; i < 64; i += 4) {
+    a0 += sc[i];
+    b0 += sc[i + 1];
+    a1 += sc[i + 2];
+    b1 += sc[i + 3];
+  }
+  l0 = fmaf(l0, alpha0, a0 + b0);
+  l1 = fmaf(l1, alpha1, a1 + b1);
+}
+
+// a / b from r = 1/b (correctly rounded) and one FMA correction
+__device__ __forceinline__ float div_by(float a, float b, float r) {
+  const float q = a * r;
+  return fmaf(fmaf(-q, b, a), r, q);
+}
+
+__global__ void __launch_bounds__(D64::THREADS, 1)
+flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse, int L,
+                     int H, int BH, float scale) {
+  using C = D64;
+  constexpr int D = C::D;
+  constexpr int STAGES = C::STAGES;
+  constexpr int TILE_BYTES = C::TILE_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = base + C::K_OFF;
+  const uint32_t sV = base + C::V_OFF;
+  const uint32_t bar_q = base + C::BAR_OFF;
+  auto full_k = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
+  auto empty_k = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
+  auto empty_v = [&](int s) { return bar_q + 8u * (1 + 3 * STAGES + s); };
+
+  // row block x of (batch, head) y + 65535·z
+  const int bh = blockIdx.z * 65535 + blockIdx.y;
+  if (bh >= BH) return;  // the last z-slice past B·H
+  const int q0 = blockIdx.x * C::BM;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int n = (L + BN - 1) / BN;  // key tiles
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {  // the barriers, then Q and K_0 at once
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), C::CONSUMERS);
+      mbar_init(empty_v(s), C::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, C::Q_BYTES);
+    tma_load_4d(sQ, &tm_q, bar_q, 0, h, q0, b);
+    mbar_expect_tx(full_k(0), TILE_BYTES);
+    tma_load_4d(sK, &tm_k, full_k(0), 0, h, 0, b);
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: K_{j+1} before V_j, the order the consumers take them
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty, int it) {
+        const int s = it % STAGES;
+        mbar_wait(empty, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, TILE_BYTES);
+        tma_load_4d(ring + s * TILE_BYTES, map, full, 0, h, it * BN, b);
+      };
+      for (int it = 0; it < n; ++it) {
+        if (it + 1 < n) {
+          const int s = (it + 1) % STAGES;
+          load(&tm_k, sK, full_k(s), empty_k(s), it + 1);
+        }
+        load(&tm_v, sV, full_v(it % STAGES), empty_v(it % STAGES), it);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows [cw·64, cw·64 + 64) of the block
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS));
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  float acc[D / 2];  // O: column group c holds acc[4c..4c+3] (rows g, g + 8; columns 8c + 2t, + 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8 (unscaled logits)
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of their running sums
+  float alpha0, alpha1;
+  const float sl2 = scale * LOG2E;
+  const uint32_t q_rows = sQ + cw * 64 * ROW_BYTES;
+
+  // S = Q·K_j^T: 4 k16 steps, 32 bytes along a swizzled 128-byte row each
+  auto issue_s = [&](float (&sc)[BN / 2], int it) {
+    const uint32_t k_tile = sK + (it % STAGES) * TILE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n128(sc, desc_sw128(q_rows + kk * 32, 16, 1024), desc_sw128(k_tile + kk * 32, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P·V_j: 16 keys a k16 step = two 8-row groups (SBO)
+  auto issue_pv = [&](const uint32_t (&pa)[BN / 16][4], int it) {
+    const uint32_t v_tile = sV + (it % STAGES) * TILE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      wgmma_rs(acc, pa[kk], desc_sw128(v_tile + kk * 16 * ROW_BYTES, BN * ROW_BYTES, 1024));
+    }
+    wgmma_commit();
+  };
+
+  // Iteration j issues S_j and P_{j−1}·V_{j−1}, waits for S_j and runs its
+  // softmax while P_{j−1}·V_{j−1} is in flight, then rescales O; the three
+  // warpgroups run apart, so one's softmax also overlaps the others'
+  // products.
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];
+  mbar_wait(bar_q, 0);
+  mbar_wait(full_k(0), 0);
+  wgmma_fence();
+  issue_s(sc, 0);
+  wgmma_wait0();
+  fence_regs(sc);
+  mbar_arrive(empty_k(0));
+  softmax_d64(sc, 0, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
+  pack_frag(sc, pa);
+  for (int it = 1; it < n; ++it) {
+    mbar_wait(full_k(it % STAGES), (it / STAGES) & 1);
+    mbar_wait(full_v((it - 1) % STAGES), ((it - 1) / STAGES) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_s(sc, it);
+    issue_pv(pa, it - 1);
+    wgmma_wait1();  // S_j
+    fence_regs(sc);
+    mbar_arrive(empty_k(it % STAGES));
+    softmax_d64(sc, it * BN, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
+    wgmma_wait0();  // P_{j−1}·V_{j−1}
+    fence_regs(acc);
+    fence_regs(sc);  // P_j's fragments only once P_{j−1}'s are read
+    mbar_arrive(empty_v((it - 1) % STAGES));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+    pack_frag(sc, pa);
+  }
+  const int last = n - 1;
+  mbar_wait(full_v(last % STAGES), (last / STAGES) & 1);
+  fence_regs(acc);
+  wgmma_fence();
+  issue_pv(pa, last);
+  wgmma_wait0();
+  fence_regs(acc);
+  mbar_arrive(empty_v(last % STAGES));
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
+  const int r0 = q0 + cw * 64 + warp * 16 + g;
+  const int r1 = r0 + 8;
+  const int64_t row_stride = static_cast<int64_t>(H) * D;
+  bf16* ob = o + (static_cast<int64_t>(b) * L * H + h) * D;
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  if (r0 < L) {
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(ob + r0 * row_stride + c * 8 + t * 2) =
+          fgt::pack_bf16x2(div_by(acc[4 * c], l0, i0), div_by(acc[4 * c + 1], l0, i0));
+    }
+    if (t == 0) lse[static_cast<int64_t>(bh) * L + r0] = m0 * scale + logf(l0);
+  }
+  if (r1 < L) {
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(ob + r1 * row_stride + c * 8 + t * 2) =
+          fgt::pack_bf16x2(div_by(acc[4 * c + 2], l1, i1), div_by(acc[4 * c + 3], l1, i1));
+    }
+    if (t == 0) lse[static_cast<int64_t>(bh) * L + r1] = m1 * scale + logf(l1);
+  }
+}
+
+cudaError_t launch_d64(const void* q, const void* k, const void* v, bf16* o, float* lse, int B, int L, int H,
+                       float scale, cudaStream_t stream) {
+  using C = D64;
+  static bool regs_checked = false;
+  if (!regs_checked) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_d64_kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * C::THREADS < C::REG_POOL) return cudaErrorInvalidConfiguration;
+    regs_checked = true;
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_d64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::ALLOC);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, B, L, H, C::D, C::BM) || !encode_map(&tk, k, B, L, H, C::D, BN) ||
+      !encode_map(&tv, v, B, L, H, C::D, BN)) {
+    return cudaErrorInvalidValue;
+  }
+  const int BH = B * H;
+  const dim3 grid((L + C::BM - 1) / C::BM, BH < 65535 ? BH : 65535, (BH + 65534) / 65535);
+  flash_fwd_d64_kernel<<<grid, C::THREADS, C::ALLOC, stream>>>(tq, tk, tv, o, lse, L, H, BH, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t info_d64(int* regs, int* spill_bytes, int* smem_bytes, int* blocks_per_sm) {
+  using C = D64;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_d64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::ALLOC);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, flash_fwd_d64_kernel);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *spill_bytes = static_cast<int>(attr.localSizeBytes);
+  *smem_bytes = C::ALLOC + static_cast<int>(attr.sharedSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_fwd_d64_kernel, C::THREADS, C::ALLOC);
+}
+
 }  // namespace
 
 // q, k, v, o: (B, L, H, D) contiguous bf16, q, k and v 16-byte aligned (TMA);
@@ -401,6 +736,15 @@ extern "C" int fgt_flash_fwd_sm90(const void* q, const void* k, const void* v, v
   if (D == 128) return static_cast<int>(launch<128>(q, k, v, ob, lb, B, L, H, scale, st));
   if (D == 64) return static_cast<int>(launch<64>(q, k, v, ob, lb, B, L, H, scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As fgt_flash_fwd_sm90 at head dim 64, in the three-warpgroup kernel
+// (192-row blocks), for any B·H.
+extern "C" int fgt_flash_fwd_d64(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
+                                 int H, float scale, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_d64(q, k, v, static_cast<bf16*>(o), static_cast<float*>(lse), B, L, H, scale,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 // The RoPE pre-pass: qr, kr = rope(q), rope(k) over (B, L, H, D) contiguous bf16
@@ -426,9 +770,13 @@ extern "C" int fgt_rope_rotate(const void* q, const void* k, const void* cos, co
 }
 
 // The attention kernel's registers a thread at launch (before setmaxnreg), local
-// memory (spills) a thread, shared memory a block and blocks an SM, for head dim D.
-extern "C" int fgt_flash_fwd_sm90_info(int D, int* regs, int* spill_bytes, int* smem_bytes, int* blocks_per_sm) {
-  if (D == 128) return static_cast<int>(info<128>(regs, spill_bytes, smem_bytes, blocks_per_sm));
-  if (D == 64) return static_cast<int>(info<64>(regs, spill_bytes, smem_bytes, blocks_per_sm));
+// memory (spills) a thread, shared memory a block and blocks an SM: at head dim
+// D with `warpgroups` consumer warpgroups (2, or at D 64 also 3: the
+// head-dim-64 kernel).
+extern "C" int fgt_flash_fwd_sm90_info(int D, int warpgroups, int* regs, int* spill_bytes, int* smem_bytes,
+                                       int* blocks_per_sm) {
+  if (D == 128 && warpgroups == 2) return static_cast<int>(info<128>(regs, spill_bytes, smem_bytes, blocks_per_sm));
+  if (D == 64 && warpgroups == 2) return static_cast<int>(info<64>(regs, spill_bytes, smem_bytes, blocks_per_sm));
+  if (D == 64 && warpgroups == 3) return static_cast<int>(info_d64(regs, spill_bytes, smem_bytes, blocks_per_sm));
   return static_cast<int>(cudaErrorInvalidValue);
 }

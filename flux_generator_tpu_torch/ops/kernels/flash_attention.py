@@ -47,6 +47,7 @@ heads, in the working dtype. RoPE rotates interleaved pairs (2i, 2i+1).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -89,9 +90,25 @@ _INT8_SIGNATURES = {
 }
 _SIGNATURES = {
     "fgt_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    "fgt_flash_fwd_d64": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     "fgt_rope_rotate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fgt_flash_fwd_sm90_info": [_I, _P, _P, _P, _P],
+    "fgt_flash_fwd_sm90_info": [_I, _I, _P, _P, _P, _P],
 }
+# Head dim 64's two kernels, by consumer warpgroups a block (64 query rows
+# each): 2, flash_fwd_sm90_kernel<64> (its grid caps B·H at 65535), and 3,
+# flash_fwd_d64_kernel.
+WARPGROUPS_D64 = (2, 3)
+MAX_GRID_Y = 65535
+# d64_geometry's cost model, in the time of one 128-key tile of a block of
+# two warpgroups (1.25 µs on an H100): a key tile of a block of w
+# warpgroups, a block's own cost beyond its tiles (prologue, pipeline fill,
+# epilogue) and what a launch of w warpgroups costs once more (its first
+# round). Fitted to A's times in both geometries at the SD shapes and at
+# whole rounds (L 4096 B·H 33, L 16384) on an H100 (PERF.md;
+# scripts/prof_flash_d64.py).
+TILE_COST = {2: 1.0, 3: 1.23}
+BLOCK_COST = {2: 2.8, 3: 3.3}
+START_COST = {2: 0.0, 3: 1.7}
 # the two sources, each built into its own library
 BUILDS = {"flash_attention_sm90": _SIGNATURES, "flash_attention": _INT8_SIGNATURES}
 
@@ -268,15 +285,31 @@ def rope_rotate(q, k, cos, sin):
     return qr, kr
 
 
-def flash_attention_sm90(q, k, v, scale: Optional[float] = None):
-    """Attention without RoPE in bf16 → (out, lse): the kernel of
-    csrc/flash_attention_sm90.cu on CUDA tensors, the plain version on CPU
-    ones."""
+@functools.lru_cache(maxsize=4096)
+def d64_geometry(bh: int, length: int, sms: int) -> int:
+    """The consumer warpgroups (2 or 3) of the D-64 launch of B·H = `bh`
+    heads at length L on `sms` SMs: the w whose rounds of blocks
+    (⌈bh·⌈L/(64·w)⌉ / sms⌉, one block an SM) times a block's work
+    (⌈L/128⌉ key tiles at TILE_COST[w], plus BLOCK_COST[w]), plus
+    START_COST[w], is least, ties to 2; always 3 past the two-warpgroup
+    grid's B·H of MAX_GRID_Y. Cached: every UNet self-attention asks."""
+    if bh > MAX_GRID_Y:
+        return 3
+    tiles = -(-length // KEY_TILE)
+    best, best_cost = None, None
+    for w in WARPGROUPS_D64:
+        rounds = -(-bh * -(-length // (64 * w)) // sms)
+        cost = rounds * (tiles * TILE_COST[w] + BLOCK_COST[w]) + START_COST[w]
+        if best_cost is None or cost < best_cost:
+            best, best_cost = w, cost
+    return best
+
+
+def _sm90_launch(q, k, v, scale: float, warpgroups: Optional[int] = None):
+    """One launch of the bf16 kernel on CUDA tensors → (out, lse), counted
+    in `launches`. At D 64 the consumer warpgroups are `d64_geometry`'s
+    unless given."""
     global launches
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale=scale)
     _check_cuda_args(q, k, v, None, None)
     _check_aligned(q, k, v)
     b, l, h, d = q.shape
@@ -284,21 +317,49 @@ def flash_attention_sm90(q, k, v, scale: Optional[float] = None):
     out = torch.empty_like(q)
     lse = torch.empty((b * h, l), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.fgt_flash_fwd_sm90(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                                     b, l, h, d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("fgt_flash_fwd_sm90", err)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if d == 64 and warpgroups is None:
+            warpgroups = d64_geometry(b * h, l, _build.sm_count(q.device.index or 0))
+        if warpgroups not in (None, *WARPGROUPS_D64) or (warpgroups == 3 and d != 64):
+            raise ValueError(f"the bf16 kernel takes 2 consumer warpgroups, or 3 at head dim 64, got {warpgroups}")
+        if warpgroups == 3:
+            err = lib.fgt_flash_fwd_d64(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                                        b, l, h, float(scale), stream)
+            _build.check("fgt_flash_fwd_d64", err)
+        else:
+            err = lib.fgt_flash_fwd_sm90(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                         lse.data_ptr(), b, l, h, d, float(scale), stream)
+            _build.check("fgt_flash_fwd_sm90", err)
     launches += 1
     return out, lse
 
 
-def sm90_kernel_info(d: int = 128) -> dict:
+def flash_attention_sm90(q, k, v, scale: Optional[float] = None):
+    """Attention without RoPE in bf16 → (out, lse): the kernel of
+    csrc/flash_attention_sm90.cu on CUDA tensors (at D 64 in
+    `d64_geometry`'s warpgroups), the plain version on CPU ones."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale=scale)
+    return _sm90_launch(q, k, v, scale)
+
+
+def sm90_kernel_info(d: int = 128, warpgroups: Optional[int] = None) -> dict:
     """The attention kernel's registers a thread at launch, spilled bytes a
     thread, shared memory a block and blocks an SM at head dim d (on the
-    current CUDA device)."""
+    current CUDA device), with its geometry: warpgroups (the producer and
+    the consumers), the setmaxnreg split and query rows a block. At D 64
+    `warpgroups` consumer warpgroups (by default 3, the head-dim-64
+    kernel); at D 128 always 2."""
+    warpgroups = warpgroups or (3 if d == 64 else 2)
     lib = _build.load("flash_attention_sm90", _SIGNATURES)
     vals = [ctypes.c_int(0) for _ in range(4)]
-    _build.check("fgt_flash_fwd_sm90_info", lib.fgt_flash_fwd_sm90_info(d, *(ctypes.byref(x) for x in vals)))
-    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
+    _build.check("fgt_flash_fwd_sm90_info", lib.fgt_flash_fwd_sm90_info(d, warpgroups,
+                                                                        *(ctypes.byref(x) for x in vals)))
+    info = dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
+    return dict(info, warpgroups=warpgroups + 1, setmaxnreg=(24, 160) if warpgroups == 3 else (40, 232),
+                row_block=64 * warpgroups)
 
 
 def bf16_forward(q, k, v, cos, sin, scale):

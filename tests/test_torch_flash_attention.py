@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
 from flux_generator_tpu_torch.ops.rope import multi_axis_rope, rope_cos_sin
 
@@ -31,6 +32,9 @@ CASES = {
     "d64_norope": (1, 256, 2, 64, False),
     "l300_padding": (1, 300, 2, 64, True),
     "b2_per_batch_tables": (2, 300, 2, 128, True),
+    # ragged lengths at head dim 64: 8 key tiles, the last ragged; one past a tile
+    "d64_b2_l1000_norope": (2, 1000, 2, 64, False),
+    "d64_l129_norope": (1, 129, 2, 64, False),
 }
 
 
@@ -204,21 +208,70 @@ def test_cuda_rope_pre_pass_matches_plain_version_bit_for_bit():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-# the self-attention shapes of the SD path at 512² (B, L, H, D = 64, no RoPE):
-# SD 2.1-base under CFG (batch 2) at its 64², 32² and 16² levels, SDXL-Turbo
-# without CFG at its 32² and 16² levels
-SD_SHAPES = [(2, 4096, 5), (2, 1024, 10), (2, 256, 20), (1, 1024, 10), (1, 256, 20)]
+# the head-dim-64 kernel's shapes: the SD and SDXL self-attention of a 512²
+# request (B, L, H)
+SD_SHAPES = [(b, l, h) for _, b, l, h, _ in chip_smoke.SD_ATTN_SHAPES]
+# (B, L, H) → the consumer warpgroups `d64_geometry` picks on 132 SMs: the
+# SD and SDXL shapes of a 512² request, SD 2.1's first level at 640² and
+# 1024² (with CFG, and at 1024² without), two of whole rounds of 128-row
+# blocks, B·H 2, ragged lengths, one key, and B·H past the two-warpgroup
+# grid's 65535
+D64_GEOMETRIES = {
+    **{(b, l, h): w for (b, l, h), w in zip(SD_SHAPES, (3, 3, 2, 2, 2, 3, 2))},
+    (2, 6400, 5): 3, (2, 16384, 5): 3, (1, 16384, 5): 3,
+    (1, 4096, 33): 3, (1, 1024, 33): 2, (1, 4096, 2): 2,
+    (2, 300, 3): 2, (2, 1000, 10): 3, (1, 4160, 5): 3, (1, 129, 2): 2, (4, 1, 2): 2,
+    (1, 48, 65600): 3,
+}
+
+
+@pytest.mark.parametrize("b,l,h", list(D64_GEOMETRIES))
+def test_d64_geometry_at_each_shape(b, l, h):
+    """The host's choice for the head-dim-64 launch on an H100's 132 SMs:
+    three warpgroups (192 rows) where their blocks take fewer rounds and a
+    head has many key tiles, two where a block's own cost outweighs its few
+    tiles or the rounds of two are whole; always three past B·H 65535,
+    where only their grid reaches. Asked again, the answer comes from the
+    cache."""
+    want = D64_GEOMETRIES[(b, l, h)]
+    assert fa.d64_geometry(b * h, l, 132) == want
+    hits = fa.d64_geometry.cache_info().hits
+    assert fa.d64_geometry(b * h, l, 132) == want
+    assert fa.d64_geometry.cache_info().hits == hits + 1
+
+
+def test_d64_geometry_follows_the_rounds():
+    """On 132 SMs: SD 2.1 at L 1024 (B·H 20) takes three warpgroups, 120
+    blocks in one round against 160 of two in two; on a card of 160 SMs,
+    where 160 blocks of two fit one round, two; a head of few key tiles
+    stays at two however many blocks there are (L 256 at B·H 400)."""
+    assert fa.d64_geometry(20, 1024, 132) == 3
+    assert fa.d64_geometry(20, 1024, 160) == 2
+    assert fa.d64_geometry(400, 256, 132) == 2
+
+
+def _sd_check(q, k, v, out, lse, drop: int):
+    """out within rel-L2 1e-2 and atol 2e-2 of the plain version run in f32
+    on the same bf16 inputs, lse within 2e-2; the plain version with the
+    last `drop` keys dropped must fail the rel-L2 bound."""
+    ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() < 2e-2
+    assert (lse - ref_lse).abs().max().item() < 2e-2
+    assert (out.float() - ref).norm() / ref.norm() <= 1e-2
+    dropped, _ = fa.flash_attention_reference(q.float(), k[:, :-drop].float(), v[:, :-drop].float())
+    assert (dropped - ref).norm() / ref.norm() > 1e-2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,h", SD_SHAPES)
 def test_cuda_kernel_at_sd_shapes(b, l, h):
-    """bf16 kernel at head dim 64 without RoPE, as the UNet calls it, against
-    the plain version run in f32 on the same bf16 inputs: the atol 2e-2 of
-    test_cuda_kernel_matches_plain_version, and out within rel-L2 1e-2. The
-    output averages over many keys (its entries are about 0.02 at L 4096),
-    so only the rel-L2 bound catches an output some 10% wrong; the plain
-    version with the last 64 keys dropped must fail it."""
+    """bf16 kernel at head dim 64 without RoPE, as the UNet calls it, at every
+    row of chip_smoke.SD_ATTN_SHAPES (in `d64_geometry`'s geometry),
+    against the plain version run in f32 on the same bf16 inputs: the atol
+    2e-2 of test_cuda_kernel_matches_plain_version, and out within rel-L2
+    1e-2. The output averages over many keys (its entries are about 0.02 at
+    L 4096), so only the rel-L2 bound catches an output some 10% wrong; the
+    plain version with the last 64 keys dropped must fail it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -227,9 +280,44 @@ def test_cuda_kernel_at_sd_shapes(b, l, h):
     out, lse = fa.flash_attention(q, k, v, return_lse=True)
     torch.cuda.synchronize()
     assert (fa.launches, fa.rope_launches) == (before[0] + 1, before[1])
-    ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float())
-    assert (out.float() - ref).abs().max().item() < 2e-2
-    assert (lse - ref_lse).abs().max().item() < 2e-2
-    assert (out.float() - ref).norm() / ref.norm() <= 1e-2
-    dropped, _ = fa.flash_attention_reference(q.float(), k[:, :-64].float(), v[:, :-64].float())
-    assert (dropped - ref).norm() / ref.norm() > 1e-2
+    _sd_check(q, k, v, out, lse, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h", [(2, 300, 3), (2, 1000, 10), (1, 4160, 5)])
+def test_cuda_kernel_at_every_geometry(b, l, h):
+    """The head-dim-64 route at ragged lengths (3, 8 and 33 key tiles, the
+    last ragged), through the route (in `d64_geometry`'s warpgroups) and
+    at both geometries the launch can take (2 or 3 consumer warpgroups),
+    each against the plain version as test_cuda_kernel_at_sd_shapes, with
+    32 keys dropped as the control."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in _inputs(11, b, l, h, 64, False)[:3])
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    _sd_check(q, k, v, out, lse, 32)
+    for w in fa.WARPGROUPS_D64:
+        before = fa.launches
+        out, lse = fa._sm90_launch(q, k, v, 64 ** -0.5, warpgroups=w)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        _sd_check(q, k, v, out, lse, 32)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_past_the_grid_cap():
+    """B·H = 65600 heads of 48 keys at head dim 64: past the 65535 of a
+    grid's second dimension. `d64_geometry` takes three warpgroups there,
+    whose grid (row blocks, min(B·H, 65535), ⌈B·H/65535⌉) continues B·H in
+    its third dimension; held as test_cuda_kernel_at_sd_shapes, with the
+    last 16 keys dropped as the control."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn((1, 48, 65600, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    _sd_check(q, k, v, out, lse, 16)
