@@ -31,6 +31,13 @@ Phases, each of which fails the run on error:
                       dequantized weights, with a request's sums, every K
                       split at M 256, one-hot rows bit for bit, and at one
                       row, 17 rows, a ragged N and with f32 activations.
+                      A's persistent bf16 kernel alone at every head-dim-128
+                      shape of the Flux paths (L 1280 and 16640 with 24
+                      heads, the TP shards' 12 and 6, the ring's folds at L
+                      8320 and 4160, training's L 1536, L 1000, B 2 L 1031)
+                      against its plain version (out by rel-L2, lse, a
+                      dropped-keys control, outputs in freed NaN memory) and
+                      in turns with SDPA's forward.
      kernels-sd     — A's bf16 kernel at head dim 64 without RoPE at the
                       UNet self-attention shapes of a 512² SD 2.1 request
                       (CFG, batch 2: L 4096, 1024, 256) and SDXL-Turbo
@@ -151,8 +158,8 @@ Phases, each of which fails the run on error:
                       through generate_requests (250/500/1000/1500 steps,
                       seeds 1-4), on bf16 and on e4m3 caches; then at top_k 1
                       each request's codes coalesced against its solo run.
-     main-musicgen-long — one 2500-step request on bf16 and e4m3 caches in
-                      turns, with the device ms a step at its start and end
+     main-musicgen-long — one 2500-step request on bf16, then on e4m3
+                      caches, with the device ms a step at its start and end
                       and C's 2 launches.
  10. main-train     — DreamBooth LoRA training of Flux-dev at full width on
                       random weights through training.dreambooth.train: 3
@@ -164,13 +171,14 @@ Phases, each of which fails the run on error:
                       losses equal, step time, peak memory, E and F launches.
      main-sd        — SD 2.1-base and SDXL-Turbo at full width on random
                       weights (bf16), 512², through generate_latents_batch
-                      + decode_u8: SD 2.1 at 50 steps, cfg 4.0, two
+                      + decode_u8: SD 2.1 at 50 steps, cfg 4.0, three
                       requests; SDXL-Turbo at 2 steps without CFG, batch 1
                       (two requests) and 4, and an img2img at strength 0.5
                       (generate_latents_from_image, 1 step); phase split,
                       peak memory, exact A launch counts (750 an SD 2.1
                       request, 140 an SDXL one, 70 the img2img), then one
-                      request of each under torch.profiler (busy share).
+                      request of each under torch.profiler (busy share; SD
+                      2.1's at SD21_PROFILE_STEPS steps).
      main-serve     — the port's server (server/app.get_app, server/httpd.
                       Server on 127.0.0.1) with full-width bf16 pipelines on
                       random weights, the plan its memory planner makes on
@@ -229,8 +237,10 @@ Phases, each of which fails the run on error:
      small-serve    — a small SD config with int8 UNet and CLIP denses,
                       w8a8 "fused" and attn_int8 "qk", on the card (A's
                       int8 tier, G) against the CPU (their plain versions).
-The last line printed is {"ok": true, "device": {...}}; a fuller record goes
-to chiprun_out/chip_smoke.json.
+Before the last lines: the kernels' JSON line ({"kernels": [...]}), each
+phase's wall seconds ({"phase_seconds": {...}}) and the card's name and
+power limit. The last line printed is {"ok": true, "device": {...}}; a
+fuller record goes to chiprun_out/chip_smoke.json.
 
     python3 chip_smoke.py --profile-train
 
@@ -363,6 +373,10 @@ CHAIN_REL_TOL = 1e-2
 # steps, server/api.py:284; cfg 4.0, server/schemas.py:16), the Turbo's 2
 # steps without CFG, and a coalesce bucket of 4 (server/api.py:165)
 SD21_STEPS, SD21_CFG, SDXL_STEPS = 50, 4.0, 2
+# steps of the SD 2.1 request under torch.profiler (its 50 steps' 135,578
+# launches took the profiler ~90 s to gather); its busy share and device
+# time by kernel group cover these steps
+SD21_PROFILE_STEPS = 10
 SD_PROMPTS = [
     (21, "a watercolor of a fox in a misty pine forest"),
     (22, "a studio photograph of a glazed ceramic teapot"),
@@ -711,10 +725,79 @@ def phase_kernels():
         del qs, ks, vs, qr, kr
     results["flash_attention"] = flash
     results["flash_attention_rope"] = rope_rows
+    results["flash_attention_d128"] = _phase_kernels_flash_d128(g)
 
     results.update(_phase_kernels_int4(g))
     torch.cuda.synchronize()
     return results
+
+
+# (label, B, L, H) of A's head-dim-128 kernel (persistent, flash_attention_sm90)
+# without RoPE: Flux's 512² and 2048² joint sequences, the tensor-parallel
+# head shards, the ring's folds of 2048² over 2 and 4 ranks, Flux-dev
+# training's L 1536, L 1000, and a ragged length at B 2 (several tiles a CTA)
+FLASH_D128_SHAPES = (("L1280_H24", 1, 1280, 24), ("L16640_H24", 1, 16640, 24), ("L1280_H12_tp2", 1, 1280, 12),
+                     ("L1280_H6_tp4", 1, 1280, 6), ("L8320_H24_ring2", 1, 8320, 24),
+                     ("L4160_H24_ring4", 1, 4160, 24), ("L1536_H24_dev", 1, 1536, 24),
+                     ("L1000_H24", 1, 1000, 24), ("B2_L1031_H24", 2, 1031, 24))
+
+
+def _phase_kernels_flash_d128(g) -> list:
+    """A's persistent kernel at every FLASH_D128_SHAPES row: out by rel-L2
+    and lse by max-abs against the plain version in f32 on the same bf16
+    inputs (a head at a time past L 4096), a dropped-keys control that must
+    fail, no NaN left in outputs that took the memory of NaN tensors freed
+    just before the call, and the kernel in turns with SDPA's forward."""
+    import torch
+
+    from flux_generator_tpu_torch.ops.kernels import _build
+    from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    tol_out, tol_lse = SD_FLASH_TOL
+    sms = _build.sm_count(dev.index or 0)
+    plain = (lambda q_, k_, v_, cos_, sin_: fa.flash_attention_reference(q_.float(), k_.float(), v_.float()))
+    rows = []
+    for label, b, length, h in FLASH_D128_SHAPES:
+        q, k, v = (torch.randn((b, length, h, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        nan_out = torch.full_like(q, float("nan"))
+        nan_lse = torch.full((b * h, length), float("nan"), device=dev)
+        del nan_out, nan_lse
+        out, lse = fa.flash_attention_sm90(q, k, v)
+        torch.cuda.synchronize()
+        nans = int(out.isnan().sum().item() + lse.isnan().sum().item())
+        chunk = 24 if length <= 4096 else 1
+        ref, ref_lse = _plain_by_heads(plain, q, k, v, None, None, chunk)
+        rel, lse_err = _rel(out.float(), ref), (lse - ref_lse).abs().max().item()
+        dropped, _ = _plain_by_heads(plain, q, k[:, :-64], v[:, :-64], None, None, chunk)
+        control = _rel(dropped, ref)
+        del ref, ref_lse, dropped
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        iters = 20 if length <= 4096 else 5
+        turns = in_turns({"A": lambda: fa.flash_attention_sm90(q, k, v),
+                          "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)}, iters)
+        ms, library_ms = statistics.mean(turns["A"]), statistics.mean(turns["sdpa"])
+        tiles = b * h * -(-length // 128)
+        plan = dict(row_blocks=-(-length // 128), tiles=tiles, ctas=min(tiles, sms))  # the kernel's launch
+        bound = bound_ms(4 * b * h * length * length * 128, 4 * q.numel() * 2 + b * h * length * 4)
+        rows.append(dict(case=label, b=b, l=length, h=h, out_rel_l2=rel, lse_max_abs_err=lse_err,
+                         control_last_64_keys_dropped_out_rel_l2=control, nan_left=nans, ms=ms,
+                         library_ms=library_ms, turns_ms=turns, bound_ms=bound[0], bound_by=bound[1],
+                         bound_share=bound[0] / ms, **plan, rounds=plan["tiles"] / sms))
+        log(f"[kernels] A persistent {label} (B {b}, L {length}, H {h}, D 128): out rel-L2 {rel:.3e} (tol {tol_out}), "
+            f"lse max|Δ| {lse_err:.3e} (tol {tol_lse}), NaN left {nans} (must be 0) | control, last 64 keys "
+            f"dropped: {control:.3e} (must exceed {tol_out}) | {plan['tiles']} tiles on {plan['ctas']} CTAs "
+            f"({plan['tiles'] / sms:.2f} rounds) | in turns: A {' '.join(f'{t:.4f}' for t in turns['A'])}, SDPA "
+            f"fwd {' '.join(f'{t:.4f}' for t in turns['sdpa'])} ms ({ms / library_ms:.3f}x) | "
+            f"{100 * bound[0] / ms:.1f}% of the bound {bound[0]:.4f} ms ({bound[1]})")
+        if not (rel <= tol_out and lse_err <= tol_lse and nans == 0):
+            raise AssertionError(f"A persistent {label} disagrees with its plain version: rel-L2 {rel}, lse "
+                                 f"{lse_err}, NaN left {nans}")
+        if not control > tol_out:
+            raise AssertionError(f"A persistent {label}: the dropped-keys control passes ({control})")
+        del q, k, v, qs, ks, vs, out, lse
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _bf16_weights(kernel_q4, kernel_scale):
@@ -2631,9 +2714,9 @@ def phase_main_musicgen_serve(pipe):
 
 
 def phase_main_musicgen_long(pipe):
-    """One 2500-step request (about 50 s of audio) on bf16 and e4m3 caches
-    in turns (bf16, e4m3, e4m3, bf16), with the device ms a step over its
-    first and last 250 steps."""
+    """One 2500-step request (about 50 s of audio) on bf16 caches, then on
+    e4m3 caches, with the device ms a step over its first and last 250
+    steps."""
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import decode_step as ds
@@ -2643,7 +2726,7 @@ def phase_main_musicgen_long(pipe):
     want = ((LONG_STEPS - pipe.cfg.num_codebooks + 1) * codec.hop_length, codec.audio_channels)
     audio_s = want[0] / pipe.sampling_rate
     runs, f8_launches = [], 0
-    for kv in ("bf16", "f8", "f8", "bf16"):
+    for kv in ("bf16", "f8"):
         pipe.kv_dtype = kv
         torch.cuda.reset_peak_memory_stats()
         ds.launches = ds.e4m3_launches = lk.launches = 0
@@ -3019,7 +3102,8 @@ def phase_main_sd():
     and batch 4 (a coalesce bucket), and an img2img at strength 0.5 on the
     first image (1 step). Exact A launch counts (15 an SD 2.1 UNet call, 70
     an SDXL one), finite latents, uint8 images of the shape asked; then one
-    request of each under torch.profiler for the busy share."""
+    request of each under torch.profiler for the busy share (SD 2.1's at
+    SD21_PROFILE_STEPS steps)."""
     import gc
 
     import torch
@@ -3044,8 +3128,8 @@ def phase_main_sd():
     if torch.equal(images[0], images[1]):
         raise AssertionError("SD 2.1 requests with different seeds gave identical images")
     record["sd21"] = dict(setup, requests=requests,
-                          profile=_sd_profile(pipe, "SD 2.1", [SD_PROMPTS[0][1]], [SD_PROMPTS[0][0]], SD21_STEPS,
-                                              SD21_CFG))
+                          profile=_sd_profile(pipe, "SD 2.1", [SD_PROMPTS[0][1]], [SD_PROMPTS[0][0]],
+                                              SD21_PROFILE_STEPS, SD21_CFG))
     del pipe, images
     gc.collect()
     torch.cuda.empty_cache()
@@ -4923,6 +5007,7 @@ def phase_profile_train():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi, name = phase_device()
     if sys.argv[1:] == ["--profile-train"]:
         phase_build()
@@ -4942,56 +5027,64 @@ def main() -> int:
     from flux_generator_tpu_torch.ops.kernels import lstm as lk
     from flux_generator_tpu_torch.ops.kernels import w8a8_matmul as wm
 
-    def run(phase):
+    seconds = {"device": time.perf_counter() - t_start}  # each phase's wall seconds, in order
+
+    def timed(label, phase):
+        t0 = time.perf_counter()
         out = phase()
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    def run(label, phase):
+        out = timed(label, phase)
         gc.collect()  # each phase's pipeline goes before the next is built
         torch.cuda.empty_cache()
         return out
 
-    build_info = phase_build()
-    kernels = run(phase_kernels)
-    kernels.update(run(phase_kernels_sd))
-    kernels.update(run(phase_kernels_sd_long))
-    kernels.update(run(phase_kernels_musicgen))
-    kernels.update(run(phase_kernels_musicgen_f8))
-    kernels.update(run(phase_kernels_chain))
-    kernels.update(run(lambda: phase_kernels_chain_bisect(kernels["decode_chain"][0])))
-    kernels.update(run(phase_kernels_train))
-    kernels.update(run(phase_kernels_w8a8))
-    kernels.update(run(phase_kernels_bare_dot))
-    streamed = run(phase_kernels_flash_streamed)
+    build_info = timed("build", phase_build)
+    kernels = run("kernels", phase_kernels)
+    kernels.update(run("kernels-sd", phase_kernels_sd))
+    kernels.update(run("kernels-sd-long", phase_kernels_sd_long))
+    kernels.update(run("kernels-musicgen", phase_kernels_musicgen))
+    kernels.update(run("kernels-musicgen-f8", phase_kernels_musicgen_f8))
+    kernels.update(run("kernels-chain", phase_kernels_chain))
+    kernels.update(run("kernels-chain-bisect", lambda: phase_kernels_chain_bisect(kernels["decode_chain"][0])))
+    kernels.update(run("kernels-train", phase_kernels_train))
+    kernels.update(run("kernels-w8a8", phase_kernels_w8a8))
+    kernels.update(run("kernels-bare-dot", phase_kernels_bare_dot))
+    streamed = run("kernels-flash-streamed", phase_kernels_flash_streamed)
     kernels.update(flash_attention_streamed=streamed["flash_attention_streamed"])
-    kernels.update(run(phase_kernels_parallel))
-    main_run, pipe, latents = phase_main()
-    main_w8a8 = run(lambda: phase_main_w8a8(pipe, latents))
-    main_2048, latent_2048 = run(lambda: phase_main_2048(pipe))
-    main_parallel = run(lambda: phase_main_parallel(pipe, latents, latent_2048))
+    kernels.update(run("kernels-parallel", phase_kernels_parallel))
+    main_run, pipe, latents = timed("main", phase_main)
+    main_w8a8 = run("main-w8a8", lambda: phase_main_w8a8(pipe, latents))
+    main_2048, latent_2048 = run("main-2048", lambda: phase_main_2048(pipe))
+    main_parallel = run("main-parallel", lambda: phase_main_parallel(pipe, latents, latent_2048))
     del pipe, latents, latent_2048
-    main_music, pipe = phase_main_musicgen()
-    main_serve = run(lambda: phase_main_musicgen_serve(pipe))
-    main_long = run(lambda: phase_main_musicgen_long(pipe))
+    main_music, pipe = timed("main-musicgen", phase_main_musicgen)
+    main_serve = run("main-musicgen-serve", lambda: phase_main_musicgen_serve(pipe))
+    main_long = run("main-musicgen-long", lambda: phase_main_musicgen_long(pipe))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    main_train = run(phase_main_train)
-    main_sd = run(phase_main_sd)
-    served, built = phase_main_serve()
-    served_int8 = run(lambda: phase_main_serve_int8(built))
+    main_train = run("main-train", phase_main_train)
+    main_sd = run("main-sd", phase_main_sd)
+    served, built = timed("main-serve", phase_main_serve)
+    served_int8 = run("main-serve-int8", lambda: phase_main_serve_int8(built))
     del built
     gc.collect()
     torch.cuda.empty_cache()
-    main_cli, pipe, wav = phase_main_cli()
-    main_codec = run(lambda: phase_main_codec(pipe, wav))
+    main_cli, pipe, wav = timed("main-cli", phase_main_cli)
+    main_codec = run("main-codec", lambda: phase_main_codec(pipe, wav))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    small = run(phase_small)
-    small_tiled = run(phase_small_tiled)
-    small_w8a8 = run(phase_small_w8a8)
-    small_music = run(phase_small_musicgen)
-    small_train = run(phase_small_train)
-    small_sd = run(phase_small_sd)
-    small_serve = run(phase_small_serve)
+    small = run("small", phase_small)
+    small_tiled = run("small-tiled", phase_small_tiled)
+    small_w8a8 = run("small-w8a8", phase_small_w8a8)
+    small_music = run("small-musicgen", phase_small_musicgen)
+    small_train = run("small-train", phase_small_train)
+    small_sd = run("small-sd", phase_small_sd)
+    small_serve = run("small-serve", phase_small_serve)
 
     entries = []
     for mod, key, main_case, path in (
@@ -5090,10 +5183,12 @@ def main() -> int:
                   main_train=main_train, main_sd=main_sd, main_serve=served, main_serve_int8=served_int8,
                   main_cli=main_cli, main_codec=main_codec,
                   small=small, small_tiled=small_tiled, small_w8a8=small_w8a8, small_musicgen=small_music,
-                  small_train=small_train, small_sd=small_sd, small_serve=small_serve)
+                  small_train=small_train, small_sd=small_sd, small_serve=small_serve, phase_seconds=seconds)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": entries}))
+    seconds["total"] = time.perf_counter() - t_start
+    print(json.dumps({"phase_seconds": {k: round(v, 1) for k, v in seconds.items()}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

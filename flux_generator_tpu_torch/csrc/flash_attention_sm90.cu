@@ -25,35 +25,54 @@
 // P·V): 3.40 TFLOP at the Flux 2048² shape (L 16640, H 24, D 128), 3.44 ms at the
 // bf16 peak of 989 TFLOP/s, against 409 MB of q/k/v/o traffic (0.12 ms).
 //
-// Design: a block takes 128 query rows of one (batch, head), with three
-// warpgroups. Warpgroup 0 is the producer: it gives up registers (setmaxnreg 40)
+// Design: a persistent kernel. A tile is 128 query rows of one (batch, head);
+// the grid is min(tiles, SMs) CTAs of three warpgroups, one CTA an SM, and CTA
+// c takes tiles c, c + G, c + 2G, … (a static schedule: every tile has the same
+// ⌈L/128⌉ key tiles), tile i being row block i % ⌈L/128⌉ of (batch, head)
+// i / ⌈L/128⌉, so that the row blocks running at once share their heads' K and
+// V in L2. Warpgroup 0 is the producer: it gives up registers (setmaxnreg 40)
 // and one of its threads issues every copy with TMA (cp.async.bulk.tensor, 4-D
 // tensor maps over (D, H, L, B), 128-byte swizzle, boxes of 64 values × 128
-// rows, so a D 128 row is two boxes): Q once, then 128-key K and V tiles, each
-// into its own ring of STAGES stages with a full mbarrier (the copy's bytes) and
-// an empty one (the 256 consumer threads), K_{j+1} before V_j, the order they
-// are consumed. TMA fills rows past L with zeros; keys past L are masked to −inf
-// and query rows past L are not stored. Warpgroups 1 and 2 (setmaxnreg 232)
-// each own 64 query rows: S = Q·K^T is wgmma m64n128k16 with both operands in
-// shared memory (K's rows are D-contiguous, the K-major B operand); the online
-// softmax runs on S in registers (row max and sum across the four lanes of a
-// quad); O += P·V is wgmma m64nDk16 with P from registers (the f32 accumulator
-// layout of two n8 column groups is the A fragment of one k16 step, after
-// rounding to bf16) and V from shared memory as the MN-major (transposed) B
-// operand. Two overlaps keep the tensor cores fed while the softmax runs: a
-// warpgroup issues S_j = Q·K_j^T and P_{j−1}·V_{j−1} together and runs S_j's
-// softmax while P_{j−1}·V_{j−1} is in flight (O is rescaled once it lands),
-// and the two warpgroups take turns to issue (named barriers), so that one's
-// softmax overlaps the other's products. No generic-proxy thread writes shared
-// memory that TMA or wgmma reads (Q, K and V arrive by TMA, P stays in
-// registers, O is stored from registers), so no fence.proxy.async is needed;
-// the empty barriers order each stage's wgmma reads before TMA overwrites it.
-// Shared memory: 160 KB at D 128 (one block an SM), 80 KB at D 64. Not yet
-// done: a persistent tile scheduler, a TMA store of O. Head dim 64 has a
-// three-warpgroup kernel of its own for heads of many key tiles
-// (flash_fwd_d64_kernel, below). The mbarrier, TMA,
-// wgmma and tensor-map helpers are in sm90_common.cuh, shared with kernels E
-// and F (flash_attention_bwd.cu).
+// rows, so a D 128 row is two boxes): per tile Q, into one of two buffers, then
+// 128-key K and V tiles, each into its own ring of STAGES stages with a full
+// mbarrier (the copy's bytes) and an empty one (the 256 consumer threads),
+// K_{j+1} before V_j, the order they are consumed. The rings' stages and
+// phases and the Q buffers' run on from tile to tile, so the next tile's Q and
+// K_0 arrive while the current tile runs. TMA fills rows past L with zeros;
+// keys past L are masked to −inf and query rows past L are not stored.
+// Warpgroups 1 and 2 (setmaxnreg 232) each own 64 query rows of a tile: S =
+// Q·K^T is wgmma m64n128k16 with both operands in shared memory (K's rows are
+// D-contiguous, the K-major B operand); the online softmax runs on S in
+// registers (row max and sum across the four lanes of a quad); O += P·V is
+// wgmma m64nDk16 with P from registers (the f32 accumulator layout of two n8
+// column groups is the A fragment of one k16 step, after rounding to bf16) and
+// V from shared memory as the MN-major (transposed) B operand. Two overlaps
+// keep the tensor cores fed while the softmax runs: a warpgroup issues S_j =
+// Q·K_j^T and P_{j−1}·V_{j−1} together and runs S_j's softmax while
+// P_{j−1}·V_{j−1} is in flight (O is rescaled once it lands), and the two
+// warpgroups take turns to issue (named barriers 1 and 2), so that one's
+// softmax overlaps the other's products. The turns run on across tiles (only
+// warpgroup 1's last turn of the CTA's last tile is not handed on), so one
+// warpgroup's epilogue overlaps the other's last product and its own next
+// tile's first. The epilogue divides O by the row sum as the reciprocal's
+// product with one FMA correction (`div_by`), writes it to the warpgroup's
+// 64 rows of the tile's own Q buffer, which its last S has finished reading,
+// in the 128-byte swizzled layout, and one thread stores it with TMA
+// (fence.proxy.async before, a named barrier of the warpgroup between); the
+// store runs while the next tile starts, and the buffer goes back to the
+// producer (its empty barrier, one arrival a warpgroup) once the store has
+// read it. lse is stored from registers. Shared memory: 193 KB at D 128 (Q
+// twice, K and V two stages each), 97 KB at D 64; one CTA an SM (registers).
+// Against the earlier grid of one block a tile (PERF.md), a tile pays a tile
+// boundary (~1.6 key tiles) instead of a block's prologue and epilogue (2.8-4.0
+// key tiles at D 128). Where the last round of tiles is part-empty, the tiles
+// are not split over the idle SMs: the refitted cost model gives a split (and a
+// merge of ~2.2 key tiles) at most 10% at L 1536 and 1000, 25% at 6 heads of
+// L 1280, none at the 512² and 2048² request shapes (PERF.md). Head dim 64 has
+// a three-warpgroup kernel of its own for heads of many key tiles
+// (flash_fwd_d64_kernel, below). The mbarrier, TMA, wgmma and tensor-map
+// helpers are in sm90_common.cuh, shared with kernels E and F
+// (flash_attention_bwd.cu).
 
 #include <math.h>
 
@@ -64,7 +83,7 @@ namespace {
 using fgt::bf16;
 using namespace fgt::sm90;
 
-constexpr int BM = 128;      // query rows a block: two consumer warpgroups of 64
+constexpr int BM = 128;      // query rows a tile: two consumer warpgroups of 64
 constexpr int BN = 128;      // keys a K/V tile
 constexpr int STAGES = 2;    // K/V tiles in flight
 constexpr int THREADS = 384; // the producer warpgroup and two consumer warpgroups
@@ -73,12 +92,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Layout {
-  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int Q_BYTES = BM * D * 2;   // one Q buffer (two: the next tile's Q comes in early)
   static constexpr int KV_BYTES = BN * D * 2;  // one K or one V tile
-  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BARS = 1 + 4 * STAGES;  // Q; K full, V full, K empty, V empty [STAGES]
+  // Q full, Q empty [2]; K full, V full, K empty, V empty [STAGES]
+  static constexpr int BARS = 4 + 4 * STAGES;
   // + slack to align the base to the 1024 bytes of a 128-byte swizzle atom
   static constexpr int ALLOC = BAR_OFF + BARS * 8 + 1024;
 };
@@ -120,9 +140,25 @@ rope_rotate_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   reinterpret_cast<uint4*>(kr)[idx] = rotate_chunk(reinterpret_cast<const uint4*>(k)[idx], cv, sv);
 }
 
+// a / b from r = 1/b (correctly rounded) and one FMA correction (Markstein's:
+// the quotient to the last bit but in rare cases)
+__device__ __forceinline__ float div_by(float a, float b, float r) {
+  const float q = a * r;
+  return fmaf(fmaf(-q, b, a), r, q);
+}
+
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Online softmax of one logit tile (raw Q·K^T, keys from k0) in place: masks keys
 // past L, updates this thread's rows' running max and sum, leaves p = exp2((s −
-// m)·scale·log2 e) in sc and returns each row's rescale factor α.
+// m)·scale·log2 e) in sc and returns each row's rescale factor α. exp2 is
+// `ex2.approx.ftz` (0.2-0.9% faster a call at head dim 128 than the library's
+// exp2f, whose range test and two multiplies serve subnormal results, and 5% at
+// head dim 64; PERF.md).
 template <int N>
 __device__ __forceinline__ void softmax_tile(float (&sc)[N], int k0, int L, int t, float sl2, float& m0,
                                              float& m1, float& l0, float& l1, float& alpha0, float& alpha1) {
@@ -142,8 +178,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], int k0, int L, int 
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  alpha0 = exp2f((m0 - mx0) * sl2);  // 0 at the first tile (m = −inf)
-  alpha1 = exp2f((m1 - mx1) * sl2);
+  alpha0 = ex2_ftz((m0 - mx0) * sl2);  // 0 at the first tile (m = −inf)
+  alpha1 = ex2_ftz((m1 - mx1) * sl2);
   m0 = mx0;
   m1 = mx1;
   const float mb0 = mx0 * sl2;
@@ -151,10 +187,10 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], int k0, int L, int 
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
   for (int i = 0; i < N; i += 4) {
-    sc[i] = exp2f(fmaf(sc[i], sl2, -mb0));
-    sc[i + 1] = exp2f(fmaf(sc[i + 1], sl2, -mb0));
-    sc[i + 2] = exp2f(fmaf(sc[i + 2], sl2, -mb1));
-    sc[i + 3] = exp2f(fmaf(sc[i + 3], sl2, -mb1));
+    sc[i] = ex2_ftz(fmaf(sc[i], sl2, -mb0));
+    sc[i + 1] = ex2_ftz(fmaf(sc[i + 1], sl2, -mb0));
+    sc[i + 2] = ex2_ftz(fmaf(sc[i + 2], sl2, -mb1));
+    sc[i + 3] = ex2_ftz(fmaf(sc[i + 3], sl2, -mb1));
     rs0 += sc[i] + sc[i + 1];
     rs1 += sc[i + 2] + sc[i + 3];
   }
@@ -162,33 +198,45 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], int k0, int L, int 
   l1 = l1 * alpha1 + rs1;
 }
 
+// A tile is 128 query rows of one (batch, head); tile i is row block i % rb of
+// (batch, head) i / rb, rb = ⌈L/128⌉, so a head's row blocks are adjacent and
+// share its K and V in L2. CTA c of a grid of G takes tiles c, c + G, c + 2G, …
+// (a static schedule: every tile costs the same ⌈L/128⌉ key tiles).
+__device__ __forceinline__ void tile_coords(int tile, int row_blocks, int H, int& bh, int& b, int& h, int& q0) {
+  bh = tile / row_blocks;
+  q0 = (tile - bh * row_blocks) * BM;
+  b = bh / H;
+  h = bh - b * H;
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse,
-                      int L, int H, float scale) {
+                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                      float* __restrict__ lse, int L, int H, int row_blocks, int tiles, float scale) {
   using Lay = Layout<D>;
   constexpr int BOXES = D / BOX;  // TMA boxes (and 64-column swizzle atoms) in a row
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base;
+  const uint32_t sQ = base;  // two buffers of Q_BYTES
   const uint32_t sK = base + Lay::K_OFF;
   const uint32_t sV = base + Lay::V_OFF;
-  const uint32_t bar_q = base + Lay::BAR_OFF;
-  auto full_k = [&](int s) { return bar_q + 8u * (1 + s); };
-  auto full_v = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
-  auto empty_k = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
-  auto empty_v = [&](int s) { return bar_q + 8u * (1 + 3 * STAGES + s); };
+  const uint32_t bars = base + Lay::BAR_OFF;
+  auto full_q = [&](int qb) { return bars + 8u * qb; };
+  auto empty_q = [&](int qb) { return bars + 8u * (2 + qb); };
+  auto full_k = [&](int s) { return bars + 8u * (4 + s); };
+  auto full_v = [&](int s) { return bars + 8u * (4 + STAGES + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (4 + 2 * STAGES + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (4 + 3 * STAGES + s); };
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * BM;
-  const int n_tiles = (L + BN - 1) / BN;
+  const int n_tiles = (L + BN - 1) / BN;  // key tiles a tile
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(full_q(qb), 1);
+      mbar_init(empty_q(qb), 2);  // one thread of each consumer warpgroup
+    }
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
@@ -199,58 +247,67 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   }
   __syncthreads();
 
-  if (wg == 0) {  // producer: Q, then K_0, then K_{j+1} before V_j, the order the consumers take them
+  // K/V tile g of this CTA's run (all its tiles' key tiles in order) sits in
+  // ring stage g % STAGES; the rings' phases carry from tile to tile, and so
+  // do the two Q buffers' (tile number i of the CTA in buffer i & 1).
+  if (wg == 0) {  // producer: per tile Q, then K_0, then K_{j+1} before V_j, the order the consumers take them
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty, int j) {
-        const int s = j % STAGES;
-        mbar_wait(empty, ((j / STAGES) & 1) ^ 1);
+      int bh, b, h, q0;
+      int g = 0;  // K/V tiles requested so far
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty, int gi, int j) {
+        mbar_wait(empty, ((gi / STAGES) & 1) ^ 1);
         mbar_expect_tx(full, Lay::KV_BYTES);
         for (int x = 0; x < BOXES; ++x) {
-          tma_load_4d(ring + s * Lay::KV_BYTES + x * BN * ROW_BYTES, map, full, x * BOX, h, j * BN, b);
+          tma_load_4d(ring + (gi % STAGES) * Lay::KV_BYTES + x * BN * ROW_BYTES, map, full, x * BOX, h, j * BN, b);
         }
       };
-      mbar_expect_tx(bar_q, Lay::Q_BYTES);
-      for (int x = 0; x < BOXES; ++x) tma_load_4d(sQ + x * BM * ROW_BYTES, &tm_q, bar_q, x * BOX, h, q0, b);
-      load(&tm_k, sK, full_k(0), empty_k(0), 0);
-      for (int j = 0; j < n_tiles; ++j) {
-        if (j + 1 < n_tiles) {
-          const int s = (j + 1) % STAGES;
-          load(&tm_k, sK, full_k(s), empty_k(s), j + 1);
+      int i = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+        tile_coords(tile, row_blocks, H, bh, b, h, q0);
+        const int qb = i & 1;
+        mbar_wait(empty_q(qb), ((i >> 1) & 1) ^ 1);  // tile i − 2's O has left the buffer
+        mbar_expect_tx(full_q(qb), Lay::Q_BYTES);
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_4d(sQ + qb * Lay::Q_BYTES + x * BM * ROW_BYTES, &tm_q, full_q(qb), x * BOX, h, q0, b);
         }
-        load(&tm_v, sV, full_v(j % STAGES), empty_v(j % STAGES), j);
+        load(&tm_k, sK, full_k(g % STAGES), empty_k(g % STAGES), g, 0);
+        for (int j = 0; j < n_tiles; ++j) {
+          if (j + 1 < n_tiles) load(&tm_k, sK, full_k((g + 1) % STAGES), empty_k((g + 1) % STAGES), g + 1, j + 1);
+          load(&tm_v, sV, full_v(g % STAGES), empty_v(g % STAGES), g, j);
+          ++g;
+        }
       }
     }
     return;
   }
 
-  // consumers: warpgroup cw owns query rows [cw·64, cw·64 + 64) of the block.
+  // consumers: warpgroup cw owns query rows [cw·64, cw·64 + 64) of each tile.
   // Iteration j issues S_j = Q·K_j^T and O += P_{j−1}·V_{j−1} together, then
   // runs the softmax of S_j while P_{j−1}·V_{j−1} is in flight; the two
   // warpgroups take turns to issue, so one's softmax overlaps the other's
-  // products.
+  // products, and the turns run on from tile to tile, so one's epilogue
+  // overlaps the other's last product and its next tile's first.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int cw = wg - 1;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane >> 2;
+  const int g8 = lane >> 2;
   const int t = lane & 3;
   const int my_turn = 1 + cw;
   const int other_turn = 2 - cw;
+  const float sl2 = scale * LOG2E;  // logits → exp2 domain
+  const int wg_bar = 3 + cw;        // this warpgroup's own named barrier
 
-  float acc[D / 2];  // O: column group n holds acc[4n..4n+3] (rows g, g + 8; columns 8n + 2t, + 1)
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8 (unscaled logits)
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of their running sums
-  float alpha0, alpha1;
-  const float sl2 = scale * LOG2E;       // logits → exp2 domain
-  const uint32_t q_rows = sQ + cw * 64 * ROW_BYTES;
+  float acc[D / 2];  // O: column group n holds acc[4n..4n+3] (rows g8, g8 + 8; columns 8n + 2t, + 1)
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];
+  uint32_t q_rows;
 
-  // S = Q·K_j^T: D/16 k16 steps, 32 bytes along a swizzled 128-byte row each
-  auto issue_s = [&](float (&sc)[BN / 2], int j) {
-    const uint32_t k_tile = sK + (j % STAGES) * Lay::KV_BYTES;
+  // S = Q·K_g^T: D/16 k16 steps, 32 bytes along a swizzled 128-byte row each
+  auto issue_s = [&](int gi) {
+    const uint32_t k_tile = sK + (gi % STAGES) * Lay::KV_BYTES;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint64_t da = desc_sw128(q_rows + (kk / 4) * BM * ROW_BYTES + (kk % 4) * 32, 16, 1024);
@@ -259,10 +316,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     }
     wgmma_commit();
   };
-  // O += P·V_j: 16 keys a k16 step = two 8-row groups (SBO); the next 64
+  // O += P·V_g: 16 keys a k16 step = two 8-row groups (SBO); the next 64
   // columns of D are the next box (LBO)
-  auto issue_pv = [&](const uint32_t (&pa)[BN / 16][4], int j) {
-    const uint32_t v_tile = sV + (j % STAGES) * Lay::KV_BYTES;
+  auto issue_pv = [&](int gi) {
+    const uint32_t v_tile = sV + (gi % STAGES) * Lay::KV_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       wgmma_rs(acc, pa[kk], desc_sw128(v_tile + kk * 16 * ROW_BYTES, BN * ROW_BYTES, 1024));
@@ -271,77 +328,108 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   };
 
   if (cw == 1) turn_arrive(1);  // warpgroup 1 lets warpgroup 0 issue first
-  mbar_wait(bar_q, 0);
-  float sc[BN / 2];
-  uint32_t pa[BN / 16][4];
+  int g = 0;                    // K/V tiles consumed so far
+  int i = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+    int bh, b, h, q0;
+    tile_coords(tile, row_blocks, H, bh, b, h, q0);
+    const bool last_tile = tile + static_cast<int>(gridDim.x) >= tiles;
+    const int qb = i & 1;
+    q_rows = sQ + qb * Lay::Q_BYTES + cw * 64 * ROW_BYTES;
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g8 and g8 + 8 (unscaled logits)
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of their running sums
+    float alpha0, alpha1;
 
-  mbar_wait(full_k(0), 0);
-  turn_sync(my_turn);
-  wgmma_fence();
-  issue_s(sc, 0);
-  turn_arrive(other_turn);
-  wgmma_wait0();
-  fence_regs(sc);
-  mbar_arrive(empty_k(0));
-  softmax_tile(sc, 0, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
-  pack_frag(sc, pa);
+    mbar_wait(full_q(qb), (i >> 1) & 1);
+    mbar_wait(full_k(g % STAGES), (g / STAGES) & 1);
+    turn_sync(my_turn);
+    wgmma_fence();
+    issue_s(g);
+    turn_arrive(other_turn);
+    wgmma_wait0();
+    fence_regs(sc);
+    mbar_arrive(empty_k(g % STAGES));
+    softmax_tile(sc, 0, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
+    pack_frag(sc, pa);
+    // the previous tile's O, staged in the other Q buffer, has been read out
+    if (i > 0 && tid == 0) {
+      bulk_wait_read<0>();
+      mbar_arrive(empty_q(qb ^ 1));
+    }
 
-  for (int j = 1; j < n_tiles; ++j) {
-    mbar_wait(full_k(j % STAGES), (j / STAGES) & 1);
-    mbar_wait(full_v((j - 1) % STAGES), ((j - 1) / STAGES) & 1);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int gk = g + j, gv = g + j - 1;
+      mbar_wait(full_k(gk % STAGES), (gk / STAGES) & 1);
+      mbar_wait(full_v(gv % STAGES), (gv / STAGES) & 1);
+      turn_sync(my_turn);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_s(gk);
+      issue_pv(gv);
+      turn_arrive(other_turn);
+      wgmma_wait1();  // S_j
+      fence_regs(sc);
+      mbar_arrive(empty_k(gk % STAGES));
+      softmax_tile(sc, j * BN, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
+      wgmma_wait0();  // P_{j−1}·V_{j−1}
+      fence_regs(acc);
+      fence_regs(sc);  // P_j's fragments only once P_{j−1}'s are read
+      mbar_arrive(empty_v(gv % STAGES));
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) acc[x] *= (x & 2) ? alpha1 : alpha0;
+      pack_frag(sc, pa);
+    }
+
+    const int gl = g + n_tiles - 1;
+    mbar_wait(full_v(gl % STAGES), (gl / STAGES) & 1);
     turn_sync(my_turn);
     fence_regs(acc);
     wgmma_fence();
-    issue_s(sc, j);
-    issue_pv(pa, j - 1);
-    turn_arrive(other_turn);
-    wgmma_wait1();  // S_j
-    fence_regs(sc);
-    mbar_arrive(empty_k(j % STAGES));
-    softmax_tile(sc, j * BN, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
-    wgmma_wait0();  // P_{j−1}·V_{j−1}
+    issue_pv(gl);
+    // warpgroup 1's last turn of the CTA's last tile has no one left to give it to
+    if (cw == 0 || !last_tile) turn_arrive(other_turn);
+    wgmma_wait0();
     fence_regs(acc);
-    fence_regs(sc);  // P_j's fragments only once P_{j−1}'s are read
-    mbar_arrive(empty_v((j - 1) % STAGES));
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
-    pack_frag(sc, pa);
-  }
+    mbar_arrive(empty_v(gl % STAGES));
+    g += n_tiles;
 
-  const int last = n_tiles - 1;
-  mbar_wait(full_v(last % STAGES), (last / STAGES) & 1);
-  turn_sync(my_turn);
-  fence_regs(acc);
-  wgmma_fence();
-  issue_pv(pa, last);
-  if (cw == 0) turn_arrive(other_turn);  // warpgroup 0's last turn; warpgroup 1 has none left to give
-  wgmma_wait0();
-  fence_regs(acc);
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const int r0 = q0 + cw * 64 + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const int64_t row_stride = static_cast<int64_t>(H) * D;
-  bf16* ob = o + (static_cast<int64_t>(b) * L * H + h) * D;
-  if (r0 < L) {
+    // Epilogue: O / l into this warpgroup's 64 rows of the Q buffer (its
+    // products are done with them), 128-byte swizzled as TMA reads it, then
+    // one thread stores them with TMA; the store runs on while the next tile
+    // starts. lse from registers.
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    const int rr = warp * 16 + g8;  // this thread's first row in the warpgroup's 64; rr & 7 == g8
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * row_stride + n * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[4 * n] / l0, acc[4 * n + 1] / l0);
+      // column group n: box n / 8, 16-byte chunk n % 8 of the row, swizzled by the row's place in its 8
+      const uint32_t at = q_rows + (n / 8) * BM * ROW_BYTES + rr * ROW_BYTES + (((n % 8) ^ g8) << 4) + t * 4;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
+                   "r"(fgt::pack_bf16x2(div_by(acc[4 * n], l0, i0), div_by(acc[4 * n + 1], l0, i0)))
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + 8 * ROW_BYTES),
+                   "r"(fgt::pack_bf16x2(div_by(acc[4 * n + 2], l1, i1), div_by(acc[4 * n + 3], l1, i1)))
+                   : "memory");
     }
-    if (t == 0) lse[static_cast<int64_t>(bh) * L + r0] = m0 * scale + logf(l0);
-  }
-  if (r1 < L) {
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * row_stride + n * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
+    fence_proxy_async();  // the generic-proxy writes, before TMA reads them
+    asm volatile("bar.sync %0, 128;\n" ::"r"(wg_bar) : "memory");
+    const int row0 = q0 + cw * 64;
+    if (tid == 0 && row0 < L) {
+      for (int x = 0; x < BOXES; ++x) tma_store_4d(&tm_o, q_rows + x * BM * ROW_BYTES, x * BOX, h, row0, b);
+      bulk_commit();
     }
-    if (t == 0) lse[static_cast<int64_t>(bh) * L + r1] = m1 * scale + logf(l1);
+    const int r0 = row0 + rr;
+    if (t == 0) {
+      if (r0 < L) lse[static_cast<int64_t>(bh) * L + r0] = m0 * scale + logf(l0);
+      if (r0 + 8 < L) lse[static_cast<int64_t>(bh) * L + r0 + 8] = m1 * scale + logf(l1);
+    }
   }
+  if (tid == 0) bulk_wait_all();  // the last store is done before the CTA's shared memory goes
 }
 
 // setmaxnreg moves registers inside the block's allocation: the consumers'
@@ -351,7 +439,7 @@ constexpr int REG_POOL = 128 * 40 + CONSUMERS * 232;
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, bf16* o, float* lse, int B, int L, int H,
-                   float scale, cudaStream_t stream) {
+                   float scale, int ctas, cudaStream_t stream) {
   static bool regs_checked = false;
   if (!regs_checked) {
     cudaFuncAttributes attr;
@@ -360,16 +448,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, bf16* o, float* 
     if (attr.numRegs * THREADS < REG_POOL) return cudaErrorInvalidConfiguration;
     regs_checked = true;
   }
+  const int row_blocks = (L + BM - 1) / BM;
+  const int64_t tiles = static_cast<int64_t>(B) * H * row_blocks;
+  if (ctas <= 0 || tiles + ctas > 0x7fffffff) return cudaErrorInvalidValue;  // a CTA's tile index stays an int
   const cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::ALLOC);
   if (err != cudaSuccess) return err;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to;
   if (!encode_map(&tq, q, B, L, H, D, BM) || !encode_map(&tk, k, B, L, H, D, BN) ||
-      !encode_map(&tv, v, B, L, H, D, BN)) {
+      !encode_map(&tv, v, B, L, H, D, BN) || !encode_map(&to, o, B, L, H, D, 64)) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid((L + BM - 1) / BM, B * H);
-  flash_fwd_sm90_kernel<D><<<grid, THREADS, Layout<D>::ALLOC, stream>>>(tq, tk, tv, o, lse, L, H, scale);
+  const int grid = static_cast<int>(ctas < tiles ? ctas : tiles);
+  flash_fwd_sm90_kernel<D><<<grid, THREADS, Layout<D>::ALLOC, stream>>>(tq, tk, tv, to, lse, L, H, row_blocks,
+                                                                         static_cast<int>(tiles), scale);
   return cudaGetLastError();
 }
 
@@ -394,9 +486,10 @@ cudaError_t info(int* regs, int* spill_bytes, int* smem_bytes, int* blocks_per_s
 // kernel of its own where a head has many key tiles. At D 64 a warpgroup's
 // 128-key tile is 512 cycles of tensor-core work (S = Q·K^T and P·V, 2 MFLOP),
 // but its softmax is a long dependent chain on one warp a quarter of the SM:
-// in the design above (two consumer warpgroups taking turns) a tile took
-// ~2,300 cycles, ~1,100 of them the softmax, and the tensor cores were busy
-// 45% of the time (clock64 stamps on an H100). The design:
+// in two consumer warpgroups taking turns (the design above, before it was
+// persistent) a tile took ~2,300 cycles, ~1,100 of them the softmax, and the
+// tensor cores were busy 45% of the time (clock64 stamps on an H100). The
+// design:
 // - Three consumer warpgroups (192 query rows a block, FlashAttention-3's
 //   tile at head dim 64) and no turns: each warpgroup issues S_j and
 //   P_{j−1}·V_{j−1} together, runs S_j's softmax while P_{j−1}·V_{j−1} is in
@@ -411,14 +504,14 @@ cudaError_t info(int* regs, int* spill_bytes, int* smem_bytes, int* blocks_per_s
 //   (pack_frag). Fewer, larger blocks also fill the card's rounds better at
 //   the SD shapes.
 // - A block of three warpgroups costs about 3.3 key tiles beyond its own
-//   (prologue and epilogue; two warpgroups about 2.8) and more in the first
-//   round, so where a head has few key tiles the wrapper's `d64_geometry`
-//   launches flash_fwd_sm90_kernel<64> (above) instead. Q and K_0 are
+//   (prologue and epilogue; a tile of the persistent two-warpgroup kernel
+//   about 1) and more in the first round, so where a head has few key tiles
+//   or its tiles fill whole rounds the wrapper's `d64_geometry` launches
+//   flash_fwd_sm90_kernel<64> (above) instead. Q and K_0 are
 //   requested as soon as the barriers exist, before the block's first
 //   __syncthreads.
 // - O is divided by its row sum as the reciprocal's product with one FMA
-//   correction (Markstein's: the quotient to the last bit but in rare cases),
-//   not by 64 IEEE divisions a thread.
+//   correction (`div_by`), not by 64 IEEE divisions a thread.
 // - The grid is (row blocks, B·H), the row blocks of a head adjacent so that
 //   they share its K and V in L2, with B·H past 65,535 continued in its third
 //   dimension, so B·H is not capped; no integer division stands before a
@@ -445,12 +538,6 @@ struct D64 {
   static constexpr int REG_POOL = 128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS;
   static_assert(REG_POOL <= 65536, "the register split must fit the SM");
 };
-
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // softmax_tile for three warpgroups' registers (a 64 × 128 tile: 64 logits a
 // thread, rows g and g + 8, n8 column group i/4): two running maxima and
@@ -504,12 +591,6 @@ __device__ __forceinline__ void softmax_d64(float (&sc)[64], int k0, int L, int 
   }
   l0 = fmaf(l0, alpha0, a0 + b0);
   l1 = fmaf(l1, alpha1, a1 + b1);
-}
-
-// a / b from r = 1/b (correctly rounded) and one FMA correction
-__device__ __forceinline__ float div_by(float a, float b, float r) {
-  const float q = a * r;
-  return fmaf(fmaf(-q, b, a), r, q);
 }
 
 __global__ void __launch_bounds__(D64::THREADS, 1)
@@ -723,18 +804,19 @@ cudaError_t info_d64(int* regs, int* spill_bytes, int* smem_bytes, int* blocks_p
 
 }  // namespace
 
-// q, k, v, o: (B, L, H, D) contiguous bf16, q, k and v 16-byte aligned (TMA);
-// lse: (B·H, L) f32. Attention without RoPE (rotate q and k first with
-// fgt_rope_rotate). Returns a cudaError_t: cudaErrorInvalidValue also when a
-// tensor map cannot be encoded.
+// q, k, v, o: (B, L, H, D) contiguous bf16, 16-byte aligned (TMA loads and
+// stores); lse: (B·H, L) f32. Attention without RoPE (rotate q and k first with
+// fgt_rope_rotate), on min(ctas, tiles) CTAs of the persistent kernel (one an
+// SM: the caller passes the SM count). Returns a cudaError_t:
+// cudaErrorInvalidValue also when a tensor map cannot be encoded.
 extern "C" int fgt_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
-                                  int H, int D, float scale, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+                                  int H, int D, float scale, int ctas, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   bf16* ob = static_cast<bf16*>(o);
   float* lb = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return static_cast<int>(launch<128>(q, k, v, ob, lb, B, L, H, scale, st));
-  if (D == 64) return static_cast<int>(launch<64>(q, k, v, ob, lb, B, L, H, scale, st));
+  if (D == 128) return static_cast<int>(launch<128>(q, k, v, ob, lb, B, L, H, scale, ctas, st));
+  if (D == 64) return static_cast<int>(launch<64>(q, k, v, ob, lb, B, L, H, scale, ctas, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,7 +6,8 @@
 // - mbarriers: init, arrive, arrive with an expected byte count, and a bare
 //   try_wait spin (see mbar_wait for why it has no poll limit);
 // - TMA: one box of a 2-D or 4-D tensor map into shared memory, completion
-//   counted on an mbarrier, and a 2-D store from shared memory in bulk groups;
+//   counted on an mbarrier, and a 2-D or 4-D store from shared memory in bulk
+//   groups;
 //   `encode_map` builds the map of a (B, L, H, D) bf16 tensor as (D, H, L, B)
 //   with boxes of 64 values × `rows` rows of one (batch, head) and a 128-byte
 //   swizzle, so a (batch, head) is read in place and rows past L come in as
@@ -95,6 +96,14 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t sr
   asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map)),
                "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+// One box of shared memory to a 4-D tensor map (coordinates innermost first),
+// in the thread's current bulk group; the map clips what lies past the edges.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
                : "memory");
 }
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }

@@ -89,26 +89,27 @@ _INT8_SIGNATURES = {
     "fgt_attn_int8_quant_info": [_I, _I, _P, _P, _P, _P],
 }
 _SIGNATURES = {
-    "fgt_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    "fgt_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "fgt_flash_fwd_d64": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     "fgt_rope_rotate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fgt_flash_fwd_sm90_info": [_I, _I, _P, _P, _P, _P],
 }
 # Head dim 64's two kernels, by consumer warpgroups a block (64 query rows
-# each): 2, flash_fwd_sm90_kernel<64> (its grid caps B·H at 65535), and 3,
+# each): 2, flash_fwd_sm90_kernel<64> (persistent, as at head dim 128), and 3,
 # flash_fwd_d64_kernel.
 WARPGROUPS_D64 = (2, 3)
-MAX_GRID_Y = 65535
-# d64_geometry's cost model, in the time of one 128-key tile of a block of
-# two warpgroups (1.25 µs on an H100): a key tile of a block of w
-# warpgroups, a block's own cost beyond its tiles (prologue, pipeline fill,
-# epilogue) and what a launch of w warpgroups costs once more (its first
-# round). Fitted to A's times in both geometries at the SD shapes and at
-# whole rounds (L 4096 B·H 33, L 16384) on an H100 (PERF.md;
-# scripts/prof_flash_d64.py).
-TILE_COST = {2: 1.0, 3: 1.23}
-BLOCK_COST = {2: 2.8, 3: 3.3}
-START_COST = {2: 0.0, 3: 1.7}
+# d64_geometry's cost model, in the time of one 128-key tile of two
+# warpgroups (1.22 µs on an H100): a key tile of w warpgroups, what a tile
+# costs beyond its key tiles (at 2, a tile boundary of the persistent
+# kernel; at 3, a block's prologue, pipeline fill and epilogue) and what a
+# launch of w warpgroups costs once more. Fitted to A's times in both
+# geometries at the SD shapes and at whole rounds (L 4096 B·H 33, L 16384)
+# on an H100, under the condition that it pick the faster one wherever
+# their times' spreads do not overlap and the earlier pick where they do
+# (PERF.md; scripts/prof_flash_fwd.py --geometries).
+TILE_COST = {2: 1.0, 3: 1.22}
+BLOCK_COST = {2: 0.4, 3: 3.8}
+START_COST = {2: 3.0, 3: 1.5}
 # the two sources, each built into its own library
 BUILDS = {"flash_attention_sm90": _SIGNATURES, "flash_attention": _INT8_SIGNATURES}
 
@@ -288,13 +289,10 @@ def rope_rotate(q, k, cos, sin):
 @functools.lru_cache(maxsize=4096)
 def d64_geometry(bh: int, length: int, sms: int) -> int:
     """The consumer warpgroups (2 or 3) of the D-64 launch of B·H = `bh`
-    heads at length L on `sms` SMs: the w whose rounds of blocks
-    (⌈bh·⌈L/(64·w)⌉ / sms⌉, one block an SM) times a block's work
-    (⌈L/128⌉ key tiles at TILE_COST[w], plus BLOCK_COST[w]), plus
-    START_COST[w], is least, ties to 2; always 3 past the two-warpgroup
-    grid's B·H of MAX_GRID_Y. Cached: every UNet self-attention asks."""
-    if bh > MAX_GRID_Y:
-        return 3
+    heads at length L on `sms` SMs: the w whose rounds of 64·w-row tiles
+    (⌈bh·⌈L/(64·w)⌉ / sms⌉, one CTA an SM) times a tile's work (⌈L/128⌉
+    key tiles at TILE_COST[w], plus BLOCK_COST[w]), plus START_COST[w], is
+    least, ties to 2. Cached: every UNet self-attention asks."""
     tiles = -(-length // KEY_TILE)
     best, best_cost = None, None
     for w in WARPGROUPS_D64:
@@ -327,8 +325,9 @@ def _sm90_launch(q, k, v, scale: float, warpgroups: Optional[int] = None):
                                         b, l, h, float(scale), stream)
             _build.check("fgt_flash_fwd_d64", err)
         else:
+            sms = _build.sm_count(q.device.index or 0)  # one CTA an SM, at most one a tile
             err = lib.fgt_flash_fwd_sm90(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                         lse.data_ptr(), b, l, h, d, float(scale), stream)
+                                         lse.data_ptr(), b, l, h, d, float(scale), sms, stream)
             _build.check("fgt_flash_fwd_sm90", err)
     launches += 1
     return out, lse

@@ -1,31 +1,33 @@
-"""Kernel A's bf16 forward at head dim 64 (the SD and SDXL UNet
-self-attention, no RoPE), in turns with SDPA's forward, for one checkout or
-for comparing two on one card.
+"""Kernel A's bf16 forward (`flash_attention_sm90`) at Flux's head-dim-128
+shapes and the SD and SDXL UNet's head-dim-64 ones, in turns with SDPA's
+forward, for one checkout or for comparing two on one card.
 
-    python3 flux_generator_tpu_torch/scripts/prof_flash_d64.py [--root DIR] [--label NAME] [--out FILE]
-        [--geometries] [--shapes NAME,...] [--requests N]
+    python3 flux_generator_tpu_torch/scripts/prof_flash_fwd.py [--root DIR] [--label NAME] [--out FILE]
+        [--geometries] [--shapes NAME,...] [--turns N] [--requests N]
 
 The package is imported from DIR (by default the checkout that holds this
 file), so that the same measurement runs on another commit unpacked there
 (`git archive`); to compare two, run parent, change, change, parent in one
 call on one card. It uses only `flash_attention_sm90`,
-`flash_attention_reference` and `sm90_kernel_info`, which both have, and,
-where the checkout has them, the head-dim-64 geometries (`d64_geometry`,
-`_sm90_launch(..., warpgroups=)`).
+`flash_attention_reference` and `sm90_kernel_info`, which every checkout
+since the kernel's redesign has, and, where the checkout has them, the
+head-dim-64 geometries (`d64_geometry`, `_sm90_launch(..., warpgroups=)`).
 
-At each shape (`SHAPES`: the SD 2.1 and SDXL request shapes of a 512²
-image, SD 2.1's first level at 640² and 1024² (at 1024² also without CFG,
-batch 1), two shapes of whole rounds of 128-row blocks on 132 SMs, and
-Flux's L 1280 at D 128 as the unchanged control): out against the plain
-version by rel-L2 (bound 1e-2; the plain version a head at a time past L
-4096), then the kernel and SDPA's forward queued behind a sleep kernel in
-turns (kernel, SDPA, SDPA, kernel; 20 calls each, 10 past L 4096), and
-the host's time a call of A (200 calls enqueued behind a sleep kernel). With
-`--geometries` also both geometries the launch can take at head dim 64
-(2 or 3 consumer warpgroups), in turns. Beside each: the chosen geometry,
-its blocks and their rounds over the SMs, the bound (4·B·H·L²·D
-operations at 989 TFLOP/s) and the exp floor (B·H·L² exponentials at 3.9
-T/s).
+At each shape (`SHAPES`: Flux's L 1280 and 16640 with 24 heads of 128, the
+tensor-parallel head shards of L 1280 (12 and 6 heads), the ring's folds of
+L 16640 over 2 and 4 ranks (L 8320, 4160), Flux-dev's training forward (L
+1536), L 1000; at head dim 64 the SD 2.1 and SDXL request shapes of a 512²
+image, SD 2.1's first level at 640² and 1024² (at 1024² also without CFG),
+and two shapes of whole rounds of 128-row blocks on 132 SMs): out against
+the plain version by rel-L2 (bound 1e-2; the plain version a head at a time
+past L 4096), then the kernel and SDPA's forward queued behind a sleep
+kernel in turns (kernel, SDPA, SDPA, kernel, that `--turns` times over; 20
+calls each, 10 past L 4096, 5 past L 8320), and the host's time a call of A
+(200 calls enqueued behind a sleep kernel). With `--geometries` also both geometries the launch can take
+at head dim 64 (2 or 3 consumer warpgroups), in turns. Beside each: the
+geometry (consumer warpgroups, rows a tile, tiles, CTAs launched), the tiles'
+rounds over the SMs, the bound (4·B·H·L²·D operations at 989 TFLOP/s) and
+the exp floor (B·H·L² exponentials at 3.9 T/s).
 
 With `--requests N`, then N SD 2.1-base 512² requests (50 steps, cfg 4.0,
 full width on seeded random weights in bf16) after a 2-step warm-up,
@@ -47,18 +49,22 @@ import subprocess
 import sys
 import time
 
-# label → (B, L, H, D, calls a request)
+# label → (B, L, H, D, calls a request or micro-step on the main paths; 0 off them)
 SHAPES = {
+    "flux_L1280_H24": (1, 1280, 24, 128, 228), "flux_L16640_H24": (1, 16640, 24, 128, 228),
+    "tp2_L1280_H12": (1, 1280, 12, 128, 0), "tp4_L1280_H6": (1, 1280, 6, 128, 0),
+    "ring2_L8320_H24": (1, 8320, 24, 128, 0), "ring4_L4160_H24": (1, 4160, 24, 128, 0),
+    "dev_L1536_H24": (1, 1536, 24, 128, 114), "short_L1000_H24": (1, 1000, 24, 128, 0),
     "sd21_L4096": (2, 4096, 5, 64, 250), "sd21_L1024": (2, 1024, 10, 64, 250), "sd21_L256": (2, 256, 20, 64, 250),
     "sdxl_b1_L1024": (1, 1024, 10, 64, 20), "sdxl_b1_L256": (1, 256, 20, 64, 120),
     "sdxl_b4_L1024": (4, 1024, 10, 64, 20), "sdxl_b4_L256": (4, 256, 20, 64, 120),
     "sd21_640_L6400": (2, 6400, 5, 64, 250), "sd21_1024_L16384": (2, 16384, 5, 64, 250),
     "sd21_1024_nocfg_L16384": (1, 16384, 5, 64, 250),
     "whole_L4096_BH33": (1, 4096, 33, 64, 0), "whole_L1024_BH33": (1, 1024, 33, 64, 0),
-    "flux_L1280_D128": (1, 1280, 24, 128, 228),
 }
 PEAK_BF16_FLOPS, PEAK_EXP_S = 989e12, 3.9e12
 REL_TOL = 1e-2
+KEY_TILE = 128
 
 
 def _queued_ms(fn, iters: int) -> float:
@@ -96,10 +102,13 @@ def _host_us(fn, iters: int = 200) -> float:
     return host / iters * 1e6
 
 
-def _in_turns(fns: dict, iters: int) -> dict:
+def _in_turns(fns: dict, iters: int, turns: int = 1) -> dict:
+    """Each fn timed in turns, in the order given then reversed, `turns`
+    times over (so a drift of the card's clock falls on each alike) →
+    name → its times, in the order taken."""
     items = list(fns.items())
     out = {name: [] for name in fns}
-    for name, fn in items + items[::-1]:
+    for name, fn in (items + items[::-1]) * turns:
         out[name].append(_queued_ms(fn, iters))
     return out
 
@@ -114,11 +123,26 @@ def _plain(fa, q, k, v):
                                                    v[:, :, i:i + 1].float())[0] for i in range(q.shape[2])], 2)
 
 
-def measure(fa, names, with_geometries: bool, sms: int, dev) -> dict:
+def _iters(length: int) -> int:
+    return 20 if length <= 4096 else 10 if length <= 8320 else 5
+
+
+def _geometry(fa, b: int, length: int, h: int, d: int, sms: int) -> dict:
+    """The launch's consumer warpgroups (the checkout's `d64_geometry` where
+    it has one), rows a tile, tiles and CTAs: at two warpgroups the
+    persistent kernel's one an SM up to one a tile (a checkout from before
+    that kernel launched one a tile there too), at three one a tile."""
+    w = fa.d64_geometry(b * h, length, sms) if d == 64 and hasattr(fa, "d64_geometry") else 2
+    rows = 64 * w
+    tiles = b * h * math.ceil(length / rows)
+    ctas = min(tiles, sms) if w == 2 else tiles
+    return dict(warpgroups=w, rows_a_tile=rows, tiles=tiles, ctas=ctas, rounds=tiles / sms)
+
+
+def measure(fa, names, with_geometries: bool, sms: int, dev, n_turns: int = 1) -> dict:
     import torch
 
     g = torch.Generator(device=dev).manual_seed(4321)
-    geometry = getattr(fa, "d64_geometry", None)
     launch = getattr(fa, "_sm90_launch", None)
     rows, ok = {}, True
     for name in names:
@@ -129,18 +153,17 @@ def measure(fa, names, with_geometries: bool, sms: int, dev) -> dict:
         rel = ((out.float() - ref).norm() / ref.norm()).item()
         ok &= rel <= REL_TOL
         del ref
-        iters = 20 if length <= 4096 else 10
+        iters = _iters(length)
         qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         calls = {"A": lambda: fa.flash_attention_sm90(q, k, v),
                  "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)}
-        turns = _in_turns(calls, iters)
+        turns = _in_turns(calls, iters, n_turns)
         host_us = _host_us(calls["A"])
-        rows_a_block = 64 * geometry(b * h, length, sms) if geometry is not None and d == 64 else 128
-        blocks = b * h * math.ceil(length / rows_a_block)
+        geo = _geometry(fa, b, length, h, d, sms)
         rec = dict(b=b, l=length, h=h, d=d, launches_a_request=per_request, out_rel_l2=rel, turns_ms=turns,
-                   host_us=host_us,
-                   a_ms=sum(turns["A"]) / 2, sdpa_ms=sum(turns["sdpa"]) / 2, rows_a_block=rows_a_block,
-                   blocks=blocks, rounds=blocks / sms,
+                   host_us=host_us, a_ms=sum(turns["A"]) / len(turns["A"]),
+                   sdpa_ms=sum(turns["sdpa"]) / len(turns["sdpa"]), **geo,
+                   key_tiles=math.ceil(length / KEY_TILE),
                    bound_ms=4 * b * h * length * length * d / PEAK_BF16_FLOPS * 1e3,
                    exp_floor_ms=b * h * length * length / PEAK_EXP_S * 1e3)
         if with_geometries and launch is not None and d == 64:
@@ -155,11 +178,11 @@ def measure(fa, names, with_geometries: bool, sms: int, dev) -> dict:
                 rec.setdefault("variant_rel_l2", {})[f"w{w}"] = r
             rec["variants_in_turns_ms"] = _in_turns(fns, iters)
         rows[name] = rec
-        print(f"[prof_flash_d64] {name} (B {b}, L {length}, H {h}, D {d}): rel-L2 {rel:.3e} | A "
+        print(f"[prof_flash_fwd] {name} (B {b}, L {length}, H {h}, D {d}): rel-L2 {rel:.3e} | A "
               f"{' '.join(f'{t:.4f}' for t in turns['A'])} ms, SDPA {' '.join(f'{t:.4f}' for t in turns['sdpa'])} "
-              f"ms (A/SDPA {rec['a_ms'] / rec['sdpa_ms']:.3f}), host {host_us:.1f} µs a call | {rows_a_block} rows "
-              f"a block: "
-              f"{blocks} blocks, {rec['rounds']:.2f} rounds | bound {rec['bound_ms']:.4f}, exp floor "
+              f"ms (A/SDPA {rec['a_ms'] / rec['sdpa_ms']:.3f}), host {host_us:.1f} µs a call | "
+              f"{geo['warpgroups']} consumer warpgroups, {geo['rows_a_tile']} rows a tile: {geo['tiles']} tiles on "
+              f"{geo['ctas']} CTAs, {geo['rounds']:.2f} rounds | bound {rec['bound_ms']:.4f}, exp floor "
               f"{rec['exp_floor_ms']:.4f}"
               + (" | geometries " + ", ".join(f"{s} {sum(t) / 2:.4f}" for s, t in rec["variants_in_turns_ms"].items())
                  if "variants_in_turns_ms" in rec else ""), flush=True)
@@ -194,9 +217,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="also write the JSON line to this file")
     ap.add_argument("--geometries", action="store_true", help="also time both head-dim-64 geometries")
     ap.add_argument("--shapes", default=",".join(SHAPES), help="comma-separated names of SHAPES")
+    ap.add_argument("--turns", type=int, default=1, help="times over that A and SDPA are timed in turns")
     ap.add_argument("--requests", type=int, default=0, help="then time this many SD 2.1 512² requests")
     args = ap.parse_args(argv)
-    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    root = pathlib.Path(args.root).resolve()
+    sys.path.insert(0, str(root))
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import flash_attention as fa
@@ -207,13 +232,14 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[dev.index or 0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     t0 = time.perf_counter()
-    info = {d: fa.sm90_kernel_info(d) for d in (64, 128)}
-    res = measure(fa, [s for s in args.shapes.split(",") if s], args.geometries, sms, dev)
+    names = [s for s in args.shapes.split(",") if s]
+    info = {d: fa.sm90_kernel_info(d, 2) for d in (64, 128)}
+    res = measure(fa, names, args.geometries, sms, dev, args.turns)
     if args.requests:
         res["sd21_requests"] = sd_requests(args.requests)
-        print(f"[prof_flash_d64] SD 2.1 512² requests: "
+        print(f"[prof_flash_fwd] SD 2.1 512² requests: "
               + ", ".join(f"{r['latency_s']:.4f}" for r in res["sd21_requests"]) + " s", flush=True)
-    rec = dict(label=args.label, root=args.root, device=card, sms=sms, kernel_info=info, **res,
+    rec = dict(label=args.label, root=str(root), device=card, sms=sms, kernel_info=info, **res,
                seconds=time.perf_counter() - t0)
     line = json.dumps(rec)
     print(line, flush=True)

@@ -6,6 +6,8 @@ jax is imported inside the tests that use it, so the `cuda` case runs on a
 machine without jax: `python -m pytest --noconftest -m cuda
 tests/test_torch_flash_attention.py`."""
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -208,31 +210,87 @@ def test_cuda_rope_pre_pass_matches_plain_version_bit_for_bit():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+# (B·H, L) of the persistent launch: Flux's head-dim-128 shapes (L 1280 and
+# 16640 with 24 heads, the tensor-parallel shards' 12 and 6, the ring's folds
+# at L 8320 and 4160, training's L 1536, L 1000), ragged lengths, SDXL
+# batch 4's L 256 at head dim 64, B·H past 65535 and one tile
+SCHEDULE_SHAPES = [(24, 1280), (24, 16640), (12, 1280), (6, 1280), (24, 8320), (24, 4160), (24, 1536),
+                   (24, 1000), (48, 1031), (80, 256), (65600, 48), (1, 1)]
+
+
+SM90_SOURCE = pathlib.Path(fa.__file__).parents[2] / "csrc" / "flash_attention_sm90.cu"
+
+
+def _sm90_schedule(bh: int, length: int, sms: int) -> list:
+    """The persistent kernel's static schedule as its source writes it (held
+    there by test_sm90_kernel_source_takes_the_static_schedule): a grid of
+    min(SMs, tiles) CTAs, CTA c taking tiles c, c + G, c + 2G, …, tile i
+    being row block i % ⌈L/128⌉ of head i // ⌈L/128⌉ → for each CTA its
+    (head, row block) tiles in order."""
+    rb = -(-length // 128)
+    tiles = bh * rb
+    grid = min(sms, tiles)
+    return [[divmod(i, rb) for i in range(c, tiles, grid)] for c in range(grid)]
+
+
+def test_sm90_kernel_source_takes_the_static_schedule():
+    """The kernel's source holds the schedule that _sm90_schedule mirrors:
+    the launch clamps the SM count it is given to the tile count, the
+    producer and the consumers walk the same tiles with the grid's stride,
+    and a tile's (head, row block) comes from its index alone."""
+    src = SM90_SOURCE.read_text()
+    assert "const int grid = static_cast<int>(ctas < tiles ? ctas : tiles);" in src
+    assert src.count("for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {") == 2
+    assert src.count("tile_coords(tile, row_blocks, H, bh, b, h, q0);") == 2
+    assert "  bh = tile / row_blocks;\n  q0 = (tile - bh * row_blocks) * BM;\n" in src
+    assert "constexpr int BM = 128;" in src
+
+
+@pytest.mark.parametrize("bh,l", SCHEDULE_SHAPES)
+def test_sm90_schedule_covers_each_tile_once(bh, l):
+    """The persistent kernel's static schedule on an H100's 132 SMs: every
+    (head, row block) tile exactly once, one CTA a tile up to one an SM,
+    the CTAs' shares within one tile of each other, each CTA's tiles in
+    order, and the tiles of one round side by side (a head's row blocks
+    together, so they share its K and V in L2)."""
+    rb = -(-l // 128)
+    sched = _sm90_schedule(bh, l, 132)
+    assert len(sched) == min(bh * rb, 132)
+    flat = [t for cta in sched for t in cta]
+    assert sorted(flat) == [(x, r) for x in range(bh) for r in range(rb)]
+    assert max(map(len, sched)) - min(map(len, sched)) <= 1
+    for cta in sched:
+        assert cta == sorted(cta)
+    first_round = [cta[0] for cta in sched]
+    assert [x * rb + r for x, r in first_round] == list(range(len(sched)))
+
+
 # the head-dim-64 kernel's shapes: the SD and SDXL self-attention of a 512²
 # request (B, L, H)
 SD_SHAPES = [(b, l, h) for _, b, l, h, _ in chip_smoke.SD_ATTN_SHAPES]
 # (B, L, H) → the consumer warpgroups `d64_geometry` picks on 132 SMs: the
 # SD and SDXL shapes of a 512² request, SD 2.1's first level at 640² and
 # 1024² (with CFG, and at 1024² without), two of whole rounds of 128-row
-# blocks, B·H 2, ragged lengths, one key, and B·H past the two-warpgroup
-# grid's 65535
+# blocks, B·H 2, ragged lengths, one key, and B·H past 65535
 D64_GEOMETRIES = {
-    **{(b, l, h): w for (b, l, h), w in zip(SD_SHAPES, (3, 3, 2, 2, 2, 3, 2))},
+    **{(b, l, h): w for (b, l, h), w in zip(SD_SHAPES, (3, 3, 2, 2, 2, 2, 2))},
     (2, 6400, 5): 3, (2, 16384, 5): 3, (1, 16384, 5): 3,
     (1, 4096, 33): 3, (1, 1024, 33): 2, (1, 4096, 2): 2,
     (2, 300, 3): 2, (2, 1000, 10): 3, (1, 4160, 5): 3, (1, 129, 2): 2, (4, 1, 2): 2,
-    (1, 48, 65600): 3,
+    (1, 48, 65600): 2,
 }
 
 
 @pytest.mark.parametrize("b,l,h", list(D64_GEOMETRIES))
 def test_d64_geometry_at_each_shape(b, l, h):
-    """The host's choice for the head-dim-64 launch on an H100's 132 SMs:
-    three warpgroups (192 rows) where their blocks take fewer rounds and a
-    head has many key tiles, two where a block's own cost outweighs its few
-    tiles or the rounds of two are whole; always three past B·H 65535,
-    where only their grid reaches. Asked again, the answer comes from the
-    cache."""
+    """The host's choice for the head-dim-64 launch on an H100's 132 SMs,
+    the faster geometry as measured at each SD shape: three warpgroups (192
+    rows) where their blocks take fewer rounds and a head has many key
+    tiles (SD 2.1 at L 1024 to 16384), two where a block's own cost
+    outweighs its few tiles, the rounds of two are whole or the persistent
+    two-warpgroup kernel's tiles take as few rounds (SDXL batch 4 at L 1024:
+    3 rounds of 8 key tiles against 2 of blocks; B·H 65600 of one key tile).
+    Asked again, the answer comes from the cache."""
     want = D64_GEOMETRIES[(b, l, h)]
     assert fa.d64_geometry(b * h, l, 132) == want
     hits = fa.d64_geometry.cache_info().hits
@@ -309,10 +367,11 @@ def test_cuda_kernel_at_every_geometry(b, l, h):
 @pytest.mark.cuda
 def test_cuda_kernel_past_the_grid_cap():
     """B·H = 65600 heads of 48 keys at head dim 64: past the 65535 of a
-    grid's second dimension. `d64_geometry` takes three warpgroups there,
-    whose grid (row blocks, min(B·H, 65535), ⌈B·H/65535⌉) continues B·H in
-    its third dimension; held as test_cuda_kernel_at_sd_shapes, with the
-    last 16 keys dropped as the control."""
+    grid's second dimension, which neither kernel's grid is bound by (the
+    persistent two-warpgroup kernel, `d64_geometry`'s pick, launches one
+    CTA an SM; the three-warpgroup kernel continues B·H in its grid's third
+    dimension). Both geometries held as test_cuda_kernel_at_sd_shapes, with
+    the last 16 keys dropped as the control."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -321,3 +380,61 @@ def test_cuda_kernel_past_the_grid_cap():
     out, lse = fa.flash_attention(q, k, v, return_lse=True)
     torch.cuda.synchronize()
     _sd_check(q, k, v, out, lse, 16)
+    out, lse = fa._sm90_launch(q, k, v, 64 ** -0.5, warpgroups=3)
+    torch.cuda.synchronize()
+    _sd_check(q, k, v, out, lse, 16)
+
+
+def _plain_in_chunks(q, k, v, drop: int = 0):
+    """The plain version in f32 on the same bf16 inputs, a few heads at a
+    time (at most 2^29 logits a chunk), with the last `drop` keys dropped →
+    (out, lse)."""
+    b, l, h, _ = q.shape
+    n = l - drop
+    chunk = max(1, min(h, (1 << 29) // (b * l * n)))
+    outs, lses = [], []
+    for i in range(0, h, chunk):
+        o, s = fa.flash_attention_reference(q[:, :, i:i + chunk].float(), k[:, :n, i:i + chunk].float(),
+                                            v[:, :n, i:i + chunk].float())
+        outs.append(o)
+        lses.append(s.reshape(b, -1, l))
+    return torch.cat(outs, 2), torch.cat(lses, 1).reshape(b * h, l)
+
+
+# (B, L, H) at head dim 128: Flux's L 1280 (512²) and 16640 (2048²) with 24
+# heads, the tensor-parallel shards (12, 6 heads), the ring's folds (L 8320,
+# 4160), training's L 1536, L 1000 and L 1031 (ragged, several tiles a CTA),
+# and B·H past 65535
+FLUX_SHAPES = [(1, 1280, 24), (1, 16640, 24), (1, 1280, 12), (1, 1280, 6), (1, 8320, 24), (1, 4160, 24),
+               (1, 1536, 24), (1, 1000, 24), (2, 1031, 24), (1, 48, 65600)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h", FLUX_SHAPES)
+def test_cuda_persistent_kernel_at_flux_shapes(b, l, h):
+    """The persistent bf16 kernel at head dim 128 without RoPE, as the flow
+    calls it after the pre-pass, against the plain version run in f32 on
+    the same bf16 inputs: out within rel-L2 1e-2 and atol 2e-2, lse within
+    2e-2; the plain version with the last 64 keys (16 at L 48) dropped must
+    fail the rel-L2 bound. Just before the call, NaN tensors the size of out
+    and lse are made and freed, so the wrapper's outputs take their memory:
+    a row or an lse entry the kernel skipped would stay NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn((b, l, h, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    nan_out = torch.full_like(q, float("nan"))
+    nan_lse = torch.full((b * h, l), float("nan"), device=dev)
+    del nan_out, nan_lse
+    before = (fa.launches, fa.rope_launches)
+    out, lse = fa.flash_attention_sm90(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.rope_launches) == (before[0] + 1, before[1])
+    assert not out.isnan().any() and not lse.isnan().any()
+    ref, ref_lse = _plain_in_chunks(q, k, v)
+    assert (out.float() - ref).abs().max().item() < 2e-2
+    assert (lse - ref_lse).abs().max().item() < 2e-2
+    assert (out.float() - ref).norm() / ref.norm() <= 1e-2
+    dropped, _ = _plain_in_chunks(q, k, v, drop=16 if l < 128 else 64)
+    assert (dropped - ref).norm() / ref.norm() > 1e-2
