@@ -47,7 +47,10 @@ Phases, each of which fails the run on error:
                       (L 6400 at 640², 16384 at 1024²), the plain version a
                       head at a time. Beside each: the geometry the launch
                       picks (d64_geometry: 2 or 3 consumer warpgroups), its
-                      blocks and rounds, and the exp floor.
+                      tiles and rounds, at three warpgroups the last round's
+                      tiles split over keys and their parts (d64_split),
+                      checked against the kernel's own merge count
+                      (d64_merges), and the exp floor.
   4. kernels-music  — the LSTM (C) and the fused decode step (D) against their
                       plain versions at MusicGen-medium shapes, with times:
                       C at a 500-step and a 2500-step request's length (T 497,
@@ -2904,16 +2907,34 @@ def phase_small_musicgen():
 
 def _d64_geometry(fa, b: int, length: int, h: int) -> dict:
     """Kernel A's launch at head dim 64 on this card: the consumer
-    warpgroups that `d64_geometry` picks, its blocks (units: row blocks of
-    64 rows a warpgroup), the rounds they take (units over the SMs, one
-    block an SM) and the exp floor (B·H·L² exponentials at PEAK_EXP_S)."""
+    warpgroups that `d64_geometry` picks, its tiles (64 rows a warpgroup),
+    the rounds they take over the SMs (one CTA an SM), at three warpgroups
+    `d64_split`'s CTAs and tail CTAs with the last round's tiles that are
+    split over keys and their parts, and the exp floor (B·H·L² exponentials
+    at PEAK_EXP_S)."""
     import torch
 
     sms = torch.cuda.get_device_properties(torch.device("cuda")).multi_processor_count
     w = fa.d64_geometry(b * h, length, sms)
     units = b * h * -(-length // (64 * w))
-    return dict(warpgroups=w, units=units, rounds=units / sms,
-                exp_floor_ms=b * h * length * length / PEAK_EXP_S * 1e3)
+    ctas, tail, parts = min(units, sms), 0, []
+    if w == 3:
+        ctas, tail, _ = fa.d64_split(b * h, length, sms)
+        parts = [p for p in fa.d64_tail(b * h, length, ctas, tail) if p > 1]
+    return dict(warpgroups=w, units=units, rounds=units / sms, ctas=ctas, tail_ctas=tail, split_tiles=len(parts),
+                parts=sorted(set(parts)), exp_floor_ms=b * h * length * length / PEAK_EXP_S * 1e3)
+
+
+def _d64_split_note(geo: dict, merges: int) -> str:
+    """The split of A's last round at one call, as the plan gives it and as
+    the kernel's own merge count shows it; raises when the two disagree."""
+    if merges != 3 * geo["split_tiles"]:
+        raise AssertionError(f"flash at head dim 64: {merges} merges on the card, the plan splits "
+                             f"{geo['split_tiles']} tiles (3 merges each)")
+    if not geo["split_tiles"]:
+        return f"{geo['ctas']} CTAs, no tile split"
+    return (f"{geo['ctas']} CTAs, last round over {geo['tail_ctas']}: {geo['split_tiles']} tiles split into "
+            f"{'/'.join(map(str, geo['parts']))} parts, split path ran ({merges} merges on the card)")
 
 
 def phase_kernels_sd():
@@ -2931,7 +2952,10 @@ def phase_kernels_sd():
     rows = []
     for label, b, length, h, per_request in SD_ATTN_SHAPES:
         q, k, v = (torch.randn((b, length, h, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        merges = fa.d64_merges(dev)
         out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        geo = _d64_geometry(fa, b, length, h)
+        split_note = _d64_split_note(geo, fa.d64_merges(dev) - merges)
         ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float())
         out_abs, lse_err = (out.float() - ref).abs().max().item(), (lse - ref_lse).abs().max().item()
         rel = _rel(out.float(), ref)
@@ -2949,7 +2973,6 @@ def phase_kernels_sd():
         flops = 4 * b * h * length * length * 64
         # q, k, v and out in bf16, lse in f32
         bound = bound_ms(flops, 4 * q.numel() * 2 + b * h * length * 4)
-        geo = _d64_geometry(fa, b, length, h)
         row = dict(case=label, b=b, l=length, h=h, max_abs_err=err, out_rel_l2=rel, out_max_abs_err=out_abs,
                    lse_max_abs_err=lse_err, control_last_64_keys_dropped_out_rel_l2=control_rel, ms=ms,
                    route_ms=route_ms, plain_ms=plain_ms, library_ms=library_ms, turns_ms=turns, bound_ms=bound[0],
@@ -2959,8 +2982,8 @@ def phase_kernels_sd():
         log(f"[kernels-sd] flash {label} (B {b}, L {length}, H {h}, D 64): out rel-L2 {rel:.3e} (tol {tol_out}), "
             f"max|Δ| {out_abs:.3e} of max|out| {out.float().abs().max().item():.3e} | lse max|Δ| {lse_err:.3e} "
             f"(tol {tol_lse}) | control, last 64 keys dropped: out rel-L2 {control_rel:.3e} (must exceed "
-            f"{tol_out}) | {geo['warpgroups']} consumer warpgroups: {geo['units']} blocks, "
-            f"{geo['rounds']:.2f} rounds | kernel "
+            f"{tol_out}) | {geo['warpgroups']} consumer warpgroups: {geo['units']} tiles, "
+            f"{geo['rounds']:.2f} rounds, {split_note} | kernel "
             f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of the bound "
             f"{bound[0]:.4f} ms, {bound[1]}; exp floor {geo['exp_floor_ms']:.4f} ms) | route {route_ms:.4f} ms | "
             f"plain {plain_ms:.4f} ms | in turns: "
@@ -3281,7 +3304,10 @@ def phase_kernels_sd_long():
     rows = []
     for label, b, length, h, per_request in SD_ATTN_LONG_SHAPES:
         q, k, v = (torch.randn((b, length, h, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        merges = fa.d64_merges(dev)
         out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        geo = _d64_geometry(fa, b, length, h)
+        split_note = _d64_split_note(geo, fa.d64_merges(dev) - merges)
         ref, ref_lse = _plain_by_heads(plain, q, k, v, None, None, chunk=1)
         rel, out_abs = _rel(out.float(), ref), (out.float() - ref).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
@@ -3297,7 +3323,6 @@ def phase_kernels_sd_long():
         library_ms = statistics.mean(turns["sdpa"])
         flops = 4 * b * h * length * length * 64
         bound = bound_ms(flops, 4 * q.numel() * 2 + b * h * length * 4)
-        geo = _d64_geometry(fa, b, length, h)
         row = dict(case=label, b=b, l=length, h=h, max_abs_err=max(out_abs, lse_err), out_rel_l2=rel,
                    out_max_abs_err=out_abs, lse_max_abs_err=lse_err,
                    control_last_64_keys_dropped_out_rel_l2=control_rel, ms=ms, route_ms=route_ms, plain_ms=plain_ms,
@@ -3307,8 +3332,7 @@ def phase_kernels_sd_long():
         log(f"[kernels-sd] flash {label} (B {b}, L {length}, H {h}, D 64): out rel-L2 {rel:.3e} (tol {tol_out}) | "
             f"lse max|Δ| {lse_err:.3e} (tol {tol_lse}) | control, last 64 keys dropped: out rel-L2 "
             f"{control_rel:.3e} (must exceed {tol_out}) | {geo['warpgroups']} consumer warpgroups: "
-            f"{geo['units']} blocks, "
-            f"{geo['rounds']:.2f} rounds | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+            f"{geo['units']} tiles, {geo['rounds']:.2f} rounds, {split_note} | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
             f"{100 * row['bound_share']:.1f}% of the bound {bound[0]:.4f} ms, {bound[1]}; exp floor "
             f"{geo['exp_floor_ms']:.4f} ms) | route {route_ms:.4f} ms | "
             f"plain (a head at a time) {plain_ms:.3f} ms | in turns: route "

@@ -70,7 +70,8 @@
 // merge of ~2.2 key tiles) at most 10% at L 1536 and 1000, 25% at 6 heads of
 // L 1280, none at the 512² and 2048² request shapes (PERF.md). Head dim 64 has
 // a three-warpgroup kernel of its own for heads of many key tiles
-// (flash_fwd_d64_kernel, below). The mbarrier, TMA, wgmma and tensor-map
+// (flash_fwd_d64_kernel, below: persistent too, its last part-empty round
+// split over keys). The mbarrier, TMA, wgmma and tensor-map
 // helpers are in sm90_common.cuh, shared with kernels E and F
 // (flash_attention_bwd.cu).
 
@@ -486,57 +487,122 @@ cudaError_t info(int* regs, int* spill_bytes, int* smem_bytes, int* blocks_per_s
 // kernel of its own where a head has many key tiles. At D 64 a warpgroup's
 // 128-key tile is 512 cycles of tensor-core work (S = Q·K^T and P·V, 2 MFLOP),
 // but its softmax is a long dependent chain on one warp a quarter of the SM:
-// in two consumer warpgroups taking turns (the design above, before it was
-// persistent) a tile took ~2,300 cycles, ~1,100 of them the softmax, and the
-// tensor cores were busy 45% of the time (clock64 stamps on an H100). The
-// design:
-// - Three consumer warpgroups (192 query rows a block, FlashAttention-3's
-//   tile at head dim 64) and no turns: each warpgroup issues S_j and
+// in two consumer warpgroups taking turns a tile took ~2,300 cycles, ~1,100 of
+// them the softmax, and the tensor cores were busy 45% of the time (clock64
+// stamps on an H100). The design:
+// - Three consumer warpgroups (192 query rows a tile, FlashAttention-3's tile
+//   at head dim 64) and no turns: each warpgroup issues S_j and
 //   P_{j−1}·V_{j−1} together, runs S_j's softmax while P_{j−1}·V_{j−1} is in
 //   flight, and the three run apart, so one's softmax also overlaps the
-//   others' products (3 tiles in ~3,100 cycles: 50% busy). 128·24 + 384·160 =
-//   64,512 of the SM's 65,536 registers (setmaxnreg 24 and 160): S (64), P
-//   (32) and O (32) a thread are live through the softmax, which keeps two
-//   running maxima and sums a row, not trees, to stay inside 160, and takes
-//   exp2 as `ex2.approx.ftz` (the library's exp2f adds a range test and two
-//   multiplies for subnormal results, which P, rounded to bf16 against a row
-//   maximum of 1, does not need); P is packed a pair a cvt.rn.bf16x2.f32
-//   (pack_frag). Fewer, larger blocks also fill the card's rounds better at
-//   the SD shapes.
-// - A block of three warpgroups costs about 3.3 key tiles beyond its own
-//   (prologue and epilogue; a tile of the persistent two-warpgroup kernel
-//   about 1) and more in the first round, so where a head has few key tiles
-//   or its tiles fill whole rounds the wrapper's `d64_geometry` launches
-//   flash_fwd_sm90_kernel<64> (above) instead. Q and K_0 are
-//   requested as soon as the barriers exist, before the block's first
-//   __syncthreads.
-// - O is divided by its row sum as the reciprocal's product with one FMA
-//   correction (`div_by`), not by 64 IEEE divisions a thread.
-// - The grid is (row blocks, B·H), the row blocks of a head adjacent so that
-//   they share its K and V in L2, with B·H past 65,535 continued in its third
-//   dimension, so B·H is not capped; no integer division stands before a
-//   block's first load (a one-dimensional grid's decode cost 0.1-0.2 µs a
-//   launch at L 256).
-// Shared memory: Q (24 KB) and a K/V ring of 2 stages of 128 keys (64 KB);
-// one block an SM (registers).
+//   others' products. 128·32 + 384·160 = 65,536 registers, the SM's
+//   (setmaxnreg 32 and 160): S (64), P (32) and O (32) a thread are live
+//   through the softmax, which keeps two running maxima and sums a row, not
+//   trees, to stay inside 160, and takes exp2 as `ex2.approx.ftz`; P is
+//   packed a pair a cvt.rn.bf16x2.f32 (pack_frag).
+// - Persistent, as flash_fwd_sm90_kernel<D> above: one CTA an SM over a
+//   static schedule (D64Schedule), two Q buffers, so the producer requests
+//   the next tile's Q and first K while the current tile runs, the K/V rings'
+//   stages and phases carried from tile to tile, O divided by the row sum as
+//   the reciprocal's product with one FMA correction (`div_by`), staged in
+//   the warpgroup's rows of the tile's own Q buffer and stored by TMA, lse
+//   stored from registers. The producer and the consumers each walk the
+//   schedule from the launch's parameters: values the compiler can see are
+//   the same across a warp, so the key loop's indices stay in uniform
+//   registers (read from shared memory instead, they took vector registers,
+//   a reconvergence point around each barrier wait and a warp sync before
+//   each wgmma: 9% more cycles a key tile on an H100, PERF.md).
+// - The last round split over keys. Where the tiles do not fill whole
+//   rounds of the SMs, the last, part-empty round's tiles are cut into equal
+//   ranges of key tiles over `tail_ctas` CTAs (stream-K over the tail: a
+//   range covers at most two tiles), so every CTA runs about as many key
+//   tiles. A part of a tile writes its unnormalised f32 O, its running max m
+//   and its share of the row sum l (each consumer thread's registers, 36
+//   values, the 384 threads' value i together) to `part`, takes a ticket of
+//   its (tile, warpgroup) (atomicAdd), and the part that takes the last
+//   ticket folds the tile's parts in part order (max of m, then O and l each
+//   scaled by exp2((m_p − m)·scale·log2 e)), so the bits do not depend on
+//   which part finishes last, then stores O and lse as a whole tile does.
+//   Nothing waits for another CTA, so nothing depends on the CTAs being
+//   resident together. The last part resets its ticket to 0, so the tickets
+//   (the wrapper keeps one zeroed array a stream) are 0 at every launch, and
+//   counts the tile in tickets[0] (the wrapper reads it back for tests). The
+//   wrapper's `d64_split` picks tail_ctas from a cost model; tail_ctas =
+//   the round's tile count runs its tiles whole.
+// - Bound: at D 64 the products (4·L²·D·H operations at 989 TFLOP/s) and
+//   the L²·H exponentials (at 3.9 T/s on the special-function units) take
+//   about the same time: 0.3474 and 0.3441 ms at SD 2.1's 1024² level
+//   without CFG (B 1, L 16384, 5 heads).
+// Shared memory: Q twice (48 KB), a K/V ring of 2 stages of 128 keys (64
+// KB); one CTA an SM (registers).
 struct D64 {
   static constexpr int D = 64;
-  static constexpr int BM = 192;  // query rows a block: three consumer warpgroups of 64
+  static constexpr int BM = 192;  // query rows a tile: three consumer warpgroups of 64
   static constexpr int THREADS = 512;
   static constexpr int CONSUMERS = 384;
-  static constexpr int STAGES = 2;  // 3 measured slower (PERF.md)
+  static constexpr int STAGES = 2;  // 3 measured no faster (PERF.md)
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int TILE_BYTES = BN * D * 2;  // one K or V tile: 16 KB
-  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
-  // + the 9 barriers, + slack to align the base to the 1024 bytes of a 128-byte swizzle atom
-  static constexpr int ALLOC = BAR_OFF + 128 + 1024;
-  static constexpr int PRODUCER_REGS = 24;
+  // Q full, Q empty [2]; K full, V full, K empty, V empty [STAGES]
+  static constexpr int BARS = 4 + 4 * STAGES;
+  static constexpr int FLAG_OFF = BAR_OFF + BARS * 8;  // each consumer warpgroup's "last part" flag
+  // + slack to align the base to the 1024 bytes of a 128-byte swizzle atom
+  static constexpr int ALLOC = FLAG_OFF + 16 + 1024;
+  static constexpr int PRODUCER_REGS = 32;
   static constexpr int CONSUMER_REGS = 160;
   // setmaxnreg moves registers inside the block's allocation (see REG_POOL)
   static constexpr int REG_POOL = 128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS;
   static_assert(REG_POOL <= 65536, "the register split must fit the SM");
+  // a part's f32 values, float4 a thread: 8 of O and {m0, m1, l0, l1}, each for the 384 consumer threads
+  static constexpr int PART_VEC4 = 9;
+};
+
+// The static schedule of a launch of G = gridDim.x CTAs over `tiles` tiles of
+// n key tiles each (tile i: row block i % ⌈L/192⌉ of (batch, head)
+// i / ⌈L/192⌉, so a head's row blocks are adjacent and share its K and V in
+// L2). CTA c takes whole tiles c, c + G, …, c + (full − 1)·G (full = tiles /
+// G), then its share of the last round's rem = tiles − full·G tiles: their
+// rem·n key tiles in order cut into tail_ctas ranges [c·T/tail_ctas, (c +
+// 1)·T/tail_ctas), T = rem·n, range c for CTA c < tail_ctas. rem ≤ tail_ctas
+// ≤ min(G, T), so a range holds 1 to n key tiles and covers at most two
+// tiles: a CTA has at most full + 2 items. tail_ctas = rem gives each of the
+// round's tiles whole to one CTA. The launch keeps tail_ctas·T under 2^31,
+// so the arithmetic is 32-bit (a 64-bit division is a call, and a stack
+// frame in the consumers).
+struct D64Schedule {
+  unsigned n, full, base, tail_ctas, T;
+  __device__ D64Schedule(int tiles, int L, int tail) {
+    n = (L + BN - 1) / BN;
+    full = static_cast<unsigned>(tiles) / gridDim.x;
+    base = full * gridDim.x;
+    tail_ctas = tail;
+    T = (tiles - base) * n;
+  }
+  // the first key tile (in the tail's order) of CTA c's range
+  __device__ unsigned start(unsigned c) const { return c * T / tail_ctas; }
+  // the CTA whose range holds key tile x of the tail
+  __device__ unsigned cta_of(unsigned x) const { return ((x + 1) * tail_ctas + T - 1) / T - 1; }
+  // this CTA's item idx: its tile and key tiles [k0, k1); false past its last
+  __device__ bool item(unsigned idx, int& tile, int& k0, int& k1) const {
+    const unsigned c = blockIdx.x;
+    if (idx < full) {
+      tile = c + idx * gridDim.x;
+      k0 = 0;
+      k1 = n;
+      return true;
+    }
+    if (c >= tail_ctas || idx > full + 1) return false;
+    const unsigned s = start(c), e = start(c + 1);
+    const unsigned t = s / n + (idx - full);  // the item's tile among the tail's
+    const unsigned x = idx == full ? s : t * n;
+    if (x >= e) return false;
+    tile = base + t;
+    k0 = x - t * n;
+    k1 = e - t * n < n ? e - t * n : n;
+    return true;
+  }
 };
 
 // softmax_tile for three warpgroups' registers (a 64 × 128 tile: 64 logits a
@@ -595,34 +661,44 @@ __device__ __forceinline__ void softmax_d64(float (&sc)[64], int k0, int L, int 
 
 __global__ void __launch_bounds__(D64::THREADS, 1)
 flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse, int L,
-                     int H, int BH, float scale) {
+                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                     float* __restrict__ lse, float* __restrict__ part, int* __restrict__ tickets, int L, int H,
+                     int row_blocks, int tiles, int tail_ctas, float scale) {
   using C = D64;
-  constexpr int D = C::D;
   constexpr int STAGES = C::STAGES;
   constexpr int TILE_BYTES = C::TILE_BYTES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base;
+  const uint32_t sQ = base;  // two buffers of Q_BYTES
   const uint32_t sK = base + C::K_OFF;
   const uint32_t sV = base + C::V_OFF;
-  const uint32_t bar_q = base + C::BAR_OFF;
-  auto full_k = [&](int s) { return bar_q + 8u * (1 + s); };
-  auto full_v = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
-  auto empty_k = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
-  auto empty_v = [&](int s) { return bar_q + 8u * (1 + 3 * STAGES + s); };
-
-  // row block x of (batch, head) y + 65535·z
-  const int bh = blockIdx.z * 65535 + blockIdx.y;
-  if (bh >= BH) return;  // the last z-slice past B·H
-  const int q0 = blockIdx.x * C::BM;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int n = (L + BN - 1) / BN;  // key tiles
+  const uint32_t bars = base + C::BAR_OFF;
+  auto full_q = [&](int qb) { return bars + 8u * qb; };
+  auto empty_q = [&](int qb) { return bars + 8u * (2 + qb); };
+  auto full_k = [&](int s) { return bars + 8u * (4 + s); };
+  auto full_v = [&](int s) { return bars + 8u * (4 + STAGES + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (4 + 2 * STAGES + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (4 + 3 * STAGES + s); };
   const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x == 0) {  // the barriers, then Q and K_0 at once
-    mbar_init(bar_q, 1);
+  // The producer's copies of one item: Q into buffer qb, then K_{k0} into
+  // ring stage g % STAGES (free).
+  auto load_q_k0 = [&](int qb, int tile, int k0, int g) {
+    const int bh = tile / row_blocks;
+    const int q0 = (tile - bh * row_blocks) * C::BM;
+    const int b = bh / H;
+    const int h = bh - b * H;
+    mbar_expect_tx(full_q(qb), C::Q_BYTES);
+    tma_load_4d(sQ + qb * C::Q_BYTES, &tm_q, full_q(qb), 0, h, q0, b);
+    mbar_expect_tx(full_k(g % STAGES), TILE_BYTES);
+    tma_load_4d(sK + (g % STAGES) * TILE_BYTES, &tm_k, full_k(g % STAGES), 0, h, k0 * BN, b);
+  };
+
+  if (threadIdx.x == 0) {  // the barriers, then the first item's Q and K at once
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(full_q(qb), 1);
+      mbar_init(empty_q(qb), 3);  // one thread of each consumer warpgroup
+    }
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
@@ -630,62 +706,74 @@ flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
       mbar_init(empty_v(s), C::CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(bar_q, C::Q_BYTES);
-    tma_load_4d(sQ, &tm_q, bar_q, 0, h, q0, b);
-    mbar_expect_tx(full_k(0), TILE_BYTES);
-    tma_load_4d(sK, &tm_k, full_k(0), 0, h, 0, b);
+    const D64Schedule sch(tiles, L, tail_ctas);
+    int tile, k0, k1;
+    if (sch.item(0, tile, k0, k1)) load_q_k0(0, tile, k0, 0);
   }
   __syncthreads();
 
-  if (wg == 0) {  // producer: K_{j+1} before V_j, the order the consumers take them
+  // K/V tile g of this CTA's run (all its items' key tiles in order) sits in
+  // ring stage g % STAGES; item i of the CTA uses Q buffer i & 1.
+  if (wg == 0) {  // producer: per item Q and K_{k0}, then K_{j+1} before V_j, the order the consumers take them
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS));
     if (threadIdx.x == 0) {
-      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty, int it) {
-        const int s = it % STAGES;
-        mbar_wait(empty, ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full, TILE_BYTES);
-        tma_load_4d(ring + s * TILE_BYTES, map, full, 0, h, it * BN, b);
-      };
-      for (int it = 0; it < n; ++it) {
-        if (it + 1 < n) {
-          const int s = (it + 1) % STAGES;
-          load(&tm_k, sK, full_k(s), empty_k(s), it + 1);
+      const D64Schedule sch(tiles, L, tail_ctas);
+      int g = 0;  // K/V tiles requested so far
+      int tile, k0, k1;
+      for (int i = 0; sch.item(i, tile, k0, k1); ++i) {
+        const int bh = tile / row_blocks;
+        const int b = bh / H;
+        const int h = bh - b * H;
+        auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty, int gi, int j) {
+          mbar_wait(empty, ((gi / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full, TILE_BYTES);
+          tma_load_4d(ring + (gi % STAGES) * TILE_BYTES, map, full, 0, h, j * BN, b);
+        };
+        if (i > 0) {  // item 0's Q and K_{k0} went out before the block's first __syncthreads
+          const int qb = i & 1;
+          mbar_wait(empty_q(qb), ((i >> 1) & 1) ^ 1);  // item i − 2's O has left the buffer
+          mbar_wait(empty_k(g % STAGES), ((g / STAGES) & 1) ^ 1);
+          load_q_k0(qb, tile, k0, g);
         }
-        load(&tm_v, sV, full_v(it % STAGES), empty_v(it % STAGES), it);
+        for (int j = k0; j < k1; ++j) {
+          if (j + 1 < k1) load(&tm_k, sK, full_k((g + 1) % STAGES), empty_k((g + 1) % STAGES), g + 1, j + 1);
+          load(&tm_v, sV, full_v(g % STAGES), empty_v(g % STAGES), g, j);
+          ++g;
+        }
       }
     }
     return;
   }
 
-  // consumers: warpgroup cw owns query rows [cw·64, cw·64 + 64) of the block
+  // consumers: warpgroup cw owns query rows [cw·64, cw·64 + 64) of each tile
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS));
   const int cw = wg - 1;
-  const int warp = (threadIdx.x / 32) % 4;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
+  const int ctid = threadIdx.x - 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g8 = lane >> 2;
   const int t = lane & 3;
-
-  float acc[D / 2];  // O: column group c holds acc[4c..4c+3] (rows g, g + 8; columns 8c + 2t, + 1)
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8 (unscaled logits)
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of their running sums
-  float alpha0, alpha1;
+  const int wg_bar = 1 + cw;  // this warpgroup's own named barrier
   const float sl2 = scale * LOG2E;
-  const uint32_t q_rows = sQ + cw * 64 * ROW_BYTES;
 
-  // S = Q·K_j^T: 4 k16 steps, 32 bytes along a swizzled 128-byte row each
-  auto issue_s = [&](float (&sc)[BN / 2], int it) {
-    const uint32_t k_tile = sK + (it % STAGES) * TILE_BYTES;
+  float acc[C::D / 2];  // O: column group c holds acc[4c..4c+3] (rows g8, g8 + 8; columns 8c + 2t, + 1)
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];
+  uint32_t q_rows;
+
+  // S = Q·K_g^T: 4 k16 steps, 32 bytes along a swizzled 128-byte row each
+  auto issue_s = [&](int gi) {
+    const uint32_t k_tile = sK + (gi % STAGES) * TILE_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < C::D / 16; ++kk) {
       wgmma_ss_n128(sc, desc_sw128(q_rows + kk * 32, 16, 1024), desc_sw128(k_tile + kk * 32, 16, 1024), kk > 0);
     }
     wgmma_commit();
   };
-  // O += P·V_j: 16 keys a k16 step = two 8-row groups (SBO)
-  auto issue_pv = [&](const uint32_t (&pa)[BN / 16][4], int it) {
-    const uint32_t v_tile = sV + (it % STAGES) * TILE_BYTES;
+  // O += P·V_g: 16 keys a k16 step = two 8-row groups (SBO)
+  auto issue_pv = [&](int gi) {
+    const uint32_t v_tile = sV + (gi % STAGES) * TILE_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       wgmma_rs(acc, pa[kk], desc_sw128(v_tile + kk * 16 * ROW_BYTES, BN * ROW_BYTES, 1024));
@@ -697,75 +785,169 @@ flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   // softmax while P_{j−1}·V_{j−1} is in flight, then rescales O; the three
   // warpgroups run apart, so one's softmax also overlaps the others'
   // products.
-  float sc[BN / 2];
-  uint32_t pa[BN / 16][4];
-  mbar_wait(bar_q, 0);
-  mbar_wait(full_k(0), 0);
-  wgmma_fence();
-  issue_s(sc, 0);
-  wgmma_wait0();
-  fence_regs(sc);
-  mbar_arrive(empty_k(0));
-  softmax_d64(sc, 0, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
-  pack_frag(sc, pa);
-  for (int it = 1; it < n; ++it) {
-    mbar_wait(full_k(it % STAGES), (it / STAGES) & 1);
-    mbar_wait(full_v((it - 1) % STAGES), ((it - 1) / STAGES) & 1);
+  const D64Schedule sch(tiles, L, tail_ctas);
+  int g = 0;  // K/V tiles consumed so far
+  int tile, k0, k1;
+  for (int i = 0; sch.item(i, tile, k0, k1); ++i) {
+    const int qb = i & 1;
+    const int cnt = k1 - k0;
+    mbar_wait(full_q(qb), (i >> 1) & 1);
+    q_rows = sQ + qb * C::Q_BYTES + cw * 64 * ROW_BYTES;
+#pragma unroll
+    for (int x = 0; x < C::D / 2; ++x) acc[x] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g8 and g8 + 8 (unscaled logits)
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of their running sums
+    float alpha0, alpha1;
+
+    mbar_wait(full_k(g % STAGES), (g / STAGES) & 1);
+    wgmma_fence();
+    issue_s(g);
+    wgmma_wait0();
+    fence_regs(sc);
+    mbar_arrive(empty_k(g % STAGES));
+    softmax_d64(sc, k0 * BN, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
+    pack_frag(sc, pa);
+    // the previous item's O, staged in the other Q buffer, has been read out
+    if (i > 0 && tid == 0) {
+      bulk_wait_read<0>();
+      mbar_arrive(empty_q(qb ^ 1));
+    }
+    for (int it = 1; it < cnt; ++it) {
+      const int gk = g + it, gv = g + it - 1;
+      mbar_wait(full_k(gk % STAGES), (gk / STAGES) & 1);
+      mbar_wait(full_v(gv % STAGES), (gv / STAGES) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_s(gk);
+      issue_pv(gv);
+      wgmma_wait1();  // S_j
+      fence_regs(sc);
+      mbar_arrive(empty_k(gk % STAGES));
+      softmax_d64(sc, (k0 + it) * BN, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
+      wgmma_wait0();  // P_{j−1}·V_{j−1}
+      fence_regs(acc);
+      fence_regs(sc);  // P_j's fragments only once P_{j−1}'s are read
+      mbar_arrive(empty_v(gv % STAGES));
+#pragma unroll
+      for (int x = 0; x < C::D / 2; ++x) acc[x] *= (x & 2) ? alpha1 : alpha0;
+      pack_frag(sc, pa);
+    }
+    const int gl = g + cnt - 1;
+    mbar_wait(full_v(gl % STAGES), (gl / STAGES) & 1);
     fence_regs(acc);
     wgmma_fence();
-    issue_s(sc, it);
-    issue_pv(pa, it - 1);
-    wgmma_wait1();  // S_j
-    fence_regs(sc);
-    mbar_arrive(empty_k(it % STAGES));
-    softmax_d64(sc, it * BN, L, t, sl2, m0, m1, l0, l1, alpha0, alpha1);
-    wgmma_wait0();  // P_{j−1}·V_{j−1}
+    issue_pv(gl);
+    wgmma_wait0();
     fence_regs(acc);
-    fence_regs(sc);  // P_j's fragments only once P_{j−1}'s are read
-    mbar_arrive(empty_v((it - 1) % STAGES));
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
-    pack_frag(sc, pa);
-  }
-  const int last = n - 1;
-  mbar_wait(full_v(last % STAGES), (last / STAGES) & 1);
-  fence_regs(acc);
-  wgmma_fence();
-  issue_pv(pa, last);
-  wgmma_wait0();
-  fence_regs(acc);
-  mbar_arrive(empty_v(last % STAGES));
+    mbar_arrive(empty_v(gl % STAGES));
+    g += cnt;
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if (k0 != 0 || k1 != sch.n) {
+      // A part of a tile: its partial values out, then its ticket; the last
+      // part folds the tile's parts in part order.
+      const unsigned tt = tile - sch.base;  // the tile among the tail's
+      const int cf = sch.cta_of(tt * sch.n), cl = sch.cta_of(tt * sch.n + sch.n - 1);
+      auto slot = [&](int c) {  // CTA c's part of this tile: its first or its second item of the tail
+        const int s = 2 * c + static_cast<int>(tt - sch.start(c) / sch.n);
+        return reinterpret_cast<float4*>(part) + (static_cast<int64_t>(s) * C::PART_VEC4 * C::CONSUMERS + ctid);
+      };
+      float4* mine = slot(blockIdx.x);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        __stcg(mine + v * C::CONSUMERS, make_float4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2], acc[4 * v + 3]));
+      }
+      __stcg(mine + 8 * C::CONSUMERS, make_float4(m0, m1, l0, l1));
+      asm volatile("bar.sync %0, 128;\n" ::"r"(wg_bar) : "memory");
+      const uint32_t flag = base + C::FLAG_OFF + 4u * cw;
+      if (tid == 0) {
+        int* ticket = tickets + 1 + 3 * tt + cw;
+        __threadfence();  // the warpgroup's values (ordered by the barrier) before its ticket
+        const int last = atomicAdd(ticket, 1) == cl - cf;
+        if (last) {
+          *ticket = 0;  // 0 again for the next launch
+          atomicAdd(tickets, 1);
+          __threadfence();
+        }
+        asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(flag), "r"(last) : "memory");
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(wg_bar) : "memory");
+      int last;
+      asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(last) : "r"(flag) : "memory");
+      // a value the compiler sees is the same across the warp: a branch on the
+      // shared-memory read itself made the whole item loop divergent to it,
+      // and the key loop lost its uniform registers (8-9% slower, PERF.md)
+      if (!__shfl_sync(0xffffffffu, last, 0)) continue;
+      float n0 = -INFINITY, n1 = -INFINITY;
+      for (int c = cf; c <= cl; ++c) {
+        const float4 ml = __ldcg(slot(c) + 8 * C::CONSUMERS);
+        n0 = fmaxf(n0, ml.x);
+        n1 = fmaxf(n1, ml.y);
+      }
+#pragma unroll
+      for (int x = 0; x < C::D / 2; ++x) acc[x] = 0.f;
+      l0 = l1 = 0.f;
+      for (int c = cf; c <= cl; ++c) {
+        const float4* p = slot(c);
+        const float4 ml = __ldcg(p + 8 * C::CONSUMERS);
+        const float a0 = ex2_ftz((ml.x - n0) * sl2), a1 = ex2_ftz((ml.y - n1) * sl2);
+        l0 = fmaf(ml.z, a0, l0);
+        l1 = fmaf(ml.w, a1, l1);
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+          const float4 o = __ldcg(p + v * C::CONSUMERS);
+          acc[4 * v] = fmaf(o.x, a0, acc[4 * v]);
+          acc[4 * v + 1] = fmaf(o.y, a0, acc[4 * v + 1]);
+          acc[4 * v + 2] = fmaf(o.z, a1, acc[4 * v + 2]);
+          acc[4 * v + 3] = fmaf(o.w, a1, acc[4 * v + 3]);
+        }
+      }
+      m0 = n0;
+      m1 = n1;
+    }
 
-  const int r0 = q0 + cw * 64 + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const int64_t row_stride = static_cast<int64_t>(H) * D;
-  bf16* ob = o + (static_cast<int64_t>(b) * L * H + h) * D;
-  const float i0 = 1.f / l0, i1 = 1.f / l1;
-  if (r0 < L) {
+    // Epilogue: O / l into this warpgroup's 64 rows of the Q buffer (its
+    // products are done with them), 128-byte swizzled as TMA reads it, then
+    // one thread stores them with TMA; the store runs on while the next item
+    // starts. lse from registers.
+    const int bh = tile / row_blocks;
+    const int q0 = (tile - bh * row_blocks) * C::BM;
+    const int b = bh / H;
+    const int h = bh - b * H;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    const int rr = warp * 16 + g8;  // this thread's first row in the warpgroup's 64; rr & 7 == g8
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      *reinterpret_cast<uint32_t*>(ob + r0 * row_stride + c * 8 + t * 2) =
-          fgt::pack_bf16x2(div_by(acc[4 * c], l0, i0), div_by(acc[4 * c + 1], l0, i0));
+    for (int c = 0; c < C::D / 8; ++c) {
+      // column group c: 16-byte chunk c of the row, swizzled by the row's place in its 8
+      const uint32_t at = q_rows + rr * ROW_BYTES + ((c ^ g8) << 4) + t * 4;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
+                   "r"(fgt::pack_bf16x2(div_by(acc[4 * c], l0, i0), div_by(acc[4 * c + 1], l0, i0)))
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + 8 * ROW_BYTES),
+                   "r"(fgt::pack_bf16x2(div_by(acc[4 * c + 2], l1, i1), div_by(acc[4 * c + 3], l1, i1)))
+                   : "memory");
     }
-    if (t == 0) lse[static_cast<int64_t>(bh) * L + r0] = m0 * scale + logf(l0);
-  }
-  if (r1 < L) {
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      *reinterpret_cast<uint32_t*>(ob + r1 * row_stride + c * 8 + t * 2) =
-          fgt::pack_bf16x2(div_by(acc[4 * c + 2], l1, i1), div_by(acc[4 * c + 3], l1, i1));
+    fence_proxy_async();  // the generic-proxy writes, before TMA reads them
+    asm volatile("bar.sync %0, 128;\n" ::"r"(wg_bar) : "memory");
+    const int row0 = q0 + cw * 64;
+    if (tid == 0 && row0 < L) {
+      tma_store_4d(&tm_o, q_rows, 0, h, row0, b);
+      bulk_commit();
     }
-    if (t == 0) lse[static_cast<int64_t>(bh) * L + r1] = m1 * scale + logf(l1);
+    const int r0 = row0 + rr;
+    if (t == 0) {
+      if (r0 < L) lse[static_cast<int64_t>(bh) * L + r0] = m0 * scale + logf(l0);
+      if (r0 + 8 < L) lse[static_cast<int64_t>(bh) * L + r0 + 8] = m1 * scale + logf(l1);
+    }
   }
+  if (tid == 0) bulk_wait_all();  // the last store is done before the CTA's shared memory goes
 }
 
-cudaError_t launch_d64(const void* q, const void* k, const void* v, bf16* o, float* lse, int B, int L, int H,
-                       float scale, cudaStream_t stream) {
+cudaError_t launch_d64(const void* q, const void* k, const void* v, bf16* o, float* lse, float* part, int* tickets,
+                       int B, int L, int H, float scale, int ctas, int tail_ctas, cudaStream_t stream) {
   using C = D64;
   static bool regs_checked = false;
   if (!regs_checked) {
@@ -775,17 +957,28 @@ cudaError_t launch_d64(const void* q, const void* k, const void* v, bf16* o, flo
     if (attr.numRegs * C::THREADS < C::REG_POOL) return cudaErrorInvalidConfiguration;
     regs_checked = true;
   }
+  const int row_blocks = (L + C::BM - 1) / C::BM;
+  const int64_t tiles = static_cast<int64_t>(B) * H * row_blocks;
+  if (ctas <= 0 || tiles + ctas > 0x7fffffff) return cudaErrorInvalidValue;  // a CTA's tile index stays an int
+  const int64_t rem = tiles % ctas;
+  const int64_t key_tiles = rem * ((L + BN - 1) / BN);
+  if (rem == 0 ? tail_ctas != 0 : (tail_ctas < rem || tail_ctas > ctas || tail_ctas > key_tiles)) {
+    return cudaErrorInvalidValue;
+  }
+  // a split's schedule in 32 bits (D64Schedule), its parts and tickets given
+  if (tail_ctas > rem && (key_tiles * (tail_ctas + 1) >= 0x7fffffff || part == nullptr || tickets == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const cudaError_t err =
       cudaFuncSetAttribute(flash_fwd_d64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::ALLOC);
   if (err != cudaSuccess) return err;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to;
   if (!encode_map(&tq, q, B, L, H, C::D, C::BM) || !encode_map(&tk, k, B, L, H, C::D, BN) ||
-      !encode_map(&tv, v, B, L, H, C::D, BN)) {
+      !encode_map(&tv, v, B, L, H, C::D, BN) || !encode_map(&to, o, B, L, H, C::D, 64)) {
     return cudaErrorInvalidValue;
   }
-  const int BH = B * H;
-  const dim3 grid((L + C::BM - 1) / C::BM, BH < 65535 ? BH : 65535, (BH + 65534) / 65535);
-  flash_fwd_d64_kernel<<<grid, C::THREADS, C::ALLOC, stream>>>(tq, tk, tv, o, lse, L, H, BH, scale);
+  flash_fwd_d64_kernel<<<ctas, C::THREADS, C::ALLOC, stream>>>(tq, tk, tv, to, lse, part, tickets, L, H, row_blocks,
+                                                               static_cast<int>(tiles), tail_ctas, scale);
   return cudaGetLastError();
 }
 
@@ -820,13 +1013,20 @@ extern "C" int fgt_flash_fwd_sm90(const void* q, const void* k, const void* v, v
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As fgt_flash_fwd_sm90 at head dim 64, in the three-warpgroup kernel
-// (192-row blocks), for any B·H.
-extern "C" int fgt_flash_fwd_d64(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
-                                 int H, float scale, void* stream) {
+// As fgt_flash_fwd_sm90 at head dim 64, in the persistent three-warpgroup
+// kernel (192-row tiles), for any B·H, on `ctas` CTAs (one an SM at most);
+// `tail_ctas` takes the last round's rem = tiles % ctas tiles (0 when rem is
+// 0; rem runs them whole; rem < tail_ctas ≤ min(ctas, rem·⌈L/128⌉) splits
+// them over keys, and then `part` holds 2·tail_ctas·9·4·384 f32 values and
+// `tickets` 1 + 3·rem ints, zero, left zero; tickets[0] counts the split
+// tiles' merges, one a warpgroup).
+extern "C" int fgt_flash_fwd_d64(const void* q, const void* k, const void* v, void* o, void* lse, void* part,
+                                 void* tickets, int B, int L, int H, float scale, int ctas, int tail_ctas,
+                                 void* stream) {
   if (B <= 0 || L <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_d64(q, k, v, static_cast<bf16*>(o), static_cast<float*>(lse), B, L, H, scale,
-                                     static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_d64(q, k, v, static_cast<bf16*>(o), static_cast<float*>(lse),
+                                     static_cast<float*>(part), static_cast<int*>(tickets), B, L, H, scale, ctas,
+                                     tail_ctas, static_cast<cudaStream_t>(stream)));
 }
 
 // The RoPE pre-pass: qr, kr = rope(q), rope(k) over (B, L, H, D) contiguous bf16

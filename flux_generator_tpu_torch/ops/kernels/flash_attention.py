@@ -90,26 +90,34 @@ _INT8_SIGNATURES = {
 }
 _SIGNATURES = {
     "fgt_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
-    "fgt_flash_fwd_d64": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+    "fgt_flash_fwd_d64": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     "fgt_rope_rotate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fgt_flash_fwd_sm90_info": [_I, _I, _P, _P, _P, _P],
 }
-# Head dim 64's two kernels, by consumer warpgroups a block (64 query rows
+# Head dim 64's two kernels, by consumer warpgroups a tile (64 query rows
 # each): 2, flash_fwd_sm90_kernel<64> (persistent, as at head dim 128), and 3,
-# flash_fwd_d64_kernel.
+# flash_fwd_d64_kernel (persistent, its last part-empty round split over
+# keys).
 WARPGROUPS_D64 = (2, 3)
-# d64_geometry's cost model, in the time of one 128-key tile of two
-# warpgroups (1.22 µs on an H100): a key tile of w warpgroups, what a tile
-# costs beyond its key tiles (at 2, a tile boundary of the persistent
-# kernel; at 3, a block's prologue, pipeline fill and epilogue) and what a
-# launch of w warpgroups costs once more. Fitted to A's times in both
-# geometries at the SD shapes and at whole rounds (L 4096 B·H 33, L 16384)
-# on an H100, under the condition that it pick the faster one wherever
-# their times' spreads do not overlap and the earlier pick where they do
-# (PERF.md; scripts/prof_flash_fwd.py --geometries).
-TILE_COST = {2: 1.0, 3: 1.22}
-BLOCK_COST = {2: 0.4, 3: 3.8}
-START_COST = {2: 3.0, 3: 1.5}
+ROWS_D64 = {2: 128, 3: 192}  # query rows a tile
+# d64_geometry's and d64_split's cost model, in the time of one 128-key tile
+# of two warpgroups (1.22 µs on an H100): a key tile of w warpgroups, what a
+# tile costs beyond its key tiles (a tile boundary of the persistent
+# kernel), what a launch of w warpgroups costs once more, and at three
+# warpgroups, for a last round split over keys, what a part of a tile costs
+# beyond its key tiles and a boundary (its partial values written, its
+# ticket) and what the tile's last part pays a part to fold it in. Fitted to
+# A's times in both geometries, split and whole, at the SD shapes and at
+# whole rounds (L 4096 and 1024, B·H 33) on an H100 (within 4.2% at every
+# shape of 512 keys or more), under the condition that it pick the faster
+# one wherever their times' spreads do not overlap and the earlier pick
+# where they do (PERF.md; scripts/prof_flash_fwd.py --geometries).
+TILE_COST = {2: 1.0, 3: 1.28}
+BLOCK_COST = {2: 0.4, 3: 2.0}
+START_COST = {2: 3.0, 3: 4.0}
+SPLIT_COST = 1.0
+MERGE_COST = 0.2
+PART_FLOATS = 9 * 4 * 384  # a split part's f32 values in the workspace: D64::PART_VEC4 float4 a consumer thread
 # the two sources, each built into its own library
 BUILDS = {"flash_attention_sm90": _SIGNATURES, "flash_attention": _INT8_SIGNATURES}
 
@@ -180,6 +188,43 @@ def flash_attention_reference(q, k, v, cos=None, sin=None, scale: Optional[float
         o = torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), v.float()) / denom
     lse = (m + torch.log(denom)).reshape(b * h, l)
     return o.permute(0, 2, 1, 3).to(dt), lse
+
+
+def attention_part_reference(q, k, v, keys: tuple, scale: Optional[float] = None):
+    """Plain version of one part of a tile that the three-warpgroup kernel
+    splits over keys: every query of (B, L, H, D) q attends to keys [k0,
+    k1) = `keys` of its head, unnormalised → (o, m, l): m (B·H, L) the
+    part's row max of the f32 logits (scaled), p = exp(s − m), l (B·H, L)
+    the row sum of p in f32, o (B, L, H, D) f32 the product of p rounded to
+    the working dtype (as P·V takes it) with v. Used by tests, never on the
+    card's path."""
+    b, l, h, d = q.shape
+    k0, k1 = keys
+    if scale is None:
+        scale = d ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k[:, k0:k1].float()) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(q.dtype).float(), v[:, k0:k1].float())
+    return o.permute(0, 2, 1, 3), m.reshape(b * h, l), p.sum(dim=-1).reshape(b * h, l)
+
+
+def merge_parts_reference(parts, dtype=torch.float32):
+    """Plain version of the kernel's merge of a split tile's parts, each
+    (o, m, l) as `attention_part_reference` gives them → (out, lse): m =
+    the parts' max of m, then in part order O = Σ o_p·exp(m_p − m) and l =
+    Σ l_p·exp(m_p − m); out = O / l in `dtype`, lse = m + log l. Used by
+    tests, never on the card's path."""
+    b, l, h, _ = parts[0][0].shape
+    m = torch.stack([pm for _, pm, _ in parts]).amax(dim=0)
+    acc = torch.zeros_like(parts[0][0])
+    denom = torch.zeros_like(m)
+    for o, pm, pl in parts:
+        alpha = torch.exp(pm - m)
+        acc = acc + o * alpha.reshape(b, h, l).permute(0, 2, 1)[..., None]
+        denom = denom + pl * alpha
+    out = acc / denom.reshape(b, h, l).permute(0, 2, 1)[..., None]
+    return out.to(dtype), m + torch.log(denom)
 
 
 def streamed_full_reference(q, k, v, cos=None, sin=None, scale: Optional[float] = None,
@@ -286,27 +331,102 @@ def rope_rotate(q, k, cos, sin):
     return qr, kr
 
 
+def _whole_cost(w: int, bh: int, length: int, sms: int) -> tuple:
+    """(cost, CTAs) of the persistent launch of w warpgroups in whole tiles:
+    its rounds of tiles (⌈tiles / CTAs⌉, one CTA an SM) times a tile's work
+    (⌈L/128⌉ key tiles at TILE_COST[w], plus BLOCK_COST[w]), plus
+    START_COST[w]."""
+    tiles = bh * -(-length // ROWS_D64[w])
+    ctas = min(tiles, sms)
+    rounds = -(-tiles // ctas)
+    return rounds * (-(-length // KEY_TILE) * TILE_COST[w] + BLOCK_COST[w]) + START_COST[w], ctas
+
+
 @functools.lru_cache(maxsize=4096)
-def d64_geometry(bh: int, length: int, sms: int) -> int:
-    """The consumer warpgroups (2 or 3) of the D-64 launch of B·H = `bh`
-    heads at length L on `sms` SMs: the w whose rounds of 64·w-row tiles
-    (⌈bh·⌈L/(64·w)⌉ / sms⌉, one CTA an SM) times a tile's work (⌈L/128⌉
-    key tiles at TILE_COST[w], plus BLOCK_COST[w]), plus START_COST[w], is
-    least, ties to 2. Cached: every UNet self-attention asks."""
-    tiles = -(-length // KEY_TILE)
-    best, best_cost = None, None
-    for w in WARPGROUPS_D64:
-        rounds = -(-bh * -(-length // (64 * w)) // sms)
-        cost = rounds * (tiles * TILE_COST[w] + BLOCK_COST[w]) + START_COST[w]
-        if best_cost is None or cost < best_cost:
-            best, best_cost = w, cost
+def d64_split(bh: int, length: int, sms: int) -> tuple:
+    """The three-warpgroup launch of B·H = `bh` heads at length L on `sms`
+    SMs → (CTAs, tail CTAs, cost). Whole tiles on min(tiles, SMs) CTAs,
+    tail CTAs the last round's tiles (tiles % CTAs, 0 when the rounds are
+    whole); or, where the last round is part-empty and the model prices it
+    lower, `sms` CTAs (as many as the tail's when all tiles fit one round),
+    the last round's rem tiles cut into equal ranges of key tiles over tail
+    CTAs (rem < tail ≤ min(CTAs, rem·⌈L/128⌉), tail·rem·⌈L/128⌉ under 2^31
+    for the kernel's 32-bit schedule): each of those CTAs runs ⌈rem·n /
+    tail⌉ key tiles, two tile boundaries and SPLIT_COST, and the most-split
+    tile's last part folds in its parts at MERGE_COST each. Cached: every
+    UNet self-attention asks."""
+    n = -(-length // KEY_TILE)
+    tiles = bh * -(-length // ROWS_D64[3])
+    cost, ctas = _whole_cost(3, bh, length, sms)
+    best = (ctas, tiles % ctas, cost)
+    full, rem = divmod(tiles, sms)
+    tile = n * TILE_COST[3] + BLOCK_COST[3]
+    for tail in range(rem + 1, min(sms, rem * n) + 1) if rem else ():
+        if (tail + 1) * rem * n >= 2 ** 31 - 1:
+            break
+        per = -(-rem * n // tail)
+        parts = -(-(n - 1) // (rem * n // tail)) + 1
+        cost = (full * tile + per * TILE_COST[3] + 2 * BLOCK_COST[3] + SPLIT_COST + parts * MERGE_COST
+                + START_COST[3])
+        if cost < best[2]:
+            best = (sms if full else tail, tail, cost)
     return best
 
 
-def _sm90_launch(q, k, v, scale: float, warpgroups: Optional[int] = None):
+def d64_tail(bh: int, length: int, ctas: int, tail: int) -> list:
+    """The parts of each of the last round's tiles in a three-warpgroup
+    launch on `ctas` CTAs with `tail` tail CTAs: the round's key tiles cut
+    into `tail` equal ranges, as the kernel cuts them (1 for a tile run
+    whole)."""
+    n = -(-length // KEY_TILE)
+    rem = bh * -(-length // ROWS_D64[3]) % ctas
+    if tail == rem:
+        return [1] * rem
+
+    def cta_of(x):  # the range that holds key tile x of the round
+        return -(-(x + 1) * tail // (rem * n)) - 1
+
+    return [cta_of(t * n + n - 1) - cta_of(t * n) + 1 for t in range(rem)]
+
+
+@functools.lru_cache(maxsize=4096)
+def d64_geometry(bh: int, length: int, sms: int) -> int:
+    """The consumer warpgroups (2 or 3) of the D-64 launch of B·H = `bh`
+    heads at length L on `sms` SMs: the w of least cost, two warpgroups in
+    whole tiles (`_whole_cost`) against three as `d64_split` plans them,
+    ties to 2. Cached: every UNet self-attention asks."""
+    return 3 if d64_split(bh, length, sms)[2] < _whole_cost(2, bh, length, sms)[0] else 2
+
+
+# (device index, stream) → the three-warpgroup kernel's tickets on it: 1 +
+# 3·SMs int32 zeros, which every launch leaves zero (a split tile's last part
+# resets its ticket), so calls on one stream share them and calls on two
+# streams never do; element 0 counts the merges of split tiles.
+_TICKETS: dict = {}
+
+
+def _d64_tickets(device: torch.device, stream: int, sms: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1 + 3 * sms, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def d64_merges(device: Optional[torch.device] = None) -> int:
+    """The split tiles the three-warpgroup kernel has merged on `device` (the
+    current CUDA device by default), three a tile (one a consumer
+    warpgroup), from every stream's tickets: the device's own count that the
+    split path ran. Reads the card (synchronises)."""
+    index = torch.device(device if device is not None else "cuda").index
+    index = torch.cuda.current_device() if index is None else index
+    return sum(int(t[0].item()) for (i, _), t in _TICKETS.items() if i == index)
+
+
+def _sm90_launch(q, k, v, scale: float, warpgroups: Optional[int] = None, split: bool = True):
     """One launch of the bf16 kernel on CUDA tensors → (out, lse), counted
     in `launches`. At D 64 the consumer warpgroups are `d64_geometry`'s
-    unless given."""
+    unless given; three warpgroups split their last round as `d64_split`
+    plans, or run whole tiles with split=False."""
     global launches
     _check_cuda_args(q, k, v, None, None)
     _check_aligned(q, k, v)
@@ -316,16 +436,24 @@ def _sm90_launch(q, k, v, scale: float, warpgroups: Optional[int] = None):
     lse = torch.empty((b * h, l), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        sms = _build.sm_count(q.device.index or 0)  # one CTA an SM, at most one a tile
         if d == 64 and warpgroups is None:
-            warpgroups = d64_geometry(b * h, l, _build.sm_count(q.device.index or 0))
+            warpgroups = d64_geometry(b * h, l, sms)
         if warpgroups not in (None, *WARPGROUPS_D64) or (warpgroups == 3 and d != 64):
             raise ValueError(f"the bf16 kernel takes 2 consumer warpgroups, or 3 at head dim 64, got {warpgroups}")
         if warpgroups == 3:
+            tiles = b * h * -(-l // ROWS_D64[3])
+            ctas, tail, _ = d64_split(b * h, l, sms) if split else (min(tiles, sms), tiles % min(tiles, sms), 0)
+            part = tickets = None
+            if tail > tiles % ctas:  # a split tail: its parts' values and the stream's tickets
+                part = torch.empty(2 * tail * PART_FLOATS, dtype=torch.float32, device=q.device)
+                tickets = _d64_tickets(q.device, stream, sms)
             err = lib.fgt_flash_fwd_d64(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                                        b, l, h, float(scale), stream)
+                                        None if part is None else part.data_ptr(),
+                                        None if tickets is None else tickets.data_ptr(),
+                                        b, l, h, float(scale), ctas, tail, stream)
             _build.check("fgt_flash_fwd_d64", err)
         else:
-            sms = _build.sm_count(q.device.index or 0)  # one CTA an SM, at most one a tile
             err = lib.fgt_flash_fwd_sm90(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                          lse.data_ptr(), b, l, h, d, float(scale), sms, stream)
             _build.check("fgt_flash_fwd_sm90", err)
@@ -357,8 +485,8 @@ def sm90_kernel_info(d: int = 128, warpgroups: Optional[int] = None) -> dict:
     _build.check("fgt_flash_fwd_sm90_info", lib.fgt_flash_fwd_sm90_info(d, warpgroups,
                                                                         *(ctypes.byref(x) for x in vals)))
     info = dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
-    return dict(info, warpgroups=warpgroups + 1, setmaxnreg=(24, 160) if warpgroups == 3 else (40, 232),
-                row_block=64 * warpgroups)
+    return dict(info, warpgroups=warpgroups + 1, setmaxnreg=(32, 160) if warpgroups == 3 else (40, 232),
+                row_block=ROWS_D64[warpgroups])
 
 
 def bf16_forward(q, k, v, cos, sin, scale):

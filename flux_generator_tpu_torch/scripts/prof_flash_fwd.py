@@ -11,23 +11,28 @@ file), so that the same measurement runs on another commit unpacked there
 call on one card. It uses only `flash_attention_sm90`,
 `flash_attention_reference` and `sm90_kernel_info`, which every checkout
 since the kernel's redesign has, and, where the checkout has them, the
-head-dim-64 geometries (`d64_geometry`, `_sm90_launch(..., warpgroups=)`).
+head-dim-64 geometries (`d64_geometry`, `_sm90_launch(..., warpgroups=)`)
+and the three-warpgroup kernel's split of its last round over keys
+(`d64_split`, `d64_tail`, `_sm90_launch(..., split=False)`).
 
 At each shape (`SHAPES`: Flux's L 1280 and 16640 with 24 heads of 128, the
 tensor-parallel head shards of L 1280 (12 and 6 heads), the ring's folds of
 L 16640 over 2 and 4 ranks (L 8320, 4160), Flux-dev's training forward (L
 1536), L 1000; at head dim 64 the SD 2.1 and SDXL request shapes of a 512²
 image, SD 2.1's first level at 640² and 1024² (at 1024² also without CFG),
-and two shapes of whole rounds of 128-row blocks on 132 SMs): out against
+two shapes of whole rounds of 128-row tiles on 132 SMs, and the rest of the
+head-dim-64 shapes whose geometry the CPU tests pin): out against
 the plain version by rel-L2 (bound 1e-2; the plain version a head at a time
-past L 4096), then the kernel and SDPA's forward queued behind a sleep
-kernel in turns (kernel, SDPA, SDPA, kernel, that `--turns` times over; 20
+past L 4096) and its time (CUDA events, the mean of 3 calls), then the
+kernel and SDPA's forward queued behind a sleep kernel in turns (kernel, SDPA, SDPA, kernel, that `--turns` times over; 20
 calls each, 10 past L 4096, 5 past L 8320), and the host's time a call of A
 (200 calls enqueued behind a sleep kernel). With `--geometries` also both geometries the launch can take
-at head dim 64 (2 or 3 consumer warpgroups), in turns. Beside each: the
-geometry (consumer warpgroups, rows a tile, tiles, CTAs launched), the tiles'
-rounds over the SMs, the bound (4·B·H·L²·D operations at 989 TFLOP/s) and
-the exp floor (B·H·L² exponentials at 3.9 T/s).
+at head dim 64 (2 or 3 consumer warpgroups; at 3 also in whole tiles, where
+the checkout splits the last round), in turns. Beside each: the geometry
+(consumer warpgroups, rows a tile, tiles, CTAs launched, tail CTAs and the
+last round's tiles split and their parts), the tiles' rounds over the SMs,
+the bound (4·B·H·L²·D operations at 989 TFLOP/s) and the exp floor (B·H·L²
+exponentials at 3.9 T/s).
 
 With `--requests N`, then N SD 2.1-base 512² requests (50 steps, cfg 4.0,
 full width on seeded random weights in bf16) after a 2-step warm-up,
@@ -61,6 +66,10 @@ SHAPES = {
     "sd21_640_L6400": (2, 6400, 5, 64, 250), "sd21_1024_L16384": (2, 16384, 5, 64, 250),
     "sd21_1024_nocfg_L16384": (1, 16384, 5, 64, 250),
     "whole_L4096_BH33": (1, 4096, 33, 64, 0), "whole_L1024_BH33": (1, 1024, 33, 64, 0),
+    # the rest of tests/test_torch_flash_attention.py's D64_GEOMETRIES
+    "pin_L4096_BH2": (1, 4096, 2, 64, 0), "pin_L300_BH6": (2, 300, 3, 64, 0), "pin_L1000_BH20": (2, 1000, 10, 64, 0),
+    "pin_L4160_BH5": (1, 4160, 5, 64, 0), "pin_L129_BH2": (1, 129, 2, 64, 0), "pin_L1_BH8": (4, 1, 2, 64, 0),
+    "pin_L48_BH65600": (1, 48, 65600, 64, 0),
 }
 PEAK_BF16_FLOPS, PEAK_EXP_S = 989e12, 3.9e12
 REL_TOL = 1e-2
@@ -123,6 +132,20 @@ def _plain(fa, q, k, v):
                                                    v[:, :, i:i + 1].float())[0] for i in range(q.shape[2])], 2)
 
 
+def _plain_ms(fa, q, k, v, calls: int = 3) -> float:
+    """Mean time of `calls` runs of the plain version (after one already run)
+    between CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        _plain(fa, q, k, v)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def _iters(length: int) -> int:
     return 20 if length <= 4096 else 10 if length <= 8320 else 5
 
@@ -131,12 +154,21 @@ def _geometry(fa, b: int, length: int, h: int, d: int, sms: int) -> dict:
     """The launch's consumer warpgroups (the checkout's `d64_geometry` where
     it has one), rows a tile, tiles and CTAs: at two warpgroups the
     persistent kernel's one an SM up to one a tile (a checkout from before
-    that kernel launched one a tile there too), at three one a tile."""
+    that kernel launched one a tile there too), at three `d64_split`'s CTAs
+    and tail CTAs, with the last round's tiles split and their most parts,
+    where the checkout has it (one a tile before)."""
     w = fa.d64_geometry(b * h, length, sms) if d == 64 and hasattr(fa, "d64_geometry") else 2
     rows = 64 * w
     tiles = b * h * math.ceil(length / rows)
-    ctas = min(tiles, sms) if w == 2 else tiles
-    return dict(warpgroups=w, rows_a_tile=rows, tiles=tiles, ctas=ctas, rounds=tiles / sms)
+    ctas, tail, parts = min(tiles, sms), 0, []
+    if w == 3 and hasattr(fa, "d64_split"):
+        ctas, tail, _ = fa.d64_split(b * h, length, sms)
+        parts = fa.d64_tail(b * h, length, ctas, tail)
+    elif w == 3:
+        ctas = tiles
+    split = [p for p in parts if p > 1]
+    return dict(warpgroups=w, rows_a_tile=rows, tiles=tiles, ctas=ctas, rounds=tiles / sms, tail_ctas=tail,
+                split_tiles=len(split), most_parts=max(split, default=1))
 
 
 def measure(fa, names, with_geometries: bool, sms: int, dev, n_turns: int = 1) -> dict:
@@ -153,6 +185,7 @@ def measure(fa, names, with_geometries: bool, sms: int, dev, n_turns: int = 1) -
         rel = ((out.float() - ref).norm() / ref.norm()).item()
         ok &= rel <= REL_TOL
         del ref
+        plain_ms = _plain_ms(fa, q, k, v)
         iters = _iters(length)
         qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         calls = {"A": lambda: fa.flash_attention_sm90(q, k, v),
@@ -160,7 +193,8 @@ def measure(fa, names, with_geometries: bool, sms: int, dev, n_turns: int = 1) -
         turns = _in_turns(calls, iters, n_turns)
         host_us = _host_us(calls["A"])
         geo = _geometry(fa, b, length, h, d, sms)
-        rec = dict(b=b, l=length, h=h, d=d, launches_a_request=per_request, out_rel_l2=rel, turns_ms=turns,
+        rec = dict(b=b, l=length, h=h, d=d, launches_a_request=per_request, out_rel_l2=rel, plain_ms=plain_ms,
+                   turns_ms=turns,
                    host_us=host_us, a_ms=sum(turns["A"]) / len(turns["A"]),
                    sdpa_ms=sum(turns["sdpa"]) / len(turns["sdpa"]), **geo,
                    key_tiles=math.ceil(length / KEY_TILE),
@@ -170,19 +204,25 @@ def measure(fa, names, with_geometries: bool, sms: int, dev, n_turns: int = 1) -
             fns = {}
             for w in fa.WARPGROUPS_D64:
                 fns[f"w{w}"] = (lambda w=w: launch(q, k, v, d ** -0.5, warpgroups=w))
-                o_v, _ = fns[f"w{w}"]()
+            if hasattr(fa, "d64_split") and max(fa.d64_tail(b * h, length, *fa.d64_split(b * h, length, sms)[:2]),
+                                                default=1) > 1:  # three warpgroups split the last round here
+                fns["w3_whole"] = lambda: launch(q, k, v, d ** -0.5, warpgroups=3, split=False)
+            for var, fn in fns.items():
+                o_v, _ = fn()
                 ref = _plain(fa, q, k, v)
                 r = ((o_v.float() - ref).norm() / ref.norm()).item()
                 ok &= r <= REL_TOL
                 del ref, o_v
-                rec.setdefault("variant_rel_l2", {})[f"w{w}"] = r
+                rec.setdefault("variant_rel_l2", {})[var] = r
             rec["variants_in_turns_ms"] = _in_turns(fns, iters)
         rows[name] = rec
         print(f"[prof_flash_fwd] {name} (B {b}, L {length}, H {h}, D {d}): rel-L2 {rel:.3e} | A "
               f"{' '.join(f'{t:.4f}' for t in turns['A'])} ms, SDPA {' '.join(f'{t:.4f}' for t in turns['sdpa'])} "
-              f"ms (A/SDPA {rec['a_ms'] / rec['sdpa_ms']:.3f}), host {host_us:.1f} µs a call | "
+              f"ms (A/SDPA {rec['a_ms'] / rec['sdpa_ms']:.3f}), plain {plain_ms:.3f} ms, host {host_us:.1f} µs a call | "
               f"{geo['warpgroups']} consumer warpgroups, {geo['rows_a_tile']} rows a tile: {geo['tiles']} tiles on "
-              f"{geo['ctas']} CTAs, {geo['rounds']:.2f} rounds | bound {rec['bound_ms']:.4f}, exp floor "
+              f"{geo['ctas']} CTAs, {geo['rounds']:.2f} rounds, {geo['tail_ctas']} tail CTAs, "
+              f"{geo['split_tiles']} tiles split into at most {geo['most_parts']} parts | bound "
+              f"{rec['bound_ms']:.4f}, exp floor "
               f"{rec['exp_floor_ms']:.4f}"
               + (" | geometries " + ", ".join(f"{s} {sum(t) / 2:.4f}" for s, t in rec["variants_in_turns_ms"].items())
                  if "variants_in_turns_ms" in rec else ""), flush=True)

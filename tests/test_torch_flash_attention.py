@@ -57,6 +57,45 @@ def test_plain_version_matches_jax_kernel(case):
     assert lse.shape == (q.shape[0] * q.shape[2], q.shape[1])
 
 
+# (B, L, H) at head dim 64 and key ranges, each a part of every tile, as the
+# three-warpgroup kernel splits its last round over keys: parts of whole
+# 128-key tiles, a ragged last key tile, a part of one key, uneven parts
+SPLITS = {
+    "l256_two_parts": ((1, 256, 3), ((0, 128), (128, 256))),
+    "l300_ragged_last_tile": ((1, 300, 2), ((0, 128), (128, 256), (256, 300))),
+    "l129_part_of_one_key": ((1, 129, 2), ((0, 128), (128, 129))),
+    "b2_l1000_uneven": ((2, 1000, 2), ((0, 384), (384, 896), (896, 1000))),
+    "l640_four_parts": ((1, 640, 2), ((0, 128), (128, 384), (384, 512), (512, 640))),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLITS))
+def test_split_plain_version_matches_jax_kernel(case):
+    """The plain version of the kernel's split over keys (each part's
+    unnormalised O, row max and row sum, then their merge in part order)
+    against the JAX kernel in interpret mode: atol 3e-5 as
+    test_plain_version_matches_jax_kernel (f32 on both sides, differing in
+    summation order and in the maxima the parts' exponentials take), lse
+    within 1e-5 of the plain version's. The control: the merge of the parts
+    without any one of them must miss the out bound."""
+    import jax.numpy as jnp
+
+    from flux_generator_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
+
+    (b, l, h), keys = SPLITS[case]
+    q, k, v, _, _ = _inputs(14, b, l, h, 64, False)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    parts = [fa.attention_part_reference(tq, tk, tv, r) for r in keys]
+    out, lse = fa.merge_parts_reference(parts)
+    np.testing.assert_allclose(out.numpy(), want, atol=3e-5)
+    _, ref_lse = fa.flash_attention_reference(tq, tk, tv)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=1e-5)
+    for drop in range(len(parts)):
+        dropped, _ = fa.merge_parts_reference(parts[:drop] + parts[drop + 1:])
+        assert np.abs(dropped.numpy() - want).max() > 3e-5
+
+
 @pytest.mark.parametrize("rope", [True, False])
 def test_lse_is_logsumexp_of_logits(rope):
     b, l, h, d = 2, 40, 3, 64
@@ -271,11 +310,11 @@ SD_SHAPES = [(b, l, h) for _, b, l, h, _ in chip_smoke.SD_ATTN_SHAPES]
 # (B, L, H) → the consumer warpgroups `d64_geometry` picks on 132 SMs: the
 # SD and SDXL shapes of a 512² request, SD 2.1's first level at 640² and
 # 1024² (with CFG, and at 1024² without), two of whole rounds of 128-row
-# blocks, B·H 2, ragged lengths, one key, and B·H past 65535
+# tiles, B·H 2, ragged lengths, one key, and B·H past 65535
 D64_GEOMETRIES = {
     **{(b, l, h): w for (b, l, h), w in zip(SD_SHAPES, (3, 3, 2, 2, 2, 2, 2))},
     (2, 6400, 5): 3, (2, 16384, 5): 3, (1, 16384, 5): 3,
-    (1, 4096, 33): 3, (1, 1024, 33): 2, (1, 4096, 2): 2,
+    (1, 4096, 33): 3, (1, 1024, 33): 2, (1, 4096, 2): 3,
     (2, 300, 3): 2, (2, 1000, 10): 3, (1, 4160, 5): 3, (1, 129, 2): 2, (4, 1, 2): 2,
     (1, 48, 65600): 2,
 }
@@ -284,13 +323,14 @@ D64_GEOMETRIES = {
 @pytest.mark.parametrize("b,l,h", list(D64_GEOMETRIES))
 def test_d64_geometry_at_each_shape(b, l, h):
     """The host's choice for the head-dim-64 launch on an H100's 132 SMs,
-    the faster geometry as measured at each SD shape: three warpgroups (192
-    rows) where their blocks take fewer rounds and a head has many key
-    tiles (SD 2.1 at L 1024 to 16384), two where a block's own cost
-    outweighs its few tiles, the rounds of two are whole or the persistent
-    two-warpgroup kernel's tiles take as few rounds (SDXL batch 4 at L 1024:
-    3 rounds of 8 key tiles against 2 of blocks; B·H 65600 of one key tile).
-    Asked again, the answer comes from the cache."""
+    the faster geometry as measured at each shape: three warpgroups (192
+    rows) where a head has many key tiles (SD 2.1 at L 1024 to 16384, and,
+    its last round split over keys, B·H 2 at L 4096: 44 tiles over 128
+    CTAs against one round of 64 tiles of two), two where a tile's own cost
+    outweighs its few key tiles or the rounds of two are whole (SDXL batch
+    1 and 4 at L 1024, a tie at batch 4 kept at two; L 1024 with 33 heads;
+    B·H 65600 of one key tile). Asked again, the answer comes from the
+    cache."""
     want = D64_GEOMETRIES[(b, l, h)]
     assert fa.d64_geometry(b * h, l, 132) == want
     hits = fa.d64_geometry.cache_info().hits
@@ -300,12 +340,18 @@ def test_d64_geometry_at_each_shape(b, l, h):
 
 def test_d64_geometry_follows_the_rounds():
     """On 132 SMs: SD 2.1 at L 1024 (B·H 20) takes three warpgroups, 120
-    blocks in one round against 160 of two in two; on a card of 160 SMs,
-    where 160 blocks of two fit one round, two; a head of few key tiles
-    stays at two however many blocks there are (L 256 at B·H 400)."""
+    tiles in one round against 160 of two in two; on a card of 160 SMs,
+    where 160 tiles of two fit one round, two; a head of few key tiles
+    stays at two however many tiles there are (L 256 at B·H 400). Three
+    warpgroups split a part-empty last round over keys on every SM (SD 2.1
+    at 1024² without CFG: 430 tiles, the fourth round's 34 over 132 CTAs)
+    and run a round that no split can shorten whole (L 1024, B·H 20: 8 key
+    tiles a tile, 960 over 132 CTAs still 8 each)."""
     assert fa.d64_geometry(20, 1024, 132) == 3
     assert fa.d64_geometry(20, 1024, 160) == 2
     assert fa.d64_geometry(400, 256, 132) == 2
+    assert fa.d64_split(5, 16384, 132)[:2] == (132, 132)
+    assert fa.d64_split(20, 1024, 132)[:2] == (120, 0)
 
 
 def _sd_check(q, k, v, out, lse, drop: int):
@@ -383,6 +429,58 @@ def test_cuda_kernel_past_the_grid_cap():
     out, lse = fa._sm90_launch(q, k, v, 64 ** -0.5, warpgroups=3)
     torch.cuda.synchronize()
     _sd_check(q, k, v, out, lse, 16)
+
+
+# (B, L, H) at head dim 64 where the three-warpgroup kernel splits its last
+# round over keys on an H100's 132 SMs: SD 2.1 at 1024² without CFG (430
+# tiles: 3 whole rounds, 34 tiles in 4-5 parts), the ragged L 4160 (110
+# tiles in one round, cut over 130 CTAs), L 4096 with 33 heads (66 tiles of
+# the sixth round in 2 parts)
+SPLIT_SHAPES = [(1, 16384, 5), (1, 4160, 5), (1, 4096, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h", SPLIT_SHAPES)
+def test_cuda_kernel_split_tail(b, l, h):
+    """The three-warpgroup kernel where it splits its last round over keys,
+    through the route: one launch, `d64_merges` (the kernel's own count)
+    up by three a split tile of `d64_tail`'s plan, out within rel-L2 1e-2
+    and atol 2e-2 of the plain version run in f32 on the same bf16 inputs,
+    lse within 2e-2, the plain version with the last 64 keys dropped failing
+    the rel-L2 bound; outputs laid over freed NaN memory (a row the merge
+    skipped would stay NaN); a second call equal bit for bit (the parts fold
+    in part order, whichever finishes last); and the same launch in whole
+    tiles within the same bounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fa.d64_geometry(b * h, l, sms) == 3
+    parts = fa.d64_tail(b * h, l, *fa.d64_split(b * h, l, sms)[:2])
+    split = sum(p > 1 for p in parts)
+    assert split > 0
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (torch.randn((b, l, h, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    nan_out = torch.full_like(q, float("nan"))
+    nan_lse = torch.full((b * h, l), float("nan"), device=dev)
+    del nan_out, nan_lse
+    before, merges = fa.launches, fa.d64_merges(dev)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert fa.d64_merges(dev) - merges == 3 * split
+    assert not out.isnan().any() and not lse.isnan().any()
+    ref, ref_lse = _plain_in_chunks(q, k, v)
+    dropped, _ = _plain_in_chunks(q, k, v, drop=64)
+    again, again_lse = fa.flash_attention(q, k, v, return_lse=True)
+    whole, whole_lse = fa._sm90_launch(q, k, v, 64 ** -0.5, warpgroups=3, split=False)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out) and torch.equal(again_lse, lse)
+    for o, s in ((out, lse), (whole, whole_lse)):
+        assert (o.float() - ref).abs().max().item() < 2e-2
+        assert (s - ref_lse).abs().max().item() < 2e-2
+        assert (o.float() - ref).norm() / ref.norm() <= 1e-2
+    assert (dropped - ref).norm() / ref.norm() > 1e-2
 
 
 def _plain_in_chunks(q, k, v, drop: int = 0):
