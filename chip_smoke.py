@@ -63,19 +63,22 @@ Phases, each of which fails the run on error:
      kernels-musicgen-f8 — D's e4m3 cache tier against its plain version at
                       MusicGen-medium shapes (B 2 W 2500, B 8 W 2048, bf16
                       weights B 2 W 500), timed in turns with the bf16 tier.
-     kernels-chain  — the decode-chain probe (#11) against its plain version
-                      at 48 layers, M 8, timed in turns with D (bf16 cache,
-                      B 2, W 500) on the same weights; then the probe's entry
+     kernels-chain  — the decode-chain probe (#11, on D's machinery) against
+                      its plain version at 48 layers, M 8, 5, 2 and 1, with a
+                      control that must miss, its bits over 50 calls and its
+                      rows against M-1 calls; timed in turns with D (bf16
+                      cache, B 2 W 500 and B 8 W 2048) on the same weights,
+                      D − #11 and both phase splits; then the probe's entry
                       point (scripts/prof_decode_chain.run).
      kernels-chain-bisect — the chain-bisect probe (#12) against its plain
-                      version at 48 layers, M 8 and M 2, for its eight
+                      version at 48 layers, M 8, 5, 2 and 1, for its eight
                       cumulative rungs (no extras, then smem, ln, cross, hbm,
-                      bufs, outs, dma added in turn), each timed in turns with
-                      #11 on the same weights; a control that must miss the
-                      tolerance; each rung's cost over the one before beside
-                      D − #11; then the probe's entry point
-                      (scripts/prof_chain_bisect.run: the script's ladder,
-                      then every extra).
+                      bufs, outs, dma added in turn), at M 8 and M 2 each
+                      timed in turns with #11 on the same weights; a control
+                      that must miss the tolerance; at M 2 and M 8 D − #11
+                      and each rung's cost over the one before; then the
+                      probe's entry point (scripts/prof_chain_bisect.run: the
+                      script's ladder, then every extra, at M 8 and M 2).
   5. kernels-train  — the flash backward, dQ (E) and dK/dV (F), through the
                       autograd function against the plain backward in f32 at
                       the Flux-dev and Flux-schnell training shapes, a padded
@@ -589,6 +592,11 @@ def phase_build():
             f"{rec['blocks_per_sm']} block(s) an "
             f"SM, a weight ring of {rec['ring_stages']} stages, {rec['syncs_per_layer']} grid syncs a layer "
             f"({rec['syncs_per_layer'] * 48} a 48-layer step)")
+    chain_info = dc.kernel_info()
+    log(f"[build] decode_chain #11 (and #12, the same kernel with its extras): {chain_info['registers']} registers "
+        f"a thread, {chain_info['local_bytes']} bytes of local memory (its calls' stack), {chain_info['smem_bytes']} "
+        f"bytes of shared memory a block, {chain_info['blocks_per_sm']} block(s) an SM, a weight ring of "
+        f"{chain_info['ring_stages']} stages, {chain_info['syncs_per_layer']} grid syncs a layer")
     # D's code is fetched anew every layer (its phases each run once a layer): its size an instantiation
     d_so = next(_build.BUILD_DIR.glob("decode_step-*.so"))
     sass = subprocess.run([str(pathlib.Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(d_so)],
@@ -614,7 +622,7 @@ def phase_build():
     # D's phases are calls with a stack: its spills are ptxas's, for the kernels and every function;
     # C holds Wh in registers and H a row's chunks: their spills are ptxas's too
     for label, name in (("D", "decode_step"), ("C", "lstm"), ("G and H", "w8a8_matmul"),
-                        ("A bf16", "flash_attention_sm90")):
+                        ("A bf16", "flash_attention_sm90"), ("#11", "decode_chain"), ("#12", "chain_bisect")):
         found = [int(n) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                                _build.BUILD_INFO[name][1]) for n in pair]
         if any(found):
@@ -623,7 +631,8 @@ def phase_build():
         raise AssertionError(f"tensor-core kernels: serialized {serialized}, spills {spills}")
     return {"flash_attention_sm90": info, "flash_attention_int8": int8_info, "flash_attention_int8_prepass": pre_info,
             "flash_attention_bwd": bwd_info, "w8a8_matmul": g_info, "int4_matmul": b_info,
-            "bare_dot_bf16": dot_info, "decode_step": d_info, "decode_step_sass_instructions": d_code}
+            "bare_dot_bf16": dot_info, "decode_step": d_info, "decode_step_sass_instructions": d_code,
+            "decode_chain": chain_info}
 
 
 def _flux_rope_tables(length: int, text: int = 256, axes_dim=(16, 56, 56)):
@@ -2324,7 +2333,7 @@ def phase_kernels_musicgen():
         step = lambda: ds.fused_decode_step(packed, x, ck, cv, offset, k1, v1, cl, n_heads=heads)  # noqa: E731
         chain_ms = phases = None
         if label in ("int8_B2_W500_off250", "int8_B8_W2048_off1900"):
-            # in turns with #11, the weight stream of D's first design alone, at the same rows and weights
+            # in turns with #11, D's weight stream on D's own machinery alone, at the same rows and weights
             chain = lambda: dc.decode_chain(packed["w"], packed["s"], x)  # noqa: E731
             t = [time_ms(f) for f in (step, chain, chain, step)]
             ms, chain_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
@@ -2495,11 +2504,15 @@ def phase_kernels_musicgen_f8():
 
 
 def phase_kernels_chain():
-    """The decode-chain probe (#11) against its plain version at 48 layers,
-    M 8 and M 2 (D's two live rows), on the probe's own inputs; its times in
-    turns with kernel D (int8 weights, bf16 cache, B 2, W 500, offset 250) on
-    the same weights, the floor beside the step; then one run of the probe's
-    entry point, whose launches are the line's."""
+    """The decode-chain probe (#11, on D's machinery) against its plain
+    version at 48 layers, M 8, 5, 2 and 1, on the probe's own inputs, with a
+    control that must miss (the plain chain without its last layer); its
+    bits over 50 calls in a row, and each row of an M-8 call against an M-1
+    call on that row. Then the attribution: #11 at M 2 and M 8 in turns with
+    kernel D (int8 weights, the same ones, bf16 cache) at B 2 (W 500,
+    offset 250) and B 8 (W 2048, offset 1900), D − #11, and one launch's
+    phase split of each from block 0's device clock; then one run of the
+    probe's entry point, whose launches are the line's."""
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import decode_chain as dc
@@ -2509,63 +2522,91 @@ def phase_kernels_chain():
     dev = torch.device("cuda")
     L, H, heads = 48, probe.H, 24
     w, s, x = probe.make_inputs(L, dev)
-    y = dc.decode_chain(w, s, x)
-    ref = dc.decode_chain_plain(w, s, x)
-    torch.cuda.synchronize()
-    err = (y.float() - ref.float()).abs().max().item()
-    tol = CHAIN_REL_TOL * ref.float().abs().max().item()
+    failures, errs = [], {}
+    for m in (8, 5, 2, 1):
+        xm = x[:m].contiguous()
+        y = dc.decode_chain(w, s, xm)
+        ref = dc.decode_chain_plain(w, s, xm).float()
+        short = dc.decode_chain_plain(w[:-14], s[:-14], xm).float()
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        errs[m] = (y.float() - ref).abs().max().item()
+        control = (y.float() - short).abs().max().item() / scale
+        log(f"[kernels-chain] decode chain L48 M{m}: max|Δ| {errs[m]:.3e} (tol {CHAIN_REL_TOL * scale:.3e}); "
+            f"control, the plain chain without its last layer, {control:.3e} of max (must miss {CHAIN_REL_TOL})")
+        if not (errs[m] <= CHAIN_REL_TOL * scale and control > CHAIN_REL_TOL and torch.isfinite(y.float()).all()):
+            failures.append(f"M {m}: {errs[m]} (tol {CHAIN_REL_TOL * scale}), control {control}")
+    first = dc.decode_chain(w, s, x)
+    repeat = all(torch.equal(first.view(torch.int16), dc.decode_chain(w, s, x).view(torch.int16)) for _ in range(50))
+    rows = all(torch.equal(first[r:r + 1].view(torch.int16), dc.decode_chain(w, s, x[r:r + 1].contiguous()).view(
+        torch.int16)) for r in range(8))
+    log(f"[kernels-chain] bits equal over 50 calls {repeat}; each row of M 8 equal to an M-1 call {rows}")
+    if not (repeat and rows):
+        failures.append(f"bits over 50 calls {repeat}, rows independent of M {rows}")
+    info = dc.kernel_info()
+    syncs = info["syncs_per_layer"] * L
     g = torch.Generator(device=dev).manual_seed(91)
-    packed = {"w": w, "s": s, "ln": (1 + 0.1 * torch.randn((L, 8, H), generator=g, device=dev)
-                                     ).to(torch.bfloat16)}
-    xd = torch.randn((2, H), generator=g, device=dev).to(torch.bfloat16)
-    ck = torch.randn((L, 2, 16, H), generator=g, device=dev).to(torch.bfloat16)
-    kc = torch.randn((L, 2, 500, H), generator=g, device=dev).to(torch.bfloat16)
-    vc = torch.randn((L, 2, 500, H), generator=g, device=dev).to(torch.bfloat16)
-    x2 = x[:2].contiguous()  # the two live CFG rows, as D runs them
-    err2 = (dc.decode_chain(w, s, x2).float() - dc.decode_chain_plain(w, s, x2).float()).abs().max().item()
-    chain = lambda: dc.decode_chain(w, s, x)  # noqa: E731
-    chain2 = lambda: dc.decode_chain(w, s, x2)  # noqa: E731
-    step = lambda: ds.fused_decode_step(packed, xd, ck, ck, 250, kc, vc, n_heads=heads)  # noqa: E731
-    t = [time_ms(f) for f in (chain, chain2, step, step, chain2, chain)]
-    ms, ms2, d_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+    packed = {"w": w, "s": s, "ln": (1 + 0.1 * torch.randn((L, 8, H), generator=g, device=dev)).to(torch.bfloat16)}
+    attribution, cases = {}, {}
+    for m, window, offset in ((2, 500, 250), (8, 2048, 1900)):
+        xm = x[:m].contiguous()
+        xd = torch.randn((m, H), generator=g, device=dev).to(torch.bfloat16)
+        ck = torch.randn((L, m, 16, H), generator=g, device=dev).to(torch.bfloat16)
+        kc = torch.randn((L, m, window, H), generator=g, device=dev).to(torch.bfloat16)
+        vc = torch.randn((L, m, window, H), generator=g, device=dev).to(torch.bfloat16)
+        chain = lambda: dc.decode_chain(w, s, xm)  # noqa: E731
+        step = lambda: ds.fused_decode_step(packed, xd, ck, ck, offset, kc, vc, n_heads=heads)  # noqa: E731
+        t = [time_ms(f) for f in (chain, step, step, chain) * 2]
+        ms, d_ms = statistics.mean(t[0::4] + t[3::4]), statistics.mean(t[1::4] + t[2::4])
+        d_split = ds.phase_times(packed, xd, ck, ck, offset, kc, vc, n_heads=heads)
+        chain_split = dc.phase_times(w, s, xm)
+        nbytes = probe.step_bytes(L, m)
+        bound = bound_ms(2 * m * w.numel(), nbytes)
+        attribution[m] = dict(d_ms=d_ms, chain_ms=ms, d_minus_chain_ms=d_ms - ms, d_window=window, d_offset=offset,
+                              d_phase_us=d_split, chain_phase_us=chain_split)
+        cases[m] = dict(ms=ms, ms_in_turns=t[0::4] + t[3::4], d_ms_in_turns=t[1::4] + t[2::4], bytes=nbytes,
+                        bound_ms=bound[0], bound_by=bound[1], bound_share=bound[0] / ms, syncs_per_step=syncs,
+                        us_per_phase=ms * 1e3 / syncs)
+        log(f"[kernels-chain] M {m}: #11 {ms:.4f} ms ({' '.join(f'{v:.4f}' for v in cases[m]['ms_in_turns'])}), "
+            f"bound {bound[0]:.4f} ms ({bound[1]}; {bound[0] / ms:.1%} of it), {syncs} grid syncs a step, "
+            f"{ms * 1e3 / syncs:.2f} us a phase | D (B {m}, W {window}, offset {offset}) in turns {d_ms:.4f} ms: "
+            f"D − #11 {d_ms - ms:+.4f} ms")
+        log(f"[kernels-chain] M {m} phase split, us a step: #11 " + ", ".join(
+            f"{k} {v:.1f}" for k, v in chain_split.items()) + f" (sum {sum(chain_split.values()):.1f}) | D "
+            + ", ".join(f"{k} {v:.1f}" for k, v in d_split.items()) + f" (sum {sum(d_split.values()):.1f})")
+        del xd, ck, kc, vc
     plain_ms = time_ms(lambda: dc.decode_chain_plain(w, s, x), iters=2, warmup=1)
-    nbytes = w.numel() + 2 * s.numel() + 2 * 2 * x.numel()
-    bound = bound_ms(2 * x.shape[0] * w.numel(), nbytes)
-    log(f"[kernels-chain] decode chain L48 M8: max|Δ| {err:.3e} (tol {tol:.3e}), M2 {err2:.3e} | kernel "
-        f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), at M 2 {ms2:.4f} ms | plain {plain_ms:.4f} ms | bound "
-        f"{bound[0]:.4f} ms ({bound[1]}) | D (int8, bf16 cache, B 2, W 500, off 250) {d_ms:.4f} ms in turns: "
-        f"D {d_ms - ms2:+.4f} ms against #11 at M 2 (#11 is the weight stream of D's first design alone, "
-        f"kept as a fixed yardstick)")
-    err = max(err, err2)
-    del packed, xd, ck, kc, vc, w, s, x, x2, y, ref
-    if not err <= tol:
-        raise AssertionError(f"the decode chain disagrees with its plain version: {err} > {tol}")
+    err = max(errs.values())
+    del packed, w, s, x, first
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("the decode chain disagrees with its plain version: " + "; ".join(failures))
     dc.launches = 0
     run = probe.run(layers=L, steps=50)
     launches = dc.launches
-    log(f"[kernels-chain] probe entry point (48 layers, 50 steps): rel err {run['rel_err']:.3e}, kernel "
-        f"{run['ms']:.4f} ms/step, plain {run['plain_ms']:.4f} ms/step, bound {run['bound_ms']:.4f} ms, "
-        f"{launches} launches")
+    log(f"[kernels-chain] probe entry point (48 layers, 50 steps; {launches} launches): " + " | ".join(
+        f"M {c['rows']} rel err {c['rel_err']:.3e}, {c['ms']:.4f} ms/step, {c['bound_share']:.1%} of the bound, "
+        f"{c['us_per_phase']:.2f} us a phase" for c in run["cases"]) + f" | plain at M 8 {run['plain_ms']:.4f} ms")
     if not (run["rel_err"] <= CHAIN_REL_TOL and run["finite"] and launches > 0):
         raise AssertionError(f"the probe's run failed: {run}, {launches} launches")
-    return {"decode_chain": [dict(case="L48_M8", max_abs_err=err, ms=ms, m2_ms=ms2, plain_ms=plain_ms,
-                                  library_ms=None, bound_ms=bound[0], bound_by=bound[1],
-                                  decode_step_ms_in_turns=d_ms, probe=run, launches=launches)]}
+    return {"decode_chain": [dict(case="L48_M8", max_abs_err=err, ms=cases[8]["ms"], m2_ms=cases[2]["ms"],
+                                  plain_ms=plain_ms, library_ms=None, bound_ms=cases[8]["bound_ms"],
+                                  bound_by=cases[8]["bound_by"], cases=cases, kernel=info, attribution=attribution,
+                                  probe=run, launches=launches)]}
 
 
 def phase_kernels_chain_bisect(chain):
-    """The chain-bisect probe (#12) against its plain version at 48 layers, M 8
-    and M 2, for each of its eight cumulative rungs, on #11's weights and
-    seeded random LN params, cross K/V and caches (W 512, chunk 512); each
-    rung timed in turns with #11 (#11, rung, rung, #11 twice over) and shown
-    beside D's time from `chain` (kernels-chain's record). A control must miss
-    the tolerance: the no-extras rung's output against the ln rung's plain
-    output. Then the attribution of D's first design (decode_common.cuh),
-    kept for #12: each rung's cost over #11 less the rung before's (each in
-    its own turns), summed beside today's D − #11 at 2 rows (D now has
-    projections of its own, so the sum no longer accounts for that gap); and
-    one run of the probe's entry point (the script's ladder, then every
-    extra), whose launches are the line's."""
+    """The chain-bisect probe (#12, on D's machinery) against its plain
+    version at 48 layers, M 8, 5, 2 and 1 (M 1 without outs, which writes
+    two rows), for each of its eight cumulative rungs, on #11's weights and
+    seeded random LN params, cross K/V and caches (W 512, chunk 512); at M 8
+    and M 2 each rung timed in turns with #11 (#11, rung, rung, #11 twice
+    over). A control must miss the tolerance: the no-extras rung's output
+    against the ln rung's plain output. Then the attribution at M 2 and M 8:
+    D − #11 from `chain` (kernels-chain's record), and each rung's cost over
+    #11 less the rung before's; and one run of the probe's entry point (the
+    script's ladder, then every extra, at M 8 and M 2), whose launches are
+    the line's."""
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import chain_bisect as cb
@@ -2575,14 +2616,15 @@ def phase_kernels_chain_bisect(chain):
 
     dev = torch.device("cuda")
     L, H, window = 48, probe.H, 512
-    d_ms = chain["decode_step_ms_in_turns"]
     w, s, x8 = chain_probe.make_inputs(L, dev)
     every = probe.make_extra_operands(cb.RUNGS[-1], L, window, dev)
     cases, failures = [], []
-    for m in (8, 2):
+    for m in (8, 5, 2, 1):
         x = x8[:m].contiguous()
         for spec in cb.RUNGS:
             ex = cb.parse_extras(spec)
+            if "outs" in ex and m < cb.B:
+                continue
             ops = {k: v for k, v in every.items() if cb.OPERAND_EXTRA[k] in ex}
             got = cb.chain_bisect(w, s, x, spec, **ops)
             ref = cb.chain_bisect_plain(w, s, x, spec, **ops)
@@ -2592,6 +2634,11 @@ def phase_kernels_chain_bisect(chain):
             yr = ref[0] if isinstance(ref, tuple) else ref
             abs_err = (y.float() - yr.float()).abs().max().item()
             finite = all(bool(torch.isfinite(t.float()).all()) for t in (got if isinstance(got, tuple) else (got,)))
+            if not (max(errs.values()) <= CHAIN_REL_TOL and finite):
+                failures.append(f"M {m} rung {spec!r}: {errs}, finite {finite}")
+            if m in (5, 1):  # checked, not timed
+                log(f"[kernels-chain-bisect] M {m} rung {spec or '-'}: max|Δ|/max {errs} (tol {CHAIN_REL_TOL})")
+                continue
             rung = lambda: cb.chain_bisect(w, s, x, spec, **ops)  # noqa: E731
             chain11 = lambda: dc.decode_chain(w, s, x)  # noqa: E731
             t = [time_ms(f, iters=30) for f in (chain11, rung, rung, chain11) * 2]
@@ -2600,33 +2647,34 @@ def phase_kernels_chain_bisect(chain):
             nbytes = probe.step_bytes(spec, L, m, window)
             bound = bound_ms(2 * m * w.numel(), nbytes)
             plan = cb.plan(m, H, spec)
+            syncs = plan["syncs_per_layer"] * L
             log(f"[kernels-chain-bisect] M {m} rung {spec or '-'}: max|Δ|/max {errs} (tol {CHAIN_REL_TOL}) | "
-                f"kernel {ms:.4f} ms, #11 in turns {chain_ms:.4f} ms ({ms - chain_ms:+.4f}), D {d_ms:.4f} ms | plain "
-                f"{plain_ms:.4f} ms"
-                f" | bound {bound[0]:.4f} ms ({bound[1]}, {nbytes / 1e9:.4f} GB) | grid {plan['grid']}, "
+                f"kernel {ms:.4f} ms, #11 in turns {chain_ms:.4f} ms ({ms - chain_ms:+.4f}) | plain {plain_ms:.4f} ms"
+                f" | bound {bound[0]:.4f} ms ({bound[1]}, {nbytes / 1e9:.4f} GB; {bound[0] / ms:.1%} of it) | "
+                f"{syncs} grid syncs a step, {ms * 1e3 / syncs:.2f} us a phase | grid {plan['grid']}, "
                 f"{plan['blocks_per_sm']} blocks/SM, {plan['smem_bytes']} B shared a block")
-            if not (max(errs.values()) <= CHAIN_REL_TOL and finite):
-                failures.append(f"M {m} rung {spec!r}: {errs}, finite {finite}")
             cases.append(dict(case=f"M{m}_{spec or 'none'}", rows=m, extras=spec, max_abs_err=abs_err, rel_errs=errs,
                               ms=ms, chain_ms_in_turns=chain_ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound[0],
-                              bound_by=bound[1], library_ms=None, **plan))
+                              bound_by=bound[1], bound_share=bound[0] / ms, syncs_per_step=syncs,
+                              us_per_phase=ms * 1e3 / syncs, library_ms=None, **plan))
     ops = {k: v for k, v in every.items() if cb.OPERAND_EXTRA[k] in ("smem", "ln")}
     control = probe.rel_errors(cb.chain_bisect(w, s, x8, ""), cb.chain_bisect_plain(w, s, x8, "smem,ln", **ops))["y"]
     log(f"[kernels-chain-bisect] control: the no-extras kernel against the ln rung's plain version "
         f"{control:.3e} of max (must miss {CHAIN_REL_TOL})")
     if not control > CHAIN_REL_TOL:
         failures.append(f"the control passed the check: {control}")
-    d_minus_chain = d_ms - chain["m2_ms"]
     attribution = {}
     for m in (8, 2):
         rows = [c for c in cases if c["rows"] == m]
         excess = [c["ms"] - c["chain_ms_in_turns"] for c in rows]
         deltas = [excess[0]] + [b - a for a, b in zip(excess, excess[1:])]
-        attribution[m] = dict(zip([c["extras"] or "none" for c in rows], deltas))
-        log(f"[kernels-chain-bisect] M {m} attribution, ms over the rung before (the first over #11): " + ", ".join(
-            f"{k} {v:+.4f}" for k, v in attribution[m].items()) + f" | sum {sum(deltas):+.4f} ms" +
-            (f" (the attribution of D's first design, kept for #12) beside today's D − #11 at 2 rows "
-             f"{d_minus_chain:+.4f} ms (kernels-chain: D {d_ms:.4f}, #11 {chain['m2_ms']:.4f})" if m == 2 else ""))
+        d = chain["attribution"][m]
+        attribution[m] = dict(rungs=dict(zip([c["extras"] or "none" for c in rows], deltas)),
+                              d_minus_chain_ms=d["d_minus_chain_ms"], d_ms=d["d_ms"], chain_ms=d["chain_ms"])
+        log(f"[kernels-chain-bisect] M {m} attribution: D − #11 {d['d_minus_chain_ms']:+.4f} ms (kernels-chain: D "
+            f"{d['d_ms']:.4f} at B {m}, W {d['d_window']}, offset {d['d_offset']}; #11 {d['chain_ms']:.4f}) | each "
+            f"rung over the one before (the first over #11): " + ", ".join(
+                f"{k} {v:+.4f}" for k, v in attribution[m]["rungs"].items()) + f" | sum {sum(deltas):+.4f} ms")
     del w, s, x8, every, ops
     torch.cuda.empty_cache()
     if failures:
@@ -2635,14 +2683,15 @@ def phase_kernels_chain_bisect(chain):
     runs = probe.run(ladder=True, steps=50)["rungs"] + probe.run(cb.RUNGS[-1], steps=50)["rungs"]
     launches = cb.launches
     for r in runs:
-        log(f"[kernels-chain-bisect] entry point rung {r['extras'] or '-'}: rel err {r['rel_err']:.3e}, "
-            f"{r['ms']:.4f} ms/step, bound {r['bound_ms']:.4f} ms, {r['blocks_per_sm']} blocks/SM")
+        log(f"[kernels-chain-bisect] entry point M {r['rows']} rung {r['extras'] or '-'}: rel err "
+            f"{r['rel_err']:.3e}, {r['ms']:.4f} ms/step, {r['bound_share']:.1%} of the bound "
+            f"{r['bound_ms']:.4f} ms, {r['syncs_per_step']} syncs, {r['us_per_phase']:.2f} us a phase")
     log(f"[kernels-chain-bisect] entry point (the script's ladder, then every extra; 48 layers, 50 steps): "
         f"{launches} launches")
     if not (all(r["rel_err"] <= CHAIN_REL_TOL and r["finite"] for r in runs) and launches > 0):
         raise AssertionError(f"the probe's run failed: {runs}, {launches} launches")
-    return {"chain_bisect": dict(cases=cases, control_rel_err=control, attribution=attribution,
-                                 d_minus_chain_ms=d_minus_chain, probe=runs, launches=launches)}
+    return {"chain_bisect": dict(cases=cases, control_rel_err=control, attribution=attribution, probe=runs,
+                                 launches=launches)}
 
 
 def _serve_requests(steps):

@@ -2,9 +2,10 @@
 
 The kernel (csrc/chain_bisect.cu, sm_90a) replaces the TPU kernel that
 `make_kernel` builds in scripts/prof_chain_bisect.py (pallas_call at :269):
-the decode-chain probe's weight stream (#11) with the structural pieces of
-the fused decode step added one at a time, so that their costs can be told
-apart. One layer, on x (M, H):
+the decode-chain probe's weight stream (#11, on kernel D's machinery) with
+the structural pieces of the fused decode step added one at a time, each
+built where and as D builds it (csrc/decode_probe.cuh), so that a rung's
+increment is D's cost of that piece. One layer, on x (M, H):
   LN → (× ln[l, 0] + ln[l, 1] with `ln`) → q = c0, k = c1, v = c2;
   x += c3·q + 0·(k + v)[:, :1]; LN → x += c5·(c4·LN (+ 0·Σ cross rows));
   LN → up c6..c9 → tanh GELU per chunk → x += Σ c10..c13.
@@ -20,11 +21,13 @@ The extras (EXTRAS, the script's order) and their operands:
   bufs   the staging buffers (no operand)
   outs   returns (y, kn, vn), kn/vn (L, 2, H) bf16: rows 0..1 of c1's and
          c2's products
-  dma    copies every layer's K and V window in chunks of `chunk` rows (needs
-         hbm and bufs); + 0·(a staged K row + V row) into the o input
+  dma    reads every layer's K and V window (needs hbm and bufs; the kernel
+         with D's warp loads) and adds 0·(the row the script's chunks of
+         `chunk` rows leave in slot 0, K + V) into the o input
 `chain_bisect` dispatches on the tensors' device: CPU tensors go to
 `chain_bisect_plain`, CUDA tensors to the kernel; it raises for what neither
-takes.
+takes, and the kernel also for w, s, ln, kc or vc not 16-byte aligned (TMA
+and 16-byte loads).
 """
 
 from __future__ import annotations
@@ -54,9 +57,9 @@ OPERAND_EXTRA = {"offset": "smem", "ln": "ln", "ck": "cross", "cv": "cross", "kc
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # w, s, ln, x, ck, cv, kc, vc, y, kn, vn, scratch, L, M, H, S, W, chunk, offset, extras, stream
+    # w, s, ln, x, ck, cv, kc, vc, y, kn, vn, scratch, L, M, H, S, W, touched row, offset, extras, stream
     "fgt_chain_bisect": [_P] * 12 + [_I] * 8 + [_P],
-    "fgt_chain_bisect_plan": [_I, _I, _I, _P],  # M, H, extras, int[4] out
+    "fgt_chain_bisect_plan": [_I, _I, _I, _P],  # M, H, extras, int[5] out
 }
 
 
@@ -182,20 +185,31 @@ def _check_args(w, s, x, ex, operands, chunk):
 
 def plan(m: int, h: int, extras) -> dict:
     """The kernel's launch plan on the current card: grid, resident blocks
-    an SM, dynamic shared memory a block, f32 scratch floats."""
+    an SM, dynamic shared memory a block, f32 scratch floats, grid syncs a
+    layer."""
     lib = _build.load("chain_bisect", _SIGNATURES)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     _build.check("fgt_chain_bisect_plan", lib.fgt_chain_bisect_plan(m, h, extras_mask(extras), out))
-    return dict(grid=out[0], blocks_per_sm=out[1], smem_bytes=out[2], scratch_floats=out[3])
+    return dict(grid=out[0], blocks_per_sm=out[1], smem_bytes=out[2], scratch_floats=out[3],
+                syncs_per_layer=out[4])
+
+
+def _check_kernel_operands(w, s, x, operands):
+    """What the kernel takes beyond the contract: contiguous tensors on one
+    device; w (its TMA map), s, ln and the caches (16-byte loads) 16-byte
+    aligned."""
+    tensors = [w, s, x] + [t for k, t in operands.items() if k != "offset" and t is not None]
+    if any(not t.is_contiguous() for t in tensors) or any(t.device != x.device for t in tensors):
+        raise ValueError("chain-bisect kernel takes contiguous tensors on one device")
+    for key, t in (("w", w), ("s", s), ("ln", operands["ln"]), ("kc", operands["kc"]), ("vc", operands["vc"])):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"chain-bisect kernel reads {key} through TMA or in 16-byte pieces: it must be "
+                             "16-byte aligned")
 
 
 def _chain_bisect_cuda(w, s, x, ex, operands, chunk):
     global launches
-    tensors = [w, s, x] + [t for k, t in operands.items() if k != "offset" and t is not None]
-    if any(not t.is_contiguous() for t in tensors) or any(t.device != x.device for t in tensors):
-        raise ValueError("chain-bisect kernel takes contiguous tensors on one device")
-    if any(operands[k] is not None and operands[k].data_ptr() % 16 for k in ("kc", "vc")):
-        raise ValueError("chain-bisect kernel copies the caches in 16-byte pieces: kc, vc must be 16-byte aligned")
+    _check_kernel_operands(w, s, x, operands)
     m, h = x.shape
     n_layers = w.shape[0] // CPL
     mask = extras_mask(ex)
@@ -216,7 +230,9 @@ def _chain_bisect_cuda(w, s, x, ex, operands, chunk):
         err = lib.fgt_chain_bisect(ptr(w), ptr(s), ptr(operands["ln"]), ptr(x), ptr(ck), ptr(operands["cv"]),
                                    ptr(kc), ptr(operands["vc"]), ptr(y), ptr(kn), ptr(vn), ptr(scratch),
                                    n_layers, m, h, 0 if ck is None else ck.shape[2],
-                                   0 if kc is None else kc.shape[2], chunk, operands["offset"] or 0, mask,
+                                   0 if kc is None else kc.shape[2],
+                                   touched_row(kc.shape[2], chunk) if "dma" in ex else 0,
+                                   operands["offset"] or 0, mask,
                                    torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("fgt_chain_bisect", err)
     launches += 1

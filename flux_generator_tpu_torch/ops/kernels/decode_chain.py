@@ -3,8 +3,11 @@
 The kernel (csrc/decode_chain.cu, sm_90a) replaces the TPU kernel `_kernel`
 of scripts/prof_pallas_chain.py (pallas_call at :150): kernel D's weight
 stream — the same packed chunks, w (L·14, H, H) int8 and s (L·14, 1, H)
-bf16, in the same 14-chunk schedule — with attention as identity. Its time
-on the card is D's floor for streaming the weights.
+bf16 — on D's own machinery (csrc/decode_ring.cuh: D's schedule, TMA weight
+ring and mma.sync products, with D's ticketed folds), with attention as
+identity, in six grid syncs a layer. Its time on the card is what D's
+design pays to move the weights, and D's time less it is what D's attention
+and its seventh sync cost.
 
 Contract: `decode_chain(w, s, x (M, H) bf16) → (M, H) bf16`, for every layer:
 LN (no affine, eps 1e-5) → q = c0, c1 and c2 computed and parked; x += c3·q;
@@ -12,7 +15,10 @@ LN → x += c5·(c4·LN); LN → up c6..c9 → exact GELU per chunk → x += Σ 
 Dots round their inputs to bf16 and dequantize w.bf16 · s.bf16 to bf16, with
 f32 accumulation; the residual stays f32. `decode_chain` dispatches on the
 tensors' device: CPU tensors go to `decode_chain_plain` (the port of the
-script's `jnp_chain`, l.176-205), CUDA tensors to the kernel.
+script's `jnp_chain`, l.176-205), CUDA tensors to the kernel, which raises
+for what it does not take: 1..8 rows, H a multiple of 256 up to 8192 (D's
+256-row weight tiles), w and s 16-byte aligned (the TMA map and the scales'
+16-byte copies).
 """
 
 from __future__ import annotations
@@ -34,9 +40,14 @@ REPLACES = "scripts/prof_pallas_chain.py:150"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "fgt_decode_chain": [_P] * 5 + [_I] * 3 + [_P],  # w, s, x, y, scratch, L, B, H, stream
-    "fgt_decode_chain_scratch_floats": [_I, _I],     # B, H
+    "fgt_decode_chain": [_P] * 5 + [_I] * 3 + [_P, _P],  # w, s, x, y, scratch, L, B, H, timers, stream
+    "fgt_decode_chain_scratch_floats": [_I, _I],         # B, H
+    # → registers, local bytes, shared bytes, blocks an SM, ring stages, syncs a layer
+    "fgt_decode_chain_info": [_P] * 6,
 }
+# grid syncs a layer: qkv | o + residual | cross q | cross o + residual | up + GELU | down + residual
+PHASE_NAMES = ("qkv", "o + residual", "cross q", "cross o + residual", "up + GELU", "down + residual")
+SYNCS_PER_LAYER = len(PHASE_NAMES)
 
 
 def decode_chain_plain(w, s, x):
@@ -76,12 +87,15 @@ def _check_cuda_args(w, s, x):
         raise ValueError(f"s must be ({w.shape[0]}, 1, {h}), got {tuple(s.shape)}")
     if not 1 <= m <= MAX_BATCH or h % 256 or h > MAX_HIDDEN:
         raise ValueError(f"decode-chain kernel takes 1..{MAX_BATCH} rows and H a multiple of 256 up to "
-                         f"{MAX_HIDDEN}, got ({m}, {h})")
+                         f"{MAX_HIDDEN} (its weight tiles are 256 rows), got ({m}, {h})")
     if any(not t.is_contiguous() for t in (w, s, x)) or any(t.device != x.device for t in (w, s)):
         raise ValueError("decode-chain kernel takes contiguous tensors on one device")
+    if w.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError("decode-chain kernel reads w through a TMA map and s in 16-byte copies: both must be "
+                         "16-byte aligned")
 
 
-def _decode_chain_cuda(w, s, x):
+def _decode_chain_cuda(w, s, x, timers=None):
     global launches
     _check_cuda_args(w, s, x)
     m, h = x.shape
@@ -94,10 +108,35 @@ def _decode_chain_cuda(w, s, x):
         scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
         err = lib.fgt_decode_chain(w.data_ptr(), s.data_ptr(), x.data_ptr(), y.data_ptr(),
                                    scratch.data_ptr(), w.shape[0] // CPL, m, h,
+                                   None if timers is None else timers.data_ptr(),
                                    torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("fgt_decode_chain", err)
     launches += 1
     return y
+
+
+def kernel_info() -> dict:
+    """The kernel on the current card: registers a thread, local memory bytes
+    a thread, shared memory bytes a block, blocks an SM, weight-ring stages,
+    grid syncs a layer."""
+    lib = _build.load("decode_chain", _SIGNATURES)
+    vals = [ctypes.c_int() for _ in range(6)]
+    _build.check("fgt_decode_chain_info", lib.fgt_decode_chain_info(*(ctypes.byref(v) for v in vals)))
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "ring_stages", "syncs_per_layer")
+    return dict(zip(keys, (v.value for v in vals)))
+
+
+def phase_times(w, s, x) -> dict:
+    """One launch of the kernel on CUDA tensors with block 0 stamping the
+    device clock after each grid sync → {phase name: µs summed over the
+    layers}, each phase from the sync before it to the sync after it (the
+    last layer's down until block 0 ends; the set-up before the first sync
+    is not counted). The launch counts."""
+    n_layers = w.shape[0] // CPL
+    stamps = torch.zeros(SYNCS_PER_LAYER * n_layers + 1, dtype=torch.int64, device=x.device)
+    _decode_chain_cuda(w, s, x, stamps)
+    d = stamps.diff().double().cpu().reshape(n_layers, SYNCS_PER_LAYER) / 1e3
+    return dict(zip(PHASE_NAMES, d.sum(0).tolist()))
 
 
 def decode_chain(w, s, x):

@@ -4,18 +4,21 @@
         [--layers 48] [--steps 50] [--chunk 512] [--window 512]
 
 The port's counterpart of scripts/prof_chain_bisect.py: the decode-chain
-probe's weight stream (#11: L × 14 int8 (1536, 1536) chunks with bf16
-scales, 8 rows, tanh GELU) with the fused decode step's structural pieces
-added (--extras, a comma list of smem, ln, cross, hbm, bufs, outs, dma;
---ladder runs the script's ladder instead), so that each piece's cost shows.
+probe's weight stream (#11 on kernel D's machinery: L × 14 int8 (1536,
+1536) chunks with bf16 scales, tanh GELU) with the fused decode step's
+structural pieces added, each built as D builds it (--extras, a comma list
+of smem, ln, cross, hbm, bufs, outs, dma; --ladder runs the script's ladder
+instead), so that each piece's cost in D shows, at 8 rows (the script's)
+and at 2 (one music request's CFG rows).
 The operands are seeded random: #11's weights and rows
 (prof_decode_chain.make_inputs), finite LN params, cross K/V and caches.
 
 For each rung it prints max|kernel - plain| against TOL of max|y| (and of
 max|kn|, max|vn| with outs), the bytes the step must move and their bound at
 the card's 3.35 TB/s, the kernel's ms a step (CUDA events over `steps`
-chained steps, after a warm-up step), the grid and the resident blocks an
-SM from the occupancy query; then one JSON line of the same numbers. Exits 1
+chained steps, after a warm-up step) and its share of the bound, the grid
+syncs a step and µs a phase, the grid and the resident blocks an SM from
+the occupancy query; then one JSON line of the same numbers. Exits 1
 when a rung's kernel and plain version differ by more than TOL. It runs on
 the card only: a time taken on the CPU would not be the card's.
 """
@@ -30,7 +33,7 @@ import torch
 
 from ..ops.kernels import chain_bisect as cb
 from ..runtime.device import as_device
-from .prof_decode_chain import H, M, PEAK_BYTES_S, _chain_ms, make_inputs
+from .prof_decode_chain import H, M, PEAK_BYTES_S, ROWS, _chain_ms, make_inputs
 
 S_CROSS = 12  # text rows of the cross K/V (the script's S_CROSS)
 # of max|y| (and max|kn|, max|vn|): the plain version's arithmetic in another
@@ -90,14 +93,17 @@ def rel_errors(got, ref) -> dict:
     return out
 
 
-def run_rung(extras, layers: int = 48, steps: int = 50, chunk: int = 512, window: int = 512, device=None) -> dict:
-    """One rung on the card: numerics against the plain version, bytes and
-    bound, ms a step, the launch plan."""
+def run_rung(extras, layers: int = 48, steps: int = 50, chunk: int = 512, window: int = 512, device=None,
+             rows: int = M) -> dict:
+    """One rung at `rows` rows on the card: numerics against the plain
+    version, bytes and bound, ms a step and its share of the bound, syncs a
+    step and µs a phase, the launch plan."""
     device = as_device(device)
     if device.type != "cuda":
         raise RuntimeError("the chain-bisect probe times the card and has no CPU run")
     spec = ",".join(e for e in cb.EXTRAS if e in cb.parse_extras(extras))
     w, s, x = make_inputs(layers, device)
+    x = x[:rows].contiguous()
     ops = make_extra_operands(spec, layers, window, device)
     got = cb.chain_bisect(w, s, x, spec, chunk=chunk, **ops)
     ref = cb.chain_bisect_plain(w, s, x, spec, chunk=chunk, **ops)
@@ -109,18 +115,22 @@ def run_rung(extras, layers: int = 48, steps: int = 50, chunk: int = 512, window
         out = cb.chain_bisect(w, s, v, spec, chunk=chunk, **ops)
         return out[0] if isinstance(out, tuple) else out
 
-    nbytes = step_bytes(spec, layers, M, window)
+    nbytes = step_bytes(spec, layers, rows, window)
+    bound = nbytes / PEAK_BYTES_S * 1e3
     ms = _chain_ms(step, x, steps)
-    return dict(extras=spec, layers=layers, steps=steps, rows=M, hidden=H, chunk=chunk, window=window,
+    p = cb.plan(rows, H, spec)
+    syncs = p["syncs_per_layer"] * layers
+    return dict(extras=spec, layers=layers, steps=steps, rows=rows, hidden=H, chunk=chunk, window=window,
                 rel_err=max(errs.values()), rel_errs=errs, finite=finite, y_abs_max=y.float().abs().max().item(),
-                bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_S * 1e3, ms=ms, **cb.plan(M, H, spec))
+                bytes=nbytes, bound_ms=bound, ms=ms, bound_share=bound / ms, syncs_per_step=syncs,
+                us_per_phase=ms * 1e3 / syncs, **p)
 
 
 def run(extras: str = "", ladder: bool = False, layers: int = 48, steps: int = 50, chunk: int = 512,
         window: int = 512, device=None) -> dict:
-    """The script's run: `extras` alone, or its ladder."""
+    """The script's run: `extras` alone, or its ladder, at each of ROWS."""
     todo = cb.LADDER if ladder else (extras,)
-    return dict(rungs=[run_rung(spec, layers, steps, chunk, window, device) for spec in todo])
+    return dict(rungs=[run_rung(spec, layers, steps, chunk, window, device, m) for m in ROWS for spec in todo])
 
 
 def main(argv=None) -> int:
@@ -136,10 +146,12 @@ def main(argv=None) -> int:
     for r in run(args.extras, args.ladder, args.layers, args.steps, args.chunk, args.window)["rungs"]:
         good = r["rel_err"] <= TOL and r["finite"]
         ok = ok and good
-        print(f"extras={r['extras'] or '-'}: max|kernel - plain| {r['rel_err']:.3e} of max (tol {TOL}, "
-              f"{'ok' if good else 'MISMATCH'}) | {r['bytes'] / 1e9:.4f} GB -> bound {r['bound_ms']:.4f} ms at "
-              f"{PEAK_BYTES_S / 1e12:.2f} TB/s | {r['ms']:8.4f} ms/step ({r['bytes'] / r['ms'] / 1e6:.1f} GB/s) | "
-              f"grid {r['grid']}, {r['blocks_per_sm']} blocks/SM, {r['smem_bytes']} B shared a block")
+        print(f"M {r['rows']} extras={r['extras'] or '-'}: max|kernel - plain| {r['rel_err']:.3e} of max (tol "
+              f"{TOL}, {'ok' if good else 'MISMATCH'}) | {r['bytes'] / 1e9:.4f} GB -> bound {r['bound_ms']:.4f} ms "
+              f"at {PEAK_BYTES_S / 1e12:.2f} TB/s | {r['ms']:8.4f} ms/step ({r['bound_share']:.1%} of the bound; "
+              f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s) | {r['syncs_per_step']} grid syncs a step, "
+              f"{r['us_per_phase']:.2f} us a phase | grid {r['grid']}, {r['blocks_per_sm']} blocks/SM, "
+              f"{r['smem_bytes']} B shared a block")
         print(json.dumps(r))
     return 0 if ok else 1
 

@@ -3,8 +3,13 @@ Pallas kernel (scripts/prof_chain_bisect.py, interpret mode) for the eight
 cumulative rungs and a ragged dma case, at 2 layers of the script's H 1536
 and M 8 on `build`'s own operands (rng 0, ones ln, zero cross K/V and
 caches); the ln control; the tanh GELU; the wrapper's dispatch and argument
-checks; the probe entry point's guards and imports; and the CUDA kernel
-against the plain version on a card.
+checks (every shape the kernel refuses); the probe entry point's guards and
+imports; and on a card the CUDA kernel (on kernel D's machinery) against the
+plain version at every rung and two sets off the ladder (which take the
+instantiation that reads the extras at run time), at 48 layers of H 1536 and
+at 3 layers of H 512 (a part-filled wave, a ragged dma chunk), at M 1, 2, 5
+and 8, with the ln control that must miss; its bits over 50 calls in a row;
+and rows of an M-8 call against calls on fewer rows, bit for bit.
 
 The script sets jax's compilation-cache directory and threshold when
 imported; it is loaded by path and both settings are put back afterwards.
@@ -36,6 +41,10 @@ from flux_generator_tpu_torch.ops.kernels.decode_step import CPL
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-2
 FULL = cb.RUNGS[-1]
+# two sets off the ladder: between them they turn on every extra that changes
+# the kernel's code (ln, cross, outs, dma) in the instantiation that reads the
+# extras at run time, which any set off the ladder launches
+OFF_LADDER = ("ln,outs", "cross,hbm,bufs,dma")
 
 
 class _InterpretPallas:
@@ -203,7 +212,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 @pytest.mark.parametrize("bad", ["dma_alone", "dma_no_bufs", "unknown", "missing_ln", "missing_kc", "extra_operand",
                                  "f32_x", "bf16_w", "f32_ln", "ln_shape", "ck_batch", "kc_h", "rows_9", "h_384",
-                                 "outs_one_row", "offset_float", "chunk_0"])
+                                 "outs_one_row", "offset_float", "chunk_0", "rows_0", "h_8448"])
 def test_wrapper_raises(bad):
     w, s, x, ops = _small()
     spec = FULL
@@ -242,14 +251,60 @@ def test_wrapper_raises(bad):
         ops["offset"] = 3.0
     elif bad == "chunk_0":
         ops["chunk"] = 0
+    elif bad == "rows_0":
+        x = x[:0]
+    elif bad == "h_8448":  # shapes only: meta tensors hold no data
+        w, s, x = torch.empty((CPL, 8448, 8448), dtype=torch.int8, device="meta"), \
+            torch.empty((CPL, 1, 8448), dtype=torch.bfloat16, device="meta"), \
+            torch.empty((8, 8448), dtype=torch.bfloat16, device="meta")
+        spec, ops = "", {}
     with pytest.raises(ValueError):
         cb.chain_bisect(w, s, x, spec, **ops)
+
+
+@pytest.mark.parametrize("bad", ["strided_x", "misaligned_w", "misaligned_s", "misaligned_ln", "misaligned_kc",
+                                 "misaligned_vc"])
+def test_kernel_operand_checks_raise(bad):
+    """What the kernel takes beyond the contract: contiguous operands, and w
+    (its TMA map), s, ln and the caches (16-byte loads) 16-byte aligned."""
+    w, s, x, ops = _small()
+    ops.pop("offset")
+
+    def shifted(t):  # the same values one element past a 16-byte boundary
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype)[1:]
+        return flat.copy_(t.reshape(-1)).view(t.shape)
+
+    cb._check_kernel_operands(w, s, x, dict(ops, offset=3))
+    if bad == "strided_x":
+        x = torch.cat([x, x], 1)[:, ::2]
+    elif bad == "misaligned_w":
+        w = shifted(w)
+    elif bad == "misaligned_s":
+        s = shifted(s)
+    else:
+        ops[bad[11:]] = shifted(ops[bad[11:]])
+    with pytest.raises(ValueError):
+        cb._check_kernel_operands(w, s, x, dict(ops, offset=3))
 
 
 def test_extras_parse_as_the_script_does():
     assert cb.parse_extras("smem,,ln") == {"smem", "ln"} == cb.parse_extras(["ln", "smem"])
     assert cb.extras_mask(FULL) == 127 and cb.extras_mask("") == 0 and cb.extras_mask("ln,cross") == 6
     assert cb.RUNGS[0] == "" and cb.RUNGS[3] == cb.LADDER[-1] and len(cb.RUNGS) == 8
+
+
+def test_off_ladder_sets_take_the_run_time_instantiation():
+    """The kernel picks an instantiation by the extras that change its code
+    (ln, cross, outs, dma; chain_bisect.cu's `bisect_kernel`): each rung's
+    own, and for any other set the one that reads the extras at run time.
+    The `cuda` cases' two sets off the ladder mask to no rung's set, and
+    together turn on all four."""
+    code = sum(1 << cb.EXTRAS.index(e) for e in ("ln", "cross", "outs", "dma"))
+    rungs = {cb.extras_mask(r) & code for r in cb.RUNGS}
+    assert {cb.extras_mask(s) & code for s in OFF_LADDER}.isdisjoint(rungs)
+    assert cb.extras_mask(",".join(OFF_LADDER)) & code == code
+    src = (REPO / "flux_generator_tpu_torch" / "csrc" / "decode_probe.cuh").read_text()
+    assert "X_CODE = X_LN | X_CROSS | X_OUTS | X_DMA;" in src
 
 
 def test_probe_entry_point_runs_on_the_card_only(monkeypatch):
@@ -279,26 +334,117 @@ def test_probe_and_wrapper_import_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("spec", cb.RUNGS + ("ln,cross", "hbm,bufs,dma"))
-@pytest.mark.parametrize("m", [8, 2])
-def test_cuda_kernel_matches_plain_version(spec, m):
-    """Every rung (and two sets off the ladder, which take the generic
-    instantiation) at H 1536, 3 layers, a ragged dma chunk, on unit-scale
-    weights (prof_decode_chain.make_inputs)."""
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from flux_generator_tpu_torch.scripts.prof_chain_bisect import make_extra_operands, rel_errors
-    from flux_generator_tpu_torch.scripts.prof_decode_chain import make_inputs
 
+
+def _cuda_case(layers, h, window, seed=0):
+    """Unit-scale weights (as prof_decode_chain.make_inputs), 8 rows and
+    every extra's operands (prof_chain_bisect.make_extra_operands' draws),
+    at width h, on the card."""
     dev = torch.device("cuda")
-    w, s, x = make_inputs(3, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = layers * CPL
+    w = torch.randint(-127, 128, (n, h, h), generator=g, device=dev, dtype=torch.int8)
+    s = ((0.5 + torch.rand((n, 1, h), generator=g, device=dev)) / (127 * h ** 0.5)).to(torch.bfloat16)
+    x = torch.randn((8, h), generator=g, device=dev).to(torch.bfloat16)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    ln = torch.stack([1 + 0.1 * torch.randn((layers, h), generator=g, device=dev),
+                      0.1 * torch.randn((layers, h), generator=g, device=dev)], dim=1).repeat(1, 4, 1)
+    ops = dict(offset=window // 2, ln=ln.to(torch.bfloat16).contiguous(), ck=randn(layers, cb.B, 12, h),
+               cv=randn(layers, cb.B, 12, h), kc=randn(layers, cb.B, window, h), vc=randn(layers, cb.B, window, h))
+    return w, s, x, ops
+
+
+def _pick(ops, spec):
+    ex = cb.parse_extras(spec)
+    return {k: v for k, v in ops.items() if cb.OPERAND_EXTRA[k] in ex}
+
+
+# (layers, H, window, chunk): the probe's shape, and a small one whose phases
+# fill a part of one wave and whose dma chunk is ragged
+CUDA_SHAPES = [(48, 1536, 512, 512), (3, 512, 300, 128)]
+CUDA_SPECS = cb.RUNGS + OFF_LADDER
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES, ids=lambda v: f"L{v[0]}_H{v[1]}")
+@pytest.mark.parametrize("spec,m", [(r, m) for r in CUDA_SPECS for m in (8, 5, 2, 1) if m >= 2 or "outs" not in r])
+def test_cuda_kernel_matches_plain_version(spec, m, shape):
+    """Every rung and the two sets off the ladder against the plain version
+    on the card; M 5 leaves the middle thread group of the rows partly
+    filled."""
+    _card()
+    from flux_generator_tpu_torch.scripts.prof_chain_bisect import rel_errors
+
+    layers, h, window, chunk = shape
+    w, s, x, ops = _cuda_case(layers, h, window)
     x = x[:m].contiguous()
-    ops = make_extra_operands(spec, 3, 300, dev)
+    ops = _pick(ops, spec)
     before = cb.launches
-    got = cb.chain_bisect(w, s, x, spec, chunk=128, **ops)
+    got = cb.chain_bisect(w, s, x, spec, chunk=chunk, **ops)
     torch.cuda.synchronize()
     assert cb.launches == before + 1
-    ref = cb.chain_bisect_plain(w, s, x, spec, chunk=128, **ops)
+    ref = cb.chain_bisect_plain(w, s, x, spec, chunk=chunk, **ops)
     assert all(torch.isfinite(t.float()).all() for t in (got if isinstance(got, tuple) else (got,)))
     assert max(rel_errors(got, ref).values()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES, ids=lambda v: f"L{v[0]}_H{v[1]}")
+def test_cuda_ln_control_misses(shape):
+    """The control: the no-extras kernel against the ln rung's plain version
+    must miss the tolerance that the ln rung's kernel meets."""
+    _card()
+    from flux_generator_tpu_torch.scripts.prof_chain_bisect import rel_errors
+
+    layers, h, window, chunk = shape
+    w, s, x, ops = _cuda_case(layers, h, window, seed=1)
+    ref = cb.chain_bisect_plain(w, s, x, "smem,ln", **_pick(ops, "smem,ln"))
+    assert rel_errors(cb.chain_bisect(w, s, x, "smem,ln", **_pick(ops, "smem,ln")), ref)["y"] <= TOL
+    assert rel_errors(cb.chain_bisect(w, s, x, ""), ref)["y"] > TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES, ids=lambda v: f"L{v[0]}_H{v[1]}")
+@pytest.mark.parametrize("spec", [FULL, "ln,cross,hbm,bufs,dma"])
+def test_cuda_kernel_bits_repeat_over_50_steps(spec, shape):
+    """50 calls in a row give the bits of the first (y, and kn, vn with
+    outs): the fold tickets and the ring's phases start over every step."""
+    _card()
+    layers, h, window, chunk = shape
+    w, s, x, ops = _cuda_case(layers, h, window, seed=2)
+    ops = _pick(ops, spec)
+
+    def bits():
+        out = cb.chain_bisect(w, s, x, spec, chunk=chunk, **ops)
+        return [t.view(torch.int16) for t in (out if isinstance(out, tuple) else (out,))]
+
+    first = bits()
+    again = [bits() for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for later in again for a, b in zip(first, later))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES, ids=lambda v: f"L{v[0]}_H{v[1]}")
+def test_cuda_kernel_rows_do_not_depend_on_m(shape):
+    """Row r of an M-8 call equals an M-1 call on row r, bit for bit (every
+    extra but outs, which writes rows 0 and 1); with every extra, rows 0-1
+    of y, kn and vn equal an M-2 call's."""
+    _card()
+    layers, h, window, chunk = shape
+    w, s, x, ops = _cuda_case(layers, h, window, seed=3)
+    spec = "smem,ln,cross,hbm,bufs,dma"
+    y8 = cb.chain_bisect(w, s, x, spec, chunk=chunk, **_pick(ops, spec))
+    for r in range(8):
+        y1 = cb.chain_bisect(w, s, x[r:r + 1].contiguous(), spec, chunk=chunk, **_pick(ops, spec))
+        assert torch.equal(y8[r:r + 1].view(torch.int16), y1.view(torch.int16)), r
+    full8 = cb.chain_bisect(w, s, x, FULL, chunk=chunk, **_pick(ops, FULL))
+    full2 = cb.chain_bisect(w, s, x[:2].contiguous(), FULL, chunk=chunk, **_pick(ops, FULL))
+    assert torch.equal(full8[0][:2].view(torch.int16), full2[0].view(torch.int16))
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(full8[1:], full2[1:]))
