@@ -15,7 +15,8 @@ Phases, each of which fails the run on error:
                       setmaxnreg split and rows a block), A's
                       int8 kernel (eight instantiations) and its pre-pass, B's
                       five instantiations (with their ring stages and tiles),
-                      E and F, G's GEMM and #13's bf16 kernel, and of D's four
+                      E and F, G's GEMM and #13's three kernels (each mode
+                      at K 32, 128 and 256), and of D's four
                       instantiations with its ring stages, grid syncs a
                       layer and SASS size; A's bf16 kernel (both head dims),
                       A's int8 kernel and pre-pass, B, E, F, G, #13 and D
@@ -101,7 +102,9 @@ Phases, each of which fails the run on error:
                       and SDPA's forward, with bounds and the exp floor.
      kernels-bare-dot — the bare-dot probe #13 in its three modes (bf16, int8,
                       int8 quantized inside) at 64 steps of (1024, 128)·(128,
-                      1024), bf16 in turns with torch.bmm, its yardstick.
+                      1024), the int8 modes bit for bit, the three in turns
+                      with torch.bmm (bf16's yardstick) and a zero fill of
+                      out's size, each with its share of its bound.
      kernels-flash-streamed — A through flash_attention_streamed at L 16640
                       (the 2048² sequence): "", "qk" and "full" in groups of
                       1024 keys, held to their plain versions two heads at a
@@ -570,12 +573,19 @@ def phase_build():
                 f"{rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} bytes of shared memory a "
                 f"block, {rec['blocks_per_sm']} block(s) an SM")
     g_info = {f"{bk}x{bn}": wm.kernel_info(bk, bn) for bk in wm.BK_CANDIDATES for bn in wm.TILE_WIDTHS}
-    dot_info = {k: bd.bf16_kernel_info(k) for k in (bd.K_RANGE[0], 128, bd.K_RANGE[1])}
-    for label, recs in (("w8a8_matmul G GEMM, K block x tile width", g_info), ("bare_dot bf16, K", dot_info)):
-        for key, rec in recs.items():
-            log(f"[build] {label} {key}: {rec['registers']} registers a thread at launch (setmaxnreg: 40 "
-                f"producer, 232 consumers), {rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} "
-                f"bytes of shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
+    for key, rec in g_info.items():
+        log(f"[build] w8a8_matmul G GEMM, K block x tile width {key}: {rec['registers']} registers a thread at "
+            f"launch (setmaxnreg: 40 producer, 232 consumers), {rec['spill_bytes']} bytes of local memory, "
+            f"{rec['smem_bytes']} bytes of shared memory a block, {rec['blocks_per_sm']} block(s) an SM")
+    # #13 in each mode (the int8 modes one instantiation a K / 32)
+    dot_info = {f"{mode}, K {k}": bd.kernel_info(mode, k) for mode in bd.MODES
+                for k in (bd.K_RANGE[0], 128, bd.K_RANGE[1])}
+    nreg = {"bf16": "40 producer, 232 consumers", "int8": "40 producer, 232 consumers",
+            "int8_quant_inside": "96 quantizer, 200 consumers"}
+    for key, rec in dot_info.items():
+        log(f"[build] bare_dot {key}: {rec['registers']} registers a thread at launch (setmaxnreg: "
+            f"{nreg[key.split(',')[0]]}), {rec['spill_bytes']} bytes of local memory, {rec['smem_bytes']} bytes of "
+            f"shared memory a block, {rec['blocks_per_sm']} block(s) an SM, a ring of {rec['stages']} stages")
     b_info = {f"{nw} rows, {mode}": im.kernel_info(nw, mode) for nw in im.ROW_TILES for mode in im.SCALE_MODES
               if nw == 128 or mode != "group_row"}
     for key, rec in b_info.items():
@@ -607,7 +617,7 @@ def phase_build():
                                                     if re.match(r"\s+/\*[0-9a-f]{4,}\*/", line))
     log("[build] decode_step D code: " + ", ".join(f"{n} instructions ({n * 16 // 1024} KB)" for n in
                                                       d_code.values()) + " an instantiation")
-    # A's bf16 and int8 kernels, B, E, F, G's GEMM and #13's bf16 kernel keep their products
+    # A's bf16 and int8 kernels, B, E, F, G's GEMM and #13's three kernels keep their products
     # asynchronous and in registers; none of them, nor A's int8 pre-pass or D, spills
     serialized = [line.strip() for name in ("flash_attention_sm90", "flash_attention", "int4_matmul",
                                             "flash_attention_bwd", "w8a8_matmul", "bare_dot", "decode_step")
@@ -616,7 +626,7 @@ def phase_build():
     spills.update({("A bf16", d): r["spill_bytes"] for d, r in info.items() if r["spill_bytes"]})
     spills.update({("G", key): r["spill_bytes"] for key, r in g_info.items() if r["spill_bytes"]})
     spills.update({("B", key): r["spill_bytes"] for key, r in b_info.items() if r["spill_bytes"]})
-    spills.update({("bare_dot_bf16", k): r["spill_bytes"] for k, r in dot_info.items() if r["spill_bytes"]})
+    spills.update({("bare_dot", k): r["spill_bytes"] for k, r in dot_info.items() if r["spill_bytes"]})
     spills.update({("A int8", k): r["spill_bytes"] for k, r in int8_info.items() if r["spill_bytes"]})
     spills.update({("A int8 pre-pass", k): r["spill_bytes"] for k, r in pre_info.items() if r["spill_bytes"]})
     # D's phases are calls with a stack: its spills are ptxas's, for the kernels and every function;
@@ -631,7 +641,7 @@ def phase_build():
         raise AssertionError(f"tensor-core kernels: serialized {serialized}, spills {spills}")
     return {"flash_attention_sm90": info, "flash_attention_int8": int8_info, "flash_attention_int8_prepass": pre_info,
             "flash_attention_bwd": bwd_info, "w8a8_matmul": g_info, "int4_matmul": b_info,
-            "bare_dot_bf16": dot_info, "decode_step": d_info, "decode_step_sass_instructions": d_code,
+            "bare_dot": dot_info, "decode_step": d_info, "decode_step_sass_instructions": d_code,
             "decode_chain": chain_info}
 
 
@@ -979,12 +989,14 @@ def _int4_with_plan(x, p, nw, splits, grid):
 def phase_kernels_bare_dot():
     """The bare-dot probe #13 in its three modes at the probe's shapes (64
     steps of (1024, 128)·(128, 1024)) against its plain version: the int8
-    modes bit for bit, bf16 within one bf16 step of max|out|. The yardstick
-    for "bf16" is torch.bmm on the same blocks, timed in turns with the
-    kernel and with a zero fill of out's size (what its 134 MB alone take to
-    write); no PyTorch call computes the int8 modes (torch._int_mm has no
-    batched form, and none quantizes inside), which are timed alone on the
-    same clock (CUDA events behind a sleep kernel)."""
+    modes bit for bit, bf16 within one bf16 step of max|out|. The three
+    modes, torch.bmm on the bf16 blocks (the yardstick for "bf16") and a zero
+    fill of out's size (what its 134 MB alone take to write) are timed in
+    turns (CUDA events behind a sleep kernel); no PyTorch call computes the
+    int8 modes (torch._int_mm has no batched form, and none quantizes
+    inside). Each mode's share of its bound (bytes: a and b read once, out
+    written once) is printed, and the int8 modes' launch plans (blocks,
+    blocks a cluster)."""
     import torch
 
     from flux_generator_tpu_torch.ops.kernels import bare_dot as bd
@@ -992,46 +1004,50 @@ def phase_kernels_bare_dot():
 
     dev = torch.device("cuda")
     steps = 64
-    cases = {}
-    for mode in bd.MODES:
-        a, b = dot_inputs(mode, steps, dev, seed=13)
-        out = bd.bare_dot(a, b, mode)
+    inputs = {mode: dot_inputs(mode, steps, dev, seed=13) for mode in bd.MODES}
+    checks = {}
+    for mode, (a, b) in inputs.items():
         ref = bd.bare_dot_reference(a, b, mode)
-        err = (out.float() - ref.float()).abs().max().item()
+        err = (bd.bare_dot(a, b, mode).float() - ref.float()).abs().max().item()
         tol = 0.0 if mode != "bf16" else 2.0 ** -8 * ref.float().abs().max().item()
         plain_ms = time_ms(lambda: bd.bare_dot_reference(a, b, mode), iters=5, warmup=1)
-        library_ms = lib_turns = zero_turns = None
-        if mode == "bf16":
-            # yardsticks in turns: torch.bmm on the same blocks, and the output's
-            # bytes alone (a zero fill of a tensor of out's size)
-            a3, b3 = a.view(steps, BM, K), b.view(K, steps, BN).permute(1, 0, 2)
-            lib_err = (torch.bmm(a3, b3).reshape(steps * BM, BN).float() - ref.float()).abs().max().item()
-            turns = in_turns({"kernel": lambda: bd.bare_dot(a, b, mode), "bmm": lambda: torch.bmm(a3, b3),
-                              "zero": lambda: out.zero_()})
-            kernel_turns, lib_turns, zero_turns = turns["kernel"], turns["bmm"], turns["zero"]
-            library_ms = statistics.mean(lib_turns)
-        else:
-            kernel_turns = [time_ms_queued(lambda: bd.bare_dot(a, b, mode))]
-        ms = statistics.mean(kernel_turns)
+        checks[mode] = (err, tol, plain_ms)
+        del ref
+    a3 = inputs["bf16"][0].view(steps, BM, K)
+    b3 = inputs["bf16"][1].view(K, steps, BN).permute(1, 0, 2)
+    lib_err = (torch.bmm(a3, b3).reshape(steps * BM, BN).float()
+               - bd.bare_dot_reference(*inputs["bf16"], "bf16").float()).abs().max().item()
+    out = torch.empty((steps * BM, BN), dtype=torch.bfloat16, device=dev)
+    fns = {mode: (lambda m=mode: bd.bare_dot(*inputs[m], m)) for mode in bd.MODES}
+    turns = in_turns({**fns, "bmm": lambda: torch.bmm(a3, b3), "zero": lambda: out.zero_()})
+    log("[kernels-bare-dot] in turns: " + " | ".join(f"{name} " + " ".join(f"{t:.4f}" for t in ts) + " ms"
+                                                     for name, ts in turns.items())
+        + f" | torch.bmm max|Δ| {lib_err:.3e}")
+    cases = {}
+    failures = []
+    for mode, (a, b) in inputs.items():
+        err, tol, plain_ms = checks[mode]
+        ms = statistics.mean(turns[mode])
         flop = 2 * BM * K * BN * steps
-        # a and b once, out (bf16) once
         nbytes = a.numel() * a.element_size() + b.numel() * b.element_size() + 2 * steps * BM * BN
-        bound = bound_ms(flop, nbytes, PEAK_BF16_FLOPS if mode != "int8" else PEAK_INT8_OPS)
-        log(f"[kernels-bare-dot] {mode} steps={steps}: max|Δ| {err:.3e} (tol {tol:.3e}) | kernel "
-            + " ".join(f"{t:.4f}" for t in kernel_turns)
-            + f" ms ({flop / ms / 1e9:.1f} TFLOP/s-eff, {nbytes / ms / 1e6:.1f} GB/s, {100 * bound[0] / ms:.1f}% "
-            f"of its bound) | plain {plain_ms:.4f} ms | "
-            + (("torch.bmm in turns " + " ".join(f"{t:.4f}" for t in lib_turns) + f" ms (max|Δ| {lib_err:.3e}), "
-                "out's bytes alone (zero fill) " + " ".join(f"{t:.4f}" for t in zero_turns) + " ms")
-               if lib_turns else "library none")
-            + f" | bound {bound[0]:.4f} ms ({bound[1]})")
+        bound = bound_ms(flop, nbytes, PEAK_INT8_OPS if mode != "bf16" else PEAK_BF16_FLOPS)
+        plan = bd.plan(mode, K, BM, BN, steps) if mode != "bf16" else None
+        library_ms = statistics.mean(turns["bmm"]) if mode == "bf16" else None
+        log(f"[kernels-bare-dot] {mode} steps={steps}: max|Δ| {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms "
+            f"({flop / ms / 1e9:.1f} TOP/s-eff, {nbytes / ms / 1e6:.1f} GB/s, {100 * bound[0] / ms:.1f}% of its bound "
+            f"{bound[0]:.4f} ms ({bound[1]}); {ms / statistics.mean(turns['bf16']):.3f}× bf16, "
+            f"{ms / statistics.mean(turns['zero']):.3f}× the zero fill) | plain {plain_ms:.4f} ms"
+            + (f" | launch {plan['grid']} blocks, clusters of {plan['cluster']}" if plan else "")
+            + (f" | torch.bmm {library_ms:.4f} ms" if library_ms else " | library none"))
         if not err <= tol:
-            raise AssertionError(f"bare dot {mode} disagrees with its plain version: {err} > {tol}")
-        cases[mode] = dict(case=f"{mode}_steps{steps}", max_abs_err=err, ms=ms, ms_in_turns=kernel_turns,
-                           plain_ms=plain_ms, library_ms=library_ms, library_ms_in_turns=lib_turns,
-                           zero_fill_ms_in_turns=zero_turns,
-                           bound_ms=bound[0], bound_by=bound[1], bound_share=bound[0] / ms)
-        del a, b, out, ref
+            failures.append(f"{mode}: {err} > {tol}")
+        cases[mode] = dict(case=f"{mode}_steps{steps}", max_abs_err=err, ms=ms, ms_in_turns=turns[mode],
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           library_ms_in_turns=turns["bmm"] if mode == "bf16" else None,
+                           zero_fill_ms_in_turns=turns["zero"], bound_ms=bound[0], bound_by=bound[1],
+                           bound_share=bound[0] / ms, plan=plan)
+    if failures:
+        raise AssertionError("bare dot disagrees with its plain version: " + "; ".join(failures))
     return {"bare_dot": cases}
 
 

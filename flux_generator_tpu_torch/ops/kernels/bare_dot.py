@@ -17,9 +17,16 @@ The division by 127 is taken as XLA compiles the TPU script's `/ 127.0`, a
 multiplication by f32(1/127) (PyTorch's CUDA division by a scalar does the
 same); x / s is an IEEE division.
 
-On the card "bf16" runs a persistent wgmma kernel fed by TMA (it needs
-16-byte aligned operands); the int8 modes run an mma.sync kernel, a block
-a 128 × 128 output tile.
+On the card every mode runs a persistent wgmma kernel fed by TMA (it needs
+16-byte aligned operands). "bf16" walks 128 × 128 output tiles; the int8
+modes swap the product's roles, since Hopper's int8 wgmma takes K-major
+operands only and b is MN-major: a block keeps a 128-column tile of b as
+int8 A fragments in registers and walks the step's row tiles of a, the
+K-major B operand. "int8_quant_inside" runs in thread-block clusters of
+`cluster_size(bn)` blocks, one a column tile of a step, which quantize each
+a row once for the whole cluster (through distributed shared memory) and
+each b column once: each a row is quantized BN / 128 / `cluster_size(bn)`
+times a step (once at the probe's BN 1024), each b column once.
 
 `bare_dot` dispatches on the inputs' device only: CPU tensors go to
 `bare_dot_reference`, CUDA tensors to the kernel, which raises for what it
@@ -45,10 +52,13 @@ TILE = 128  # output rows and columns per block
 K_RANGE = (32, 256)  # the kernel stages the whole K of a tile in shared memory
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
-    "fgt_bare_dot": [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-    "fgt_bare_dot_bf16_info": [ctypes.c_int, _P, _P, _P, _P],
+    "fgt_bare_dot": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fgt_bare_dot_info": [_I, _I, _P, _P, _P, _P, _P],
+    "fgt_bare_dot_plan": [_I, _I, _I, _I, _I, _P, _P],
 }
+MAX_CLUSTER = 8  # "int8_quant_inside": blocks a cluster at most (the portable limit)
 
 
 def _quant(x: torch.Tensor, dim: int):
@@ -57,6 +67,13 @@ def _quant(x: torch.Tensor, dim: int):
     with f32(1/127) that XLA compiles it to."""
     s = x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-20) * (1.0 / 127.0)
     return torch.clamp(torch.round(x / s), -127, 127).double(), s
+
+
+def cluster_size(bn: int) -> int:
+    """Blocks a cluster of the "int8_quant_inside" kernel: the largest divisor
+    of the column tiles a step (BN / 128) up to MAX_CLUSTER."""
+    tiles = bn // TILE
+    return next(c for c in range(min(MAX_CLUSTER, tiles), 0, -1) if tiles % c == 0)
 
 
 def _steps(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int) -> int:
@@ -105,8 +122,8 @@ def _check_cuda_args(a, b, mode, bm, bn):
         raise ValueError(f"bare dot kernel takes BM, BN multiples of {TILE}, got {bm}, {bn}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("bare dot kernel takes contiguous operands")
-    if mode == "bf16" and (a.data_ptr() % 16 or b.data_ptr() % 16):
-        raise ValueError("bare dot kernel takes 16-byte aligned bf16 operands (TMA)")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("bare dot kernel takes 16-byte aligned operands (TMA, cp.async)")
     if b.device != a.device:
         raise ValueError("a and b must lie on one device")
 
@@ -124,13 +141,25 @@ def _bare_dot_cuda(a, b, mode, bm, bn):
     return out
 
 
-def bf16_kernel_info(k: int = 128) -> dict:
-    """The "bf16" kernel at K: registers a thread at launch, local memory
-    (spill) bytes a thread, shared memory bytes a block, blocks an SM."""
+def kernel_info(mode: str, k: int = 128) -> dict:
+    """A mode's kernel at K: registers a thread at launch, local memory
+    (spill) bytes a thread, shared memory bytes a block, blocks an SM, ring
+    stages."""
     lib = _build.load("bare_dot", _SIGNATURES)
-    vals = [ctypes.c_int() for _ in range(4)]
-    _build.check("fgt_bare_dot_bf16_info", lib.fgt_bare_dot_bf16_info(k, *(ctypes.byref(v) for v in vals)))
-    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), (v.value for v in vals)))
+    vals = [ctypes.c_int() for _ in range(5)]
+    _build.check("fgt_bare_dot_info",
+                 lib.fgt_bare_dot_info(MODES.index(mode), k, *(ctypes.byref(v) for v in vals)))
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm", "stages"), (v.value for v in vals)))
+
+
+def plan(mode: str, k: int, bm: int, bn: int, steps: int) -> dict:
+    """An int8 mode's launch on the current card: blocks in the grid, blocks
+    a cluster."""
+    lib = _build.load("bare_dot", _SIGNATURES)
+    grid, cluster = ctypes.c_int(), ctypes.c_int()
+    _build.check("fgt_bare_dot_plan", lib.fgt_bare_dot_plan(MODES.index(mode), k, bm, bn, steps,
+                                                            ctypes.byref(grid), ctypes.byref(cluster)))
+    return dict(grid=grid.value, cluster=cluster.value)
 
 
 def bare_dot(a: torch.Tensor, b: torch.Tensor, mode: str, bm: int = 1024, bn: int = 1024) -> torch.Tensor:

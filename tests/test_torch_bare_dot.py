@@ -1,9 +1,14 @@
 """The bare-dot probe (#13): the plain version against the JAX script's
 `_dot_kernel` under `pl.pallas_call(..., interpret=True)` with the script's
-BlockSpecs at BM = BN = 256, K 128, 2 steps, on seeded random inputs; the
-wrapper's dispatch and argument checks; the port's probe entry point
-(`--cpu`, the card-only guard, no jax import); and the CUDA kernel against
-the plain version on a card.
+BlockSpecs at BM = BN = 256, K 128, 2 steps, on seeded random inputs, and at
+the int8 extremes (−128 · −128 over K 256, whose sums reach 2^22; 127
+against −127; a zero row of a and a zero column of b, whose scales are
+1e-20 / 127); the wrapper's dispatch, argument checks and cluster rule; the
+port's probe entry point (`--cpu`, the card-only guard, no jax import); and
+the CUDA kernel against the plain version on a card: every mode at shapes
+that leave the last persistent round part-empty, at the probe's 64 steps, at
+K 32 and 256, with its output laid over freed memory filled with NaN (a tile
+the kernel never writes shows), and the int8 modes at the same extremes.
 
 The script (scripts/prof_attn_int8.py) sets jax's compilation-cache
 directory when imported; it is loaded by path and the setting is put back.
@@ -60,6 +65,26 @@ def _inputs(mode, seed=0, k=K, steps=STEPS, bm=BM, bn=BN):
         np.float32)
 
 
+def _extreme_inputs(case, k=256, steps=STEPS, bm=BM, bn=BN):
+    """a, b (f32 holding int8 levels or bf16 values) at the int8 extremes."""
+    rng = np.random.default_rng(7)
+    if case == "min_times_min":  # every sum −128 · −128 · K: 2^22 at K 256
+        return np.full((steps * bm, k), -128, np.float32), np.full((k, steps * bn), -128, np.float32)
+    if case == "max_against_min":  # 127 against −127 (even columns) and −128 (odd): the most negative sums
+        b = np.full((k, steps * bn), -127, np.float32)
+        b[:, 1::2] = -128
+        return np.full((steps * bm, k), 127, np.float32), b
+    # "zero_row_and_column": bf16 values with a zero row of a and a zero column of b in every step
+    a = rng.standard_normal((steps * bm, k)).astype(np.float32)
+    b = rng.standard_normal((k, steps * bn)).astype(np.float32)
+    a[5::bm] = 0.0
+    b[:, 7::bn] = 0.0
+    return a, b
+
+
+EXTREMES = [("int8", "min_times_min"), ("int8", "max_against_min"), ("int8_quant_inside", "zero_row_and_column")]
+
+
 def _tol(mode, ref):
     return 0.0 if mode != "bf16" else 2.0 ** -8 * float(np.abs(ref).max())
 
@@ -97,6 +122,49 @@ def test_plain_version_matches_the_script_kernel(script, mode):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=_tol(mode, want))
 
 
+@pytest.mark.parametrize("mode,case", EXTREMES)
+def test_plain_version_matches_the_script_kernel_at_int8_extremes(script, mode, case):
+    """Exact on both sides: integer sums up to 2^22 in f32, and a row or
+    column of zeros quantized with the 1e-20 floor of its scale."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    k = 256
+    a, b = _extreme_inputs(case, k=k)
+    dt = jnp.int8 if mode == "int8" else jnp.bfloat16
+    f = pl.pallas_call(
+        functools.partial(script._dot_kernel, mode=mode),
+        grid=(STEPS,),
+        in_specs=[pl.BlockSpec((BM, k), lambda i: (i, 0)), pl.BlockSpec((k, BN), lambda i: (0, i))],
+        out_specs=pl.BlockSpec((BM, BN), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((STEPS * BM, BN), jnp.bfloat16),
+        interpret=True,
+    )
+    want = np.asarray(f(jnp.asarray(a).astype(dt), jnp.asarray(b).astype(dt)).astype(jnp.float32))
+    tdt = torch.int8 if mode == "int8" else torch.bfloat16
+    got = bd.bare_dot(torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt), mode, bm=BM, bn=BN).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == "min_times_min":
+        assert (got == 2.0 ** 22).all()
+    if case == "max_against_min":
+        assert set(np.unique(got)) == {float(torch.tensor(-127.0 * c * k).bfloat16()) for c in (127, 128)}
+    if case == "zero_row_and_column":
+        assert (got[5::BM] == 0).all() and (got[:, 7] == 0).all()
+
+
+@pytest.mark.parametrize("bn,cluster,times", [(1024, 8, 1), (384, 3, 1), (128, 1, 1), (1280, 5, 2), (1408, 1, 11),
+                                              (2048, 8, 2)])
+def test_quant_inside_cluster_rule(bn, cluster, times):
+    """"int8_quant_inside" runs in clusters of the largest divisor of BN / 128
+    up to 8 blocks, one a column tile, and quantizes each a row once for each
+    cluster of a step."""
+    assert bd.cluster_size(bn) == cluster
+    assert bn // bd.TILE // bd.cluster_size(bn) == times
+
+
 def test_steps_are_block_diagonal():
     """Step i multiplies rows i·BM.. of a by columns i·BN.. of b only."""
     a, b = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs("bf16", seed=2))
@@ -127,7 +195,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 @pytest.mark.parametrize("bad", ["mode", "dtype", "k_not_32", "k_too_big", "bm_not_128", "ragged_steps",
-                                 "non_contiguous", "misaligned_bf16"])
+                                 "non_contiguous", "misaligned_bf16", "misaligned_int8"])
 def test_kernel_argument_checks_raise(bad):
     a = torch.zeros((2 * 256, 128), dtype=torch.bfloat16)
     b = torch.zeros((128, 2 * 256), dtype=torch.bfloat16)
@@ -149,6 +217,10 @@ def test_kernel_argument_checks_raise(bad):
         b = torch.zeros((2 * 256, 128), dtype=torch.bfloat16).t()
     elif bad == "misaligned_bf16":  # contiguous, but 2 bytes into its buffer: "bf16" loads with TMA
         a = torch.zeros(2 * 256 * 128 + 8, dtype=torch.bfloat16)[1:1 + 2 * 256 * 128].view(2 * 256, 128)
+    elif bad == "misaligned_int8":  # contiguous, but 4 bytes into its buffer: the int8 modes load with TMA too
+        mode = "int8"
+        a = torch.zeros(2 * 256 * 128 + 16, dtype=torch.int8)[4:4 + 2 * 256 * 128].view(2 * 256, 128)
+        b = torch.zeros((128, 2 * 256), dtype=torch.int8)
     with pytest.raises(ValueError):
         bd._check_cuda_args(a, b, mode, bm, bn)
     bd._check_cuda_args(torch.zeros((512, 64), dtype=torch.int8), torch.zeros((64, 512), dtype=torch.int8),
@@ -179,11 +251,24 @@ def test_probe_entry_point_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def _on_freed_nan(shape):
+    """Leave a freed block of `shape` bf16 filled with NaN in the caching
+    allocator, where the next output of that size is likely to lie."""
+    torch.empty(shape, dtype=torch.bfloat16, device="cuda").fill_(float("nan"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", bd.MODES)
 @pytest.mark.parametrize("k,steps,bm,bn", [(128, 2, 1024, 1024), (128, 3, 256, 384), (64, 1, 128, 128),
-                                           (256, 2, 256, 256), (96, 2, 256, 128), (32, 3, 128, 256)])
+                                           (256, 2, 256, 256), (96, 2, 256, 128), (32, 3, 128, 256),
+                                           (128, 3, 384, 256), (128, 64, 1024, 1024), (128, 67, 128, 1024),
+                                           (160, 3, 256, 640), (256, 5, 384, 1152)])
 def test_cuda_kernel_matches_plain_version(mode, k, steps, bm, bn):
+    """(128, 3, 384, 256): 6 units or 18 tiles, one part-empty round;
+    (128, 64, ...): the probe's 512 units, a part-empty fourth round on 132
+    blocks, 64 cluster units on 15 clusters of 8; (128, 67, 128, 1024): 536
+    units, 67 cluster units; BN 384 and 640 and 1152: clusters of 3, 5 and 3
+    blocks, BN 128 and 256 of 1 and 2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -191,8 +276,29 @@ def test_cuda_kernel_matches_plain_version(mode, k, steps, bm, bn):
     tdt = torch.int8 if mode == "int8" else torch.bfloat16
     a, b = torch.from_numpy(a).to("cuda", tdt), torch.from_numpy(b).to("cuda", tdt)
     before = bd.launches[mode]
+    _on_freed_nan((steps * bm, bn))
     got = bd.bare_dot(a, b, mode, bm=bm, bn=bn)
     torch.cuda.synchronize()
     assert bd.launches[mode] == before + 1
+    assert not got.isnan().any()
     ref = bd.bare_dot_reference(a, b, mode, bm=bm, bn=bn).float()
     assert (got.float() - ref).abs().max().item() <= _tol(mode, ref.cpu().numpy())
+    if mode != "bf16":
+        assert bd.plan(mode, k, bm, bn, steps)["cluster"] == (bd.cluster_size(bn) if mode != "int8" else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,case", EXTREMES)
+def test_cuda_int8_kernels_exact_at_the_extremes(mode, case):
+    """K 256: sums of ±2^22 convert to f32 exactly (the kernel's magic-number
+    conversion holds at both ends), and zero rows and columns keep their
+    1e-20 / 127 scales; bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b = _extreme_inputs(case, k=256, steps=3, bm=256, bn=1024)
+    tdt = torch.int8 if mode == "int8" else torch.bfloat16
+    a, b = torch.from_numpy(a).to("cuda", tdt), torch.from_numpy(b).to("cuda", tdt)
+    _on_freed_nan((3 * 256, 1024))
+    got = bd.bare_dot(a, b, mode, bm=256, bn=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bd.bare_dot_reference(a, b, mode, bm=256, bn=1024))
