@@ -40,9 +40,11 @@ import torch.nn.functional as F
 from ...io.params import stack_layers, take_layer
 from ...ops.attention import dot_product_attention
 from ...ops.embeddings import sinusoidal_positions
-from ...ops.kernels.decode_step import fused_decode_step, pack_decode_weights, packable, to_e4m3
+from ...ops.kernels.decode_step import (PHASE_NAMES, fused_decode_step, pack_decode_weights, packable,
+                                        phase_split, to_e4m3)
 from ...ops.linear import _dequant, dense, init_dense, rand_normal
 from ...ops.norms import layer_norm
+from ...runtime.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,15 +242,25 @@ def decode_step(params, cfg: MusicGenConfig, tokens, cross_kv, k_cache, v_cache,
 
 
 def decode_step_fused(packed, params, cfg: MusicGenConfig, tokens, cross_kv, k_cache, v_cache,
-                      offset: int, cond_len=None):
+                      offset: int, cond_len=None, timers=None):
     """decode_step through the fused step (kernel D on CUDA tensors, its
     plain version on CPU ones). cross_kv: (ck, cv) each (L, B, S, H) with
-    heads flattened; caches (L, B, W, H), written in place at `offset`."""
+    heads flattened; caches (L, B, W, H), written in place at `offset`;
+    `timers` an optional row for D's phase stamps (CUDA only)."""
     x = _embed_tokens(params, cfg, tokens, offset)
     ck, cv = cross_kv
     y, k_cache, v_cache = fused_decode_step(packed, x[:, 0, :], ck, cv, offset, k_cache, v_cache,
-                                            cond_len, n_heads=cfg.num_attention_heads)
+                                            cond_len, n_heads=cfg.num_attention_heads, timers=timers)
     return _logits(params, y[:, None, :]), k_cache, v_cache
+
+
+def _stamped(stamps, n_layers: int) -> dict:
+    """D's stamps of a loop (steps, 7·L + 1) → its phases' ms summed over
+    the layers and steps (`d_phase_ms`), and each step's stamped ms
+    (`d_step_ms`): small tensors on the stamps' device, queued there with no
+    synchronize, so the stamps themselves are freed."""
+    ms = phase_split(stamps, n_layers) / 1e3
+    return {"d_phase_ms": dict(zip(PHASE_NAMES, ms.sum(0).unbind())), "d_step_ms": ms.sum(1)}
 
 
 def top_k_sample(generator, logits, top_k: int, temperature: float):
@@ -305,7 +317,8 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
     live_n = torch.as_tensor(live_steps, device=device).reshape(-1).expand(n)
 
     cond = torch.cat([conditioning, torch.zeros_like(conditioning)], dim=0)  # CFG: [cond; uncond]
-    cross_kv = precompute_cross_kv(params, cfg, cond)
+    with span("fgt.musicgen.cross_kv", device):
+        cross_kv = precompute_cross_kv(params, cfg, cond)
     cl2 = None
     if cond_len is not None:
         cl = torch.as_tensor(cond_len, dtype=torch.int32, device=device).reshape(n)
@@ -314,7 +327,8 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
     fused = cfg.ffn_dim == 4 * cfg.hidden_size and packable(params["layers"])
     L, B2, H = cfg.num_hidden_layers, 2 * n, cfg.hidden_size
     if fused:
-        packed = pack_decode_weights(params["layers"], H, cfg.ffn_dim)
+        with span("fgt.musicgen.repack", device):
+            packed = pack_decode_weights(params["layers"], H, cfg.ffn_dim)
         ckv = tuple(a.reshape(L, B2, a.shape[2], H) for a in cross_kv)
         k_cache = torch.zeros((L, B2, max_steps, H), dtype=kv_dt, device=device)
         v_cache = torch.zeros_like(k_cache)
@@ -329,22 +343,30 @@ def generate(params, cfg: MusicGenConfig, conditioning, max_steps: int = 200, to
             step_events.append(torch.cuda.Event(enable_timing=True))
             step_events[-1].record()
 
-    mark()
-    for offset in range(max_steps):
-        tok = seq[:, offset:offset + 1]
-        tok2 = torch.cat([tok, tok], dim=0)
-        if fused:
-            logits, k_cache, v_cache = decode_step_fused(packed, params, cfg, tok2, ckv, k_cache,
-                                                         v_cache, offset, cond_len=cl2)
-        else:
-            logits, k_cache, v_cache = decode_step(params, cfg, tok2, cross_kv, k_cache, v_cache,
-                                                   offset, cond_len=cl2, w8a8=w8a8)
-        cond_l, uncond_l = logits[:n, 0], logits[n:, 0]  # (n, V, K)
-        mixed = uncond_l + (cond_l - uncond_l) * guidance_coef
-        sampled = top_k_sample(generator, mixed, top_k, temperature)  # (n, K)
-        live = (offset >= ks[None]) & (offset <= live_n[:, None] - K + ks[None])
-        seq[:, offset + 1] = torch.where(live, sampled, cfg.bos_token_id)
+    with span("fgt.musicgen.ar", device) as ar:
+        stamps = None
+        if ar is not None and fused and device.type == "cuda":
+            # D's phase stamps, a row a step, reduced on the device as the loop ends
+            stamps = torch.zeros((max_steps, len(PHASE_NAMES) * L + 1), dtype=torch.int64, device=device)
         mark()
+        for offset in range(max_steps):
+            tok = seq[:, offset:offset + 1]
+            tok2 = torch.cat([tok, tok], dim=0)
+            if fused:
+                logits, k_cache, v_cache = decode_step_fused(
+                    packed, params, cfg, tok2, ckv, k_cache, v_cache, offset, cond_len=cl2,
+                    timers=None if stamps is None else stamps[offset])
+            else:
+                logits, k_cache, v_cache = decode_step(params, cfg, tok2, cross_kv, k_cache, v_cache,
+                                                       offset, cond_len=cl2, w8a8=w8a8)
+            cond_l, uncond_l = logits[:n, 0], logits[n:, 0]  # (n, V, K)
+            mixed = uncond_l + (cond_l - uncond_l) * guidance_coef
+            sampled = top_k_sample(generator, mixed, top_k, temperature)  # (n, K)
+            live = (offset >= ks[None]) & (offset <= live_n[:, None] - K + ks[None])
+            seq[:, offset + 1] = torch.where(live, sampled, cfg.bos_token_id)
+            mark()
+        if stamps is not None:
+            ar.attrs.update(_stamped(stamps, L))
 
     t_out = max_steps - K + 1  # undo the delay: codebook k shifted back by k
     return torch.stack([seq[:, k + 1:k + 1 + t_out, k] for k in range(K)], dim=1)

@@ -301,6 +301,10 @@ def _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cach
     _check_cuda_args(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads)
     b, h = x.shape
     n_layers = packed["w"].shape[0] // CPL
+    if timers is not None and (timers.dtype != torch.int64 or timers.device != x.device
+                               or not timers.is_contiguous()
+                               or timers.numel() < len(PHASE_NAMES) * n_layers + 1):
+        raise ValueError(f"timers must be {len(PHASE_NAMES) * n_layers + 1} contiguous int64 on {x.device}")
     lib = _build.load("decode_step", _SIGNATURES)
     y = torch.empty_like(x)
     w_is_int8 = int(packed["w"].dtype == torch.int8)
@@ -352,17 +356,26 @@ def phase_times(packed, x, cross_k, cross_v, offset: int, k_cache, v_cache, cond
     n_layers = packed["w"].shape[0] // CPL
     stamps = torch.zeros(len(PHASE_NAMES) * n_layers + 1, dtype=torch.int64, device=x.device)
     _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cache, cond_len, n_heads, stamps)
-    d = stamps.diff().double().cpu().reshape(n_layers, len(PHASE_NAMES)) / 1e3
-    return dict(zip(PHASE_NAMES, d.sum(0).tolist()))
+    return dict(zip(PHASE_NAMES, phase_split(stamps, n_layers).tolist()))
+
+
+def phase_split(stamps: torch.Tensor, n_layers: int) -> torch.Tensor:
+    """Block 0's stamps (…, 7·L + 1), one launch a row → µs of each phase
+    summed over the layers (…, 7), float64 on the stamps' device (queued
+    there, with no synchronize)."""
+    d = stamps.diff(dim=-1).double()
+    return d.view(*d.shape[:-1], n_layers, len(PHASE_NAMES)).sum(-2) / 1e3
 
 
 def fused_decode_step(packed, x, cross_k, cross_v, offset: int, k_cache, v_cache, cond_len=None,
-                      *, n_heads: int):
+                      *, n_heads: int, timers=None):
     """All decoder layers of one AR step → (y (B, H), k_cache, v_cache);
-    the caches are updated in place at row `offset`."""
+    the caches are updated in place at row `offset`. `timers`, on CUDA
+    tensors only: an int64 row of 7·L + 1 that the kernel fills with block
+    0's device clock after each grid sync (see phase_times)."""
     if x.device.type == "cuda":
         return _fused_decode_step_cuda(packed, x, cross_k, cross_v, offset, k_cache, v_cache,
-                                       cond_len, n_heads)
+                                       cond_len, n_heads, timers)
     if x.device.type == "cpu":
         return fused_decode_step_plain(packed, x, cross_k, cross_v, offset, k_cache, v_cache,
                                        cond_len, n_heads=n_heads)

@@ -38,6 +38,7 @@ from ..models.flux.model import FluxConfig, flux_forward, init_flux, tiny_flux_c
 from ..models.t5.t5 import T5Config, init_t5_encoder, t5_encode, tiny_t5_config
 from ..ops.tiling import batched_apply, tiled_decode_2d
 from ..runtime.device import as_device, make_generator, synchronize, to_device
+from ..runtime.profiling import span
 
 
 # ------------------------------------------------------------ latent packing
@@ -208,16 +209,17 @@ class FluxPipeline:
         return t5_tokens, clip_tokens
 
     def prepare_conditioning(self, n_images: int, t5_tokens, clip_tokens):
-        txt = t5_encode(self.params["t5"], self.t5_cfg, t5_tokens, self.w8a8, self.tp).to(self.dtype)
-        if txt.shape[0] == 1 and n_images > 1:
-            txt = txt.expand(n_images, *txt.shape[1:])
-        txt_ids = torch.zeros((n_images, txt.shape[1], 3), dtype=torch.int32, device=txt.device)
-        vec = clip_text_forward(self.params["clip"], self.clip_cfg, clip_tokens,
-                                self.w8a8)["pooled_output"]
-        vec = vec.to(self.dtype)
-        if vec.shape[0] == 1 and n_images > 1:
-            vec = vec.expand(n_images, *vec.shape[1:])
-        return txt, txt_ids, vec
+        with span("fgt.flux.cond", t5_tokens.device):
+            txt = t5_encode(self.params["t5"], self.t5_cfg, t5_tokens, self.w8a8, self.tp).to(self.dtype)
+            if txt.shape[0] == 1 and n_images > 1:
+                txt = txt.expand(n_images, *txt.shape[1:])
+            txt_ids = torch.zeros((n_images, txt.shape[1], 3), dtype=torch.int32, device=txt.device)
+            vec = clip_text_forward(self.params["clip"], self.clip_cfg, clip_tokens,
+                                    self.w8a8)["pooled_output"]
+            vec = vec.to(self.dtype)
+            if vec.shape[0] == 1 and n_images > 1:
+                vec = vec.expand(n_images, *vec.shape[1:])
+            return txt, txt_ids, vec
 
     # -------------------------------------------------- denoising
 
@@ -245,7 +247,8 @@ class FluxPipeline:
     def _denoise_steps(self, x_t, x_ids, txt, txt_ids, vec, ts, g, start: int = 0):
         """Euler steps start .. len(ts) − 2, yielding each step's latent."""
         for i in range(start, ts.shape[0] - 1):
-            x_t = self._step(x_t, x_ids, txt, txt_ids, vec, ts[i], ts[i + 1], g)
+            with span("fgt.flux.step"):
+                x_t = self._step(x_t, x_ids, txt, txt_ids, vec, ts[i], ts[i + 1], g)
             yield x_t
 
     def denoise_latents(self, x_t, x_ids, txt, txt_ids, vec, num_steps: int, guidance: float):
@@ -286,7 +289,6 @@ class FluxPipeline:
         """Latents → images, one image at a time past one 1024² image's
         latents, each in overlapping tiles (autoencoder.decode_tiled) above
         128² latents."""
-        z = unpack_latents(x, h, w)
         params, cfg = self.params["ae"], self.ae_cfg
 
         def one(zi):
@@ -294,11 +296,12 @@ class FluxPipeline:
                 return ae_mod.decode_tiled(params, cfg, zi)
             return ae_mod.decode(params, cfg, zi)
 
-        img = batched_apply(one, z, pixel_limit=128 * 128)
-        img = torch.clamp(img + 1, 0, 2) * 0.5
-        if as_uint8:
-            img = (torch.clamp(img, 0, 1).float() * 255).to(torch.uint8)
-        return img
+        with span("fgt.flux.vae", x.device):
+            img = batched_apply(one, unpack_latents(x, h, w), pixel_limit=128 * 128)
+            img = torch.clamp(img + 1, 0, 2) * 0.5
+            if as_uint8:
+                img = (torch.clamp(img, 0, 1).float() * 255).to(torch.uint8)
+            return img
 
     def decode(self, x, latent_size: Tuple[int, int] = (64, 64)):
         return self._decode(x, *latent_size, as_uint8=False)

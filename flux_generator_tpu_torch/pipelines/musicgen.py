@@ -29,6 +29,7 @@ from ..models.musicgen import model as mg
 from ..models.musicgen.encodec import EncodecModel, tiny_encodec_config
 from ..models.t5.t5 import T5Config, init_t5_encoder, t5_encode, tiny_t5_config
 from ..runtime.device import as_device, make_generator, synchronize
+from ..runtime.profiling import span
 
 MIN_STEPS, MAX_STEPS = 8, 2500  # the durations a request may ask for (about 50 s at most)
 
@@ -115,12 +116,13 @@ class MusicGenPipeline:
         """Prompt → projected T5 features (1, S, hidden) in the pipeline dtype."""
         if self.tokenizer is None:
             raise RuntimeError("pipeline built without a tokenizer")
-        tokens = torch.tensor(self.tokenizer.encode(text, pad=False), dtype=torch.long,
-                              device=self.device)
-        if tokens.dim() == 1:
-            tokens = tokens[None]
-        feats = t5_encode(self.t5_params, self.t5_cfg, tokens, self.w8a8).to(self.dtype)
-        return mg.condition_text(self.params, feats, self.w8a8)
+        device = self.device
+        with span("fgt.musicgen.cond", device):
+            tokens = torch.tensor(self.tokenizer.encode(text, pad=False), dtype=torch.long, device=device)
+            if tokens.dim() == 1:
+                tokens = tokens[None]
+            feats = t5_encode(self.t5_params, self.t5_cfg, tokens, self.w8a8).to(self.dtype)
+            return mg.condition_text(self.params, feats, self.w8a8)
 
     def _mark(self, trace, key, t0):
         """With a trace, the seconds since t0 under `key`, ended by a device
@@ -148,7 +150,8 @@ class MusicGenPipeline:
 
     def _decode(self, codes):
         """codes (n, K, T) → waveforms (n, T·hop, C)."""
-        return self.audio_decoder.decode(codes[None], [None])
+        with span("fgt.musicgen.codec", codes.device):
+            return self.audio_decoder.decode(codes[None], [None])
 
     def generate(self, text: str, max_steps: int = 200, top_k: int = 250, temp: float = 1.0,
                  guidance_coef: float = 3.0, seed: Optional[int] = None, conditioning=None,

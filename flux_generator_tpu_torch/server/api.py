@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import functools
 import io
 import threading
 import time
@@ -32,6 +33,7 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
+from ..runtime.profiling import current_request, interval, span
 from .schemas import SDAPIRequest, SDAPIResponse
 
 
@@ -59,6 +61,30 @@ def to_latent_size(size: Tuple[int, int]) -> Tuple[int, int]:
 
 class QueueFullError(RuntimeError):
     """Raised when the bounded request queue is full → HTTP 429."""
+
+
+def _request(fn):
+    """fn as one request: a `fgt.engine.request` span, with an id of its own
+    that the spans it encloses and its coalesced items carry."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with span("fgt.engine.request", new_request=True):
+            return fn(*args, **kwargs)
+    return call
+
+
+@contextlib.contextmanager
+def _batch(items):
+    """A batch of coalesced items: records each item's wait since it was
+    queued (`fgt.engine.admit`) and holds a `fgt.engine.batch` span with the
+    ids of the requests it serves."""
+    now = time.time_ns()
+    for it in items:
+        interval("fgt.engine.admit", it["queued"], now, it["request"])
+    with span("fgt.engine.batch") as sp:
+        if sp is not None:
+            sp.attrs["requests"] = sorted({it["request"] for it in items if it["request"] is not None})
+        yield
 
 
 class ProgressTracker:
@@ -263,6 +289,7 @@ class FluxAPI:
 
     # -------------------------------------------------- coalesced generation
 
+    @_request
     def generate_coalesced(self, prompt: str, model: str, width: int,
                            height: int, steps: Optional[int], guidance: float,
                            seed: Optional[int], n_images: int = 1,
@@ -290,7 +317,8 @@ class FluxAPI:
         items = [
             {"prompt": prompt,
              "seed": seed + j if seed is not None else None,
-             "event": threading.Event(), "result": None, "error": None}
+             "event": threading.Event(), "result": None, "error": None,
+             "queued": time.time_ns(), "request": current_request()}
             for j in range(n_images)
         ]
         with self._batch_lock:
@@ -308,8 +336,9 @@ class FluxAPI:
                         take, rest = group[:cap], group[cap:]
                         if rest:
                             self._pending[key] = rest
-                    self._run_batch(take, model, width, height, steps,
-                                    guidance, negative)
+                    with _batch(take):
+                        self._run_batch(take, model, width, height, steps,
+                                        guidance, negative)
         except QueueFullError:
             with self._batch_lock:
                 grp = self._pending.get(key, [])
@@ -369,7 +398,7 @@ class FluxAPI:
                             self._latent_preview(x_t, model, latent_size)
                         )
                 for i, it in enumerate(items):
-                    it["result"] = _png_data_url(
+                    it["result"] = _encode(
                         _fetch_u8(pipeline, x_t[i : i + 1])[0]
                     )
                     self.progress.step()
@@ -383,7 +412,7 @@ class FluxAPI:
                         latent_size=latent_size, seed=it["seed"],
                     ):
                         self.progress.step()
-                    it["result"] = _png_data_url(
+                    it["result"] = _encode(
                         _fetch_u8(pipeline, x_t[0:1])[0]
                     )
             self.last_stats = {"total_s": round(_time.time() - t_start, 3),
@@ -417,7 +446,7 @@ class FluxAPI:
                     it["prompt"], num_steps=steps, guidance=guidance,
                     latent_size=latent_size, seed=it["seed"],
                 ))
-                it["result"] = _png_data_url(img[0])
+                it["result"] = _encode(img[0])
                 self.progress.step()
                 self.last_stats = {
                     "total_s": round(_time.time() - t_start, 3),
@@ -442,7 +471,7 @@ class FluxAPI:
                             self.progress.set_preview(
                                 self._latent_preview(x_t, flux_model, latent_size)
                             )
-                    it["result"] = _png_data_url(
+                    it["result"] = _encode(
                         _fetch_u8(pipeline, x_t[0:1], latent_size)[0]
                     )
                     self.progress.step()
@@ -467,7 +496,7 @@ class FluxAPI:
                     )
             images = []
             for i in range(n):
-                images.append(_png_data_url(
+                images.append(_encode(
                     _fetch_u8(pipeline, x_t[i : i + 1], latent_size)[0]
                 ))
                 self.progress.step()
@@ -559,6 +588,7 @@ class FluxAPI:
             info=f"Generated with Flux {request.model} model{stat_str}",
         )
 
+    @_request
     def generate_images(
         self,
         prompt: str,
@@ -636,7 +666,7 @@ class FluxAPI:
 
                     images.append(Image.fromarray(arr))
                 else:
-                    images.append(_png_data_url(arr))
+                    images.append(_encode(arr))
             # per-request phase stats (the UI's stats panel), with the
             # device's peak memory
             from ..runtime.profiling import peak_memory_gb
@@ -670,6 +700,7 @@ class FluxAPI:
 
     # -------------------------------------------------- img2img
 
+    @_request
     def img2img(self, request) -> SDAPIResponse:
         """A1111 /sdapi/v1/img2img, for the SD family and Flux
         (generate_latents_from_image)."""
@@ -728,7 +759,7 @@ class FluxAPI:
                 self.progress.step()
             images = []
             for i in range(request.batch_size):
-                images.append(_png_data_url(
+                images.append(_encode(
                     _fetch_u8(pipeline, x_t[i : i + 1], latent_size)[0]
                 ))
             self.progress.start("", 0)
@@ -740,6 +771,7 @@ class FluxAPI:
 
     # -------------------------------------------------- music
 
+    @_request
     def generate_music(self, prompt: str, max_steps: int = 500, top_k: int = 250,
                        temperature: float = 1.0, guidance: float = 3.0,
                        seed: Optional[int] = None, n_samples: int = 1):
@@ -754,7 +786,8 @@ class FluxAPI:
         items = [
             {"prompt": prompt, "steps": max_steps,
              "seed": seed + j if seed is not None else None,
-             "event": threading.Event(), "result": None, "error": None}
+             "event": threading.Event(), "result": None, "error": None,
+             "queued": time.time_ns(), "request": current_request()}
             for j in range(n_samples)
         ]
         with self._batch_lock:
@@ -770,7 +803,8 @@ class FluxAPI:
                         take, rest = group[:4], group[4:]
                         if rest:
                             self._pending[key] = rest
-                    self._run_music_batch(take, top_k, temperature, guidance)
+                    with _batch(take):
+                        self._run_music_batch(take, top_k, temperature, guidance)
         except QueueFullError:
             with self._batch_lock:
                 grp = self._pending.get(key, [])
@@ -883,6 +917,12 @@ def _png_data_url(arr) -> str:
     buf = io.BytesIO()
     Image.fromarray(arr).save(buf, format="PNG")
     return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+def _encode(arr) -> str:
+    """A served image's PNG data URL, in a `fgt.engine.encode` span."""
+    with span("fgt.engine.encode"):
+        return _png_data_url(arr)
 
 
 def _fetch_u8(pipeline, x, latent_size=None):

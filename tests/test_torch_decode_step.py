@@ -300,3 +300,47 @@ def test_cuda_launches_are_reproducible(w_dtype):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_served_loop_stamps_sum_to_each_launchs_device_time():
+    """While a profiler records, the served AR loop (models/musicgen/model.
+    generate) hands D a row of stamps a step: at MusicGen-medium's width and
+    depth each step's stamped phases sum to within 5% of that launch's
+    device time, the split names D's seven phases, and the codes equal
+    those of the same loop with no profiler (and so no stamps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from flux_generator_tpu_torch.models.musicgen import model as mg
+    from flux_generator_tpu_torch.runtime import profiling
+
+    cfg = mg.MusicGenConfig(codebook_size=64, bos_token_id=64, text_d_model=64)
+    g = torch.Generator("cuda").manual_seed(0)
+    params = mg.init_musicgen(g, cfg, torch.bfloat16, "cuda")
+    cond = (torch.randn((2, 12, cfg.hidden_size), generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    steps = 24
+
+    def run():
+        gens = [torch.Generator("cuda").manual_seed(i) for i in range(2)]
+        return mg.generate(params, cfg, cond, steps, 8, 1.0, 3.0, generators=gens, cond_len=[12, 7])
+
+    plain = run()
+    torch.cuda.synchronize()
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stamped = run()
+        torch.cuda.synchronize()
+    assert torch.equal(plain, stamped)
+    (ar,) = [s for s in profiling.spans() if s["name"] == "fgt.musicgen.ar" and s["start_ns"] >= t0]
+    launches = sorted((e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                      if "decode_step_kernel" in e.name() and e.device_type().name != "CPU")
+    assert len(launches) == len(ar["d_step_ms"]) == steps
+    for (_, ns), ms in zip(launches, ar["d_step_ms"]):
+        assert abs(ms * 1e6 - ns) <= 0.05 * ns, (ms, ns / 1e6)
+    assert tuple(ar["d_phase_ms"]) == ds.PHASE_NAMES and all(v > 0 for v in ar["d_phase_ms"].values())
+    assert sum(ar["d_phase_ms"].values()) == pytest.approx(sum(ar["d_step_ms"]))
+    assert ar["device_ms"] > sum(ar["d_step_ms"])
